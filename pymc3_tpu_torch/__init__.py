@@ -1,0 +1,24 @@
+"""pymc3_tpu_torch: the PyTorch/CUDA port of pymc3_tpu.
+
+Same public names as the JAX package for the ported slice: the model DSL,
+Normal/HalfNormal/HalfCauchy/Gamma/MvNormal, GP marginal regression, NUTS
+with pooled or per-chain adaptation, ``sample()``, traces and diagnostics.
+Imports torch and numpy only, never jax or pymc3_tpu.
+"""
+from .config import floatX, intX, get_config, set_config
+from . import node
+from . import math
+from .model import (
+    Model, modelcontext, Point, Deterministic, Potential, FreeRV, ObservedRV,
+    TransformedRV, ValueGradFunction,
+)
+from .distributions import *  # noqa: F401,F403
+from .distributions import transforms
+from . import distributions
+from .exceptions import *  # noqa: F401,F403
+from .step_methods import NUTS
+from .backends.base import MultiTrace
+from .backends.ndarray import NDArray
+from .sampling import sample, init_nuts
+from .stats import ess, rhat, mcse, summary
+from . import gp

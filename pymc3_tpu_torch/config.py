@@ -1,0 +1,69 @@
+"""Global configuration: the float and int widths of the port.
+
+Mirrors ``pymc3_tpu/config.py`` without the JAX compile-cache and Pallas
+dispatch settings, which have no counterpart in eager PyTorch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = ["floatX", "intX", "torch_floatX", "get_config", "set_config",
+           "Config"]
+
+
+@dataclasses.dataclass
+class Config:
+    """Typed global configuration.
+
+    ``floatX`` is the float width of every continuous computation (float32
+    by default, as on the card); ``intX`` follows it (int32 or int64).
+    """
+
+    floatX: str = "float32"
+    intX: str = "int32"
+
+
+_config = Config()
+
+
+def get_config() -> Config:
+    return _config
+
+
+def set_config(**kwargs: Any) -> Config:
+    """Update config fields; returns the config object."""
+    for k, v in kwargs.items():
+        if not hasattr(_config, k):
+            raise KeyError(f"unknown config field {k!r}")
+        setattr(_config, k, v)
+    _config.intX = "int64" if _config.floatX == "float64" else "int32"
+    return _config
+
+
+def torch_floatX() -> torch.dtype:
+    """The torch dtype of ``floatX``."""
+    return getattr(torch, _config.floatX)
+
+
+def floatX(x=None):
+    """Cast ``x`` (numpy) to the configured float dtype, or return its name."""
+    if x is None:
+        return _config.floatX
+    if isinstance(x, (list, tuple)):
+        return np.asarray(x, dtype=_config.floatX)
+    if hasattr(x, "astype"):
+        return x.astype(_config.floatX)
+    return np.asarray(x, dtype=_config.floatX)
+
+
+def intX(x=None):
+    """Cast ``x`` (numpy) to the configured int dtype, or return its name."""
+    if x is None:
+        return _config.intX
+    if hasattr(x, "astype"):
+        return x.astype(_config.intX)
+    return np.asarray(x, dtype=_config.intX)

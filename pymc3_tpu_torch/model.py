@@ -1,0 +1,444 @@
+"""Model core: the DSL runtime (cf. ``pymc3_tpu/model.py``).
+
+``Model`` is a context-managed registry of free, observed and deterministic
+variables. Its factor list contracts into one function of the flat
+unconstrained vector, ``logp_point(q)``, written for one point; the sampler
+sees only :class:`ValueGradFunction`, which batches that function over
+chains with ``torch.func.vmap`` and differentiates the batch with autograd.
+
+Every model constant lives on ``Model(device=...)`` (torch's default device,
+the CPU unless changed, when not given).
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .blocking import ArrayOrdering, DictToArrayBijection
+from .config import floatX, torch_floatX
+from .memoize import WithMemoization
+from .node import Node, NamedNode, ConstantNode, as_node, _ev
+from .torchf import batched_value_and_grad
+from .util import get_transformed_name, get_var_name
+from .vartypes import continuous_types
+
+__all__ = ["Model", "modelcontext", "Point", "Deterministic", "Potential",
+           "FreeRV", "ObservedRV", "TransformedRV", "DeterministicRV",
+           "ValueGradFunction"]
+
+
+class ContextMeta(type):
+    """Thread-local context stack so `with model:` registers variables
+    (cf. ``model.py:243``). Subclasses share one stack."""
+
+    def __call__(cls, *args, **kwargs):
+        instance = cls.__new__(cls, *args, **kwargs)
+        with instance:
+            instance.__init__(*args, **kwargs)
+        return instance
+
+    @property
+    def context_class(cls):
+        root = cls
+        for base in cls.__mro__:
+            if isinstance(base, ContextMeta):
+                root = base
+        return root
+
+    def get_contexts(cls) -> List:
+        root = cls.context_class
+        if "_contexts" not in root.__dict__:
+            root._contexts = threading.local()
+        if not hasattr(root._contexts, "stack"):
+            root._contexts.stack = []
+        return root._contexts.stack
+
+    def get_context(cls, error_if_none=True):
+        stack = cls.get_contexts()
+        if not stack:
+            if error_if_none:
+                raise TypeError(f"No {cls.__name__} on context stack")
+            return None
+        return stack[-1]
+
+
+def modelcontext(model: Optional["Model"]) -> "Model":
+    """The given model or the ambient context model (cf. ``model.py:356``)."""
+    if model is None:
+        model = Model.get_context(error_if_none=False)
+        if model is None:
+            raise TypeError("No model on context stack.")
+    return model
+
+
+class FreeRV(NamedNode):
+    """Unobserved random variable in *unconstrained* space
+    (cf. ``model.py:1420``). For transformed distributions this is the
+    ``name_{transform}__`` variable the samplers see."""
+
+    def __init__(self, name, distribution, model, transform=None,
+                 orig_name=None):
+        self.name = name
+        self.distribution = distribution
+        self.model = model
+        self.transform = transform
+        self.orig_name = orig_name or name
+        shape = tuple(distribution.shape)
+        self.unconstrained_shape = shape
+        testval = distribution.default()
+        if transform is not None:
+            testval = transform.forward_val(floatX(testval))
+        self._test_value = floatX(np.broadcast_to(testval, shape))
+        self._default = torch.as_tensor(self._test_value, device=model.device)
+
+    @property
+    def dtype(self):
+        return np.dtype(floatX())
+
+    def _eval_default(self, env, memo):
+        return self._default
+
+    def logp_env(self, env, memo):
+        """Summed logp term incl. transform jacobian."""
+        z = _ev(self, env, memo)
+        if self.transform is not None:
+            x = self.transform.backward(z)
+            jac = self.transform.jacobian_det(z)
+            lp = self.distribution.logp(x, env, memo)
+            return torch.sum(lp) + torch.sum(jac)
+        return torch.sum(self.distribution.logp(z, env, memo))
+
+
+class TransformedRV(NamedNode):
+    """User-facing view of a transformed FreeRV: ``x = backward(x_log__)``
+    (cf. ``model.py:1707``)."""
+
+    def __init__(self, name, distribution, transform, transformed_rv, model):
+        self.name = name
+        self.distribution = distribution
+        self.transform = transform
+        self.transformed = transformed_rv
+        self.transformed_name = transformed_rv.name
+        self.model = model
+        self._test_value = floatX(
+            transform.backward_val(transformed_rv.test_value))
+
+    @property
+    def dtype(self):
+        return np.dtype(floatX())
+
+    def _eval_default(self, env, memo):
+        return self.transform.backward(_ev(self.transformed, env, memo))
+
+
+class ObservedRV(NamedNode):
+    """Observed variable (cf. ``model.py:1534``); the data is a constant on
+    the model's device."""
+
+    def __init__(self, name, data, distribution, model):
+        self.name = name
+        self.distribution = distribution
+        self.model = model
+        data = np.asarray(data.test_value if isinstance(data, Node) else data)
+        if data.dtype.kind == "f":
+            data = floatX(data)
+        self.data = data
+        self._test_value = data
+        self._data = torch.as_tensor(data, device=model.device)
+        if not distribution.shape and data.ndim > 0:
+            distribution.shape = tuple(data.shape)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def _eval_default(self, env, memo):
+        return self._data
+
+    def logp_env(self, env, memo):
+        return torch.sum(self.distribution.logp(self._data, env, memo))
+
+
+class DeterministicRV(NamedNode):
+    """A named deterministic quantity (cf. ``model.py:1667``)."""
+
+    def __init__(self, name, expr, model):
+        self.name = name
+        self.expr = as_node(expr)
+        self.model = model
+        self._test_value = np.asarray(self.expr.test_value)
+
+    def _eval_default(self, env, memo):
+        return _ev(self.expr, env, memo)
+
+
+class Model(WithMemoization, metaclass=ContextMeta):
+    """The variables and likelihood factors of a model (cf. ``model.py:716``).
+
+    ``device``: where every constant of the model lives and where its logp
+    runs; torch's default device when not given.
+    """
+
+    def __new__(cls, *args, **kwargs):
+        instance = object.__new__(cls)
+        instance._parent = kwargs.get("model") or cls.get_context(
+            error_if_none=False)
+        return instance
+
+    def __init__(self, name="", model=None, device=None):
+        self.name = name
+        if device is None:
+            device = (self.parent.device if self.parent is not None
+                      else torch.get_default_device())
+        self.device = torch.device(device)
+        if self.parent is not None:
+            self.named_vars = self.parent.named_vars
+            self.free_RVs = self.parent.free_RVs
+            self.observed_RVs = self.parent.observed_RVs
+            self.deterministics = self.parent.deterministics
+            self.potentials = self.parent.potentials
+            self._factor_order = self.parent._factor_order
+        else:
+            self.named_vars: Dict[str, Node] = {}
+            self.free_RVs: List[FreeRV] = []
+            self.observed_RVs: List[ObservedRV] = []
+            self.deterministics: List[DeterministicRV] = []
+            self.potentials: List[Node] = []
+            self._factor_order: List = []  # declaration-ordered factors
+
+    @property
+    def parent(self):
+        return self._parent
+
+    def __enter__(self):
+        type(self).get_contexts().append(self)
+        return self
+
+    def __exit__(self, typ, value, traceback):
+        type(self).get_contexts().pop()
+
+    # -- naming -------------------------------------------------------------
+    @property
+    def prefix(self):
+        return f"{self.name}_" if self.name else ""
+
+    def name_for(self, name):
+        if self.prefix and not name.startswith(self.prefix):
+            return f"{self.prefix}{name}"
+        return name
+
+    def __getitem__(self, key):
+        try:
+            return self.named_vars[key]
+        except KeyError:
+            return self.named_vars[self.name_for(key)]
+
+    def __contains__(self, key):
+        return key in self.named_vars or self.name_for(key) in self.named_vars
+
+    # -- registration -------------------------------------------------------
+    def Var(self, name, dist, data=None):
+        """Create and register a variable (cf. ``model.py:975``)."""
+        name = self.name_for(name)
+        if name in self.named_vars:
+            raise ValueError(f"Variable name {name} already exists.")
+        if data is not None:
+            var = ObservedRV(name, data, dist, self)
+            self.add_named_variable(var)
+            self.observed_RVs.append(var)
+            self._factor_order.append(var)
+            return var
+        transform = getattr(dist, "transform", None)
+        if transform is None:
+            var = FreeRV(name, dist, self)
+            self.add_named_variable(var)
+            self.free_RVs.append(var)
+            self._factor_order.append(var)
+            return var
+        zname = get_transformed_name(name, transform)
+        if zname in self.named_vars:
+            raise ValueError(f"Variable name {zname} already exists.")
+        zvar = FreeRV(zname, dist, self, transform=transform, orig_name=name)
+        self.add_named_variable(zvar)
+        self.free_RVs.append(zvar)
+        self._factor_order.append(zvar)
+        var = TransformedRV(name, dist, transform, zvar, self)
+        self.add_named_variable(var)
+        zvar.view_rv = var
+        return var
+
+    def add_named_variable(self, var):
+        if var.name in self.named_vars:
+            raise ValueError(f"Variable name {var.name} already exists.")
+        self.named_vars[var.name] = var
+
+    # -- variable views -----------------------------------------------------
+    @property
+    def vars(self):
+        """Sampling-space (unconstrained) free variables."""
+        return list(self.free_RVs)
+
+    @property
+    def unobserved_RVs(self):
+        """Untransformed views, raw free RVs, and deterministics."""
+        out = [rv.view_rv for rv in self.free_RVs
+               if getattr(rv, "view_rv", None) is not None]
+        out.extend(self.free_RVs)
+        out.extend(self.deterministics)
+        return out
+
+    @property
+    def cont_vars(self):
+        return [v for v in self.free_RVs
+                if str(v.distribution.dtype) in continuous_types]
+
+    @property
+    def test_point(self) -> Dict[str, np.ndarray]:
+        """Test point in unconstrained space (cf. ``model.py:946``)."""
+        return {v.name: v.test_value for v in self.free_RVs}
+
+    @property
+    def ndim(self):
+        return sum(int(np.prod(v.unconstrained_shape, dtype=int))
+                   for v in self.free_RVs)
+
+    @property
+    def ordering(self) -> ArrayOrdering:
+        return ArrayOrdering(self.free_RVs)
+
+    @property
+    def bijection(self) -> DictToArrayBijection:
+        return DictToArrayBijection(self.ordering, self.test_point)
+
+    def dict_to_array(self, point) -> np.ndarray:
+        return floatX(self.bijection.map(point))
+
+    def array_to_dict(self, q) -> Dict[str, np.ndarray]:
+        return self.bijection.rmap(q)
+
+    # -- logp construction --------------------------------------------------
+    def _env_from_q(self, q, ordering=None):
+        """Decode one flat unconstrained point into an env holding both the
+        transformed and the constrained values. A caller that decodes many
+        points passes the ``ordering`` it computed once."""
+        env = {}
+        for vm in (self.ordering if ordering is None else ordering).vmap:
+            env[vm.var] = q[vm.slc].reshape(vm.shp)
+        for rv in self.free_RVs:
+            if rv.transform is not None:
+                env[rv.orig_name] = rv.transform.backward(env[rv.name])
+        return env
+
+    def logp_from_env(self, env, memo=None):
+        """Total logp given an env of free-RV values."""
+        memo = {} if memo is None else memo
+        terms = [factor.logp_env(env, memo) for factor in self._factor_order]
+        terms += [torch.sum(_ev(pot, env, memo)) for pot in self.potentials]
+        return sum(terms[1:], terms[0])
+
+    def logp_point(self, q, ordering=None):
+        """Scalar logp of one flat point ``q: (n,)`` (cf. model.py:574-599)."""
+        return self.logp_from_env(self._env_from_q(q, ordering))
+
+    def logp_dlogp_function(self):
+        """cf. ``model.py:885`` — returns a :class:`ValueGradFunction`."""
+        return ValueGradFunction(self)
+
+    # -- host-side conveniences ---------------------------------------------
+    def _point_to_env(self, point):
+        env = {k: torch.as_tensor(np.asarray(v), device=self.device)
+               for k, v in point.items()}
+        for rv in self.free_RVs:
+            if rv.transform is not None and rv.name in env \
+                    and rv.orig_name not in env:
+                env[rv.orig_name] = rv.transform.backward(env[rv.name])
+        return env
+
+    def logp(self, point=None):
+        """Host-side total logp at a Point (transformed-space names)."""
+        point = point if point is not None else self.test_point
+        return float(self.logp_from_env(self._point_to_env(point)))
+
+    def check_test_point(self, test_point=None):
+        """Per-factor logp at the test point (cf. ``model.py:1199``)."""
+        env = self._point_to_env(test_point or self.test_point)
+        memo = {}
+        return {f.name: float(f.logp_env(env, memo))
+                for f in self._factor_order}
+
+    def makefn(self, outs):
+        """A Point -> numpy values function (cf. ``model.py:1081``)."""
+        single = not isinstance(outs, (list, tuple))
+        outs_list = [outs] if single else list(outs)
+
+        def f(point):
+            env = self._point_to_env(point)
+            memo = {}
+            vals = [_ev(as_node(o), env, memo).detach().cpu().numpy()
+                    for o in outs_list]
+            return vals[0] if single else vals
+        return f
+
+    def __str__(self):
+        return f"Model({self.name or 'unnamed'}: {len(self.free_RVs)} free, " \
+               f"{len(self.observed_RVs)} observed, on {self.device})"
+
+    __repr__ = __str__
+
+
+def all_continuous(vars) -> bool:
+    return all(str(np.dtype(v.distribution.dtype)) in continuous_types
+               for v in vars if hasattr(v, "distribution"))
+
+
+def Point(*args, model=None, **kwargs) -> Dict[str, np.ndarray]:
+    """Build a point dict (cf. ``model.py:1331``)."""
+    modelcontext(model)
+    return {get_var_name(k): np.asarray(v)
+            for k, v in dict(*args, **kwargs).items()}
+
+
+def Deterministic(name, var, model=None):
+    """Register a named deterministic (cf. ``model.py:1667``)."""
+    model = modelcontext(model)
+    det = DeterministicRV(model.name_for(name), var, model)
+    model.add_named_variable(det)
+    model.deterministics.append(det)
+    return det
+
+
+def Potential(name, var, model=None):
+    """Add an arbitrary factor to the joint logp (cf. ``model.py:1688``)."""
+    model = modelcontext(model)
+    node = as_node(var, name=model.name_for(name))
+    model.potentials.append(node)
+    model.named_vars.setdefault(model.name_for(name), node)
+    return node
+
+
+class ValueGradFunction:
+    """Batched ``q: (chains, n) -> (logp (chains,), dlogp (chains, n))``
+    (cf. ``model.py:1052``).
+
+    The model's logp is written for one point; ``torch.func.vmap`` carries
+    the chain dimension through every op (see ``torchf``), and a
+    hand-written kernel on the path (the GP covariance) receives the whole
+    chain batch in one launch through its ``vmap`` rule.
+    """
+
+    def __init__(self, model):
+        self.model = model
+        self.ordering = model.ordering
+        self.size = self.ordering.size
+        self.dtype = torch_floatX()
+        self._vag = batched_value_and_grad(
+            lambda q: model.logp_point(q, self.ordering))
+
+    def __call__(self, q):
+        if q.ndim != 2 or q.shape[1] != self.size:
+            raise ValueError(f"expected q of shape (chains, {self.size}), "
+                             f"got {tuple(q.shape)}")
+        return self._vag(q)

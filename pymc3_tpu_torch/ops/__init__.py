@@ -1,0 +1,1 @@
+"""Hand-written device kernels of the port, each beside its plain version."""

@@ -1,0 +1,286 @@
+"""Sampling driver (cf. ``pymc3_tpu/sampling.py``).
+
+``sample()`` keeps the JAX package's surface for the NUTS path. All chains
+advance together as the leading dimension of ``(chains, n)`` tensors on the
+model's device; a Python loop runs the draws, the random numbers come from
+one ``torch.Generator`` on that device seeded from ``random_seed``, and the
+kept draws are decoded on the device into per-block buffers that are copied
+to the host once per block.
+"""
+from __future__ import annotations
+
+import logging
+import sys
+import time
+import warnings
+from collections import defaultdict
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from .backends.base import MultiTrace
+from .backends.ndarray import NDArray
+from .backends.report import SamplerReport, SamplerWarning, WarningType
+from .config import floatX, torch_floatX
+from .exceptions import SamplingError
+from .model import all_continuous, modelcontext
+from .node import _ev
+from .step_methods.arraystep import TuneContext
+from .step_methods.hmc.nuts import NUTS, GeneratorNoise, find_reasonable_eps
+from .step_methods.hmc.quadpotential import QuadPotentialDiagAdapt
+from .util import update_start_vals
+
+__all__ = ["sample", "init_nuts"]
+
+_log = logging.getLogger("pymc3_tpu_torch")
+
+# elements of (chains x draws x traced values) held on the device per block
+_BLOCK_BUDGET = int(5e7)
+
+
+def sample(draws=500, step=None, init="auto", start=None, trace=None,
+           chain_idx=0, chains=None, cores=None, tune=500, progressbar=True,
+           model=None, random_seed=None, discard_tuned_samples=True,
+           compute_convergence_checks=True, target_accept=None,
+           axis_name=None, record_stats=None, **kwargs):
+    """Draw samples from the posterior with NUTS (cf. ``sampling.py:230``).
+
+    ``chains`` is the batch dimension (default 4); ``cores`` is accepted
+    for API parity and ignored. ``trace`` may list the variables to record;
+    ``record_stats`` lists the sampler statistics to keep ("diverging" is
+    always kept). ``axis_name`` (any value) pools step-size and mass-matrix
+    adaptation over all chains. NUTS arguments go by name:
+    ``nuts={"max_treedepth": 8}``.
+    """
+    model = modelcontext(model)
+    if not model.free_RVs:
+        raise ValueError("The model does not contain any free variables.")
+    if chains is None:
+        chains = max(4, cores or 0)
+    nuts_kwargs = dict(kwargs.pop("nuts", {}))
+    if kwargs:
+        raise ValueError(f"Unknown keyword argument(s) for sample: "
+                         f"{sorted(kwargs)!r}")
+    if target_accept is not None:
+        nuts_kwargs["target_accept"] = target_accept
+    if random_seed is None:
+        random_seed = np.random.randint(0, 2 ** 30)
+    random_seed = int(np.asarray(random_seed).ravel()[0])
+    draws, tune = int(draws), int(tune)
+    if draws + tune <= 0:
+        raise ValueError("Argument `draws` must be greater than 0.")
+
+    if step is None:
+        if not all_continuous(model.free_RVs):
+            raise NotImplementedError("only continuous models (NUTS) are "
+                                      "ported")
+        start_points, step = init_nuts(
+            init=init, chains=chains, model=model, random_seed=random_seed,
+            axis_name=axis_name, **nuts_kwargs)
+    elif not isinstance(step, NUTS):
+        raise NotImplementedError("only the NUTS stepper is ported")
+    else:
+        start_points = [model.test_point] * chains
+    chain_starts = start_points if start is None else (
+        [start] * chains if isinstance(start, dict) else list(start))
+
+    q0 = np.stack([model.dict_to_array(_complete_point(model, p))
+                   for p in chain_starts]).astype(floatX())
+    _check_bad_init(model, chain_starts[0])
+    trace_vars = _resolve_trace_vars(model, trace)
+
+    keep_from = tune if discard_tuned_samples else 0
+    t_start = time.time()
+    result = _device_sample(model, step, q0, draws, tune, random_seed,
+                            progressbar, keep_from, trace_vars, record_stats)
+    t_sampling = time.time() - t_start
+
+    mtrace = MultiTrace(_flush_to_traces(model, step, result, chain_idx,
+                                         trace_vars))
+    mtrace._report = SamplerReport()
+    mtrace.report._n_tune = tune
+    mtrace.report._n_draws = draws
+    mtrace.report._t_sampling = t_sampling
+    _attach_divergence_warnings(mtrace)
+    if compute_convergence_checks:
+        if draws < 100:
+            warnings.warn("The number of samples is too small to check "
+                          "convergence reliably.")
+        else:
+            mtrace.report._run_convergence_checks(mtrace, model)
+    mtrace.report._log_summary()
+    return mtrace
+
+
+def _complete_point(model, point):
+    """Fill a (possibly partial, possibly untransformed) start point."""
+    start = dict(point or {})
+    update_start_vals(start, model.test_point, model)
+    return {k: v for k, v in start.items() if k in model.ordering.by_name}
+
+
+def _check_bad_init(model, start):
+    """'Bad initial energy' check with per-factor attribution."""
+    point = _complete_point(model, start)
+    if not np.isfinite(model.logp(point)):
+        raise SamplingError(
+            f"Initial evaluation of model at starting point failed!\n"
+            f"Starting values:\n{point}\n\nInitial evaluation results:\n"
+            f"{model.check_test_point(point)}")
+
+
+def _resolve_trace_vars(model, trace):
+    """A list-valued ``trace`` selects the unobserved variables to record."""
+    if trace is None:
+        return model.unobserved_RVs
+    if not isinstance(trace, (list, tuple)):
+        raise NotImplementedError("only the NDArray trace is ported; pass "
+                                  "trace=None or a list of variable names")
+    by_name = {v.name: v for v in model.unobserved_RVs}
+    out = []
+    for item in trace:
+        name = item if isinstance(item, str) else getattr(item, "name", None)
+        if name not in by_name:
+            raise ValueError(f"trace list entries must name unobserved model "
+                             f"variables; got {item!r}")
+        out.append(by_name[name])
+    return out
+
+
+def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
+                   keep_from, trace_vars, record_stats):
+    """Run warmup and draws over all chains at once.
+
+    Returns ``values`` {name: (chains, n_kept, ...)} and ``stats``
+    {name: (chains, n_kept)} on the host, and the final kernel state.
+    """
+    device = model.device
+    chains, dim = q0.shape
+    total = draws + tune
+    gen = torch.Generator(device=device)
+    gen.manual_seed(random_seed)
+    noise = GeneratorNoise(gen, chains, dim, device)
+    q = torch.as_tensor(q0, dtype=torch_floatX(), device=device)
+
+    if tune > 0 and step.adapt_step_size:
+        step.step_size = find_reasonable_eps(step, q, noise)
+    state = step.kernel_init(q)
+
+    ordering = model.ordering
+
+    def decode(qp):
+        env = model._env_from_q(qp, ordering)
+        memo = {}
+        return {v.name: _ev(v, env, memo) for v in trace_vars}
+    decode_batch = torch.func.vmap(decode)
+
+    stat_names = [k for k in step.stats_dtypes[0]
+                  if record_stats is None or k in record_stats
+                  or k == "diverging"]
+    n_keep = total - keep_from
+    width = sum(max(1, int(np.prod(np.shape(v.test_value))))
+                for v in trace_vars) + len(stat_names)
+    block = max(1, min(n_keep, _BLOCK_BUDGET // max(1, chains * width)))
+    host_vals = defaultdict(list)
+    host_stats = defaultdict(list)
+    buf_vals, buf_stats = defaultdict(list), defaultdict(list)
+
+    def flush():
+        for name, rows in buf_vals.items():
+            host_vals[name].append(torch.stack(rows, 1).cpu().numpy())
+        for name, rows in buf_stats.items():
+            host_stats[name].append(torch.stack(rows, 1).cpu().numpy())
+        buf_vals.clear()
+        buf_stats.clear()
+
+    t0 = time.time()
+    for idx in range(total):
+        tctx = TuneContext(idx < tune, idx, tune)
+        q, state, stats = step.kernel_step(state, tctx, noise)
+        if idx < keep_from:
+            continue
+        for name, val in decode_batch(q).items():
+            buf_vals[name].append(val)
+        for name in stat_names:
+            buf_stats[name].append(stats[name])
+        if len(buf_stats[stat_names[0]]) == block or idx == total - 1:
+            flush()
+            if progressbar:
+                sys.stderr.write(f"\rSampling {chains} chains: {idx + 1}/"
+                                 f"{total} draws ({time.time() - t0:.1f} s)")
+    if progressbar:
+        sys.stderr.write("\n")
+
+    def cat(chunks):
+        return np.concatenate(chunks, axis=1)
+    return {"values": {k: cat(v) for k, v in host_vals.items()},
+            "stats": {k: cat(v) for k, v in host_stats.items()},
+            "final_state": state, "n_kept": n_keep}
+
+
+def _flush_to_traces(model, step, result, chain_idx, trace_vars):
+    """Record the (chains, n_kept, ...) host blocks into one NDArray per
+    chain."""
+    values, stats = result["values"], result["stats"]
+    nkept = result["n_kept"]
+    dtypes = {k: dt for k, dt in step.stats_dtypes[0].items() if k in stats}
+    chains = next(iter(stats.values())).shape[0] if stats else 0
+    traces = []
+    for ci in range(chains):
+        strace = NDArray(model=model, vars=trace_vars)
+        strace.setup(nkept, chain_idx + ci, [dtypes])
+        if nkept:
+            strace.record_batch(
+                {k: v[ci] for k, v in values.items()}, nkept,
+                [{k: stats[k][ci].astype(dt) for k, dt in dtypes.items()}])
+        strace.close()
+        traces.append(strace)
+    return traces
+
+
+def _attach_divergence_warnings(mtrace):
+    report = mtrace.report
+    div = mtrace.get_sampler_stats("diverging", combine=False, squeeze=False)
+    for chain, d in zip(mtrace.chains, div):
+        n = int(np.sum(d))
+        if n:
+            report._add_warnings([SamplerWarning(
+                WarningType.DIVERGENCES,
+                f"Chain {chain} had {n} diverging samples after tuning.",
+                "warn", None, None, None)], chain)
+
+
+def init_nuts(init="auto", chains=1, model=None, random_seed=None,
+              axis_name=None, **kwargs):
+    """NUTS with its mass-matrix initialization (cf. ``sampling.py:930``).
+
+    Only ``jitter+adapt_diag`` (also what "auto" selects) is ported. The
+    jitter comes from numpy's global generator seeded with ``random_seed``,
+    so the start points equal the JAX package's for the same seed.
+    """
+    model = modelcontext(model)
+    if not all_continuous(model.vars):
+        raise ValueError("init_nuts can only be used for models with only "
+                         "continuous variables.")
+    if not isinstance(init, str):
+        raise TypeError("init must be a string.")
+    init = init.lower()
+    if init == "auto":
+        init = "jitter+adapt_diag"
+    if init != "jitter+adapt_diag":
+        raise NotImplementedError(f"init={init!r}: only jitter+adapt_diag "
+                                  "is ported")
+    if random_seed is not None:
+        np.random.seed(int(np.atleast_1d(random_seed)[0]))
+
+    q0 = model.dict_to_array(model.test_point).astype(floatX())
+    n = q0.shape[0]
+    start = [model.array_to_dict(
+        q0 + np.random.uniform(-1, 1, size=n).astype(floatX()))
+        for _ in range(chains)]
+    mean = np.stack([model.dict_to_array(p) for p in start]).mean(axis=0)
+    potential = QuadPotentialDiagAdapt(n, mean, np.ones_like(mean), 10)
+    step = NUTS(potential=potential, model=model, axis_name=axis_name,
+                **kwargs)
+    return start, step

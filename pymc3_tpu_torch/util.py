@@ -1,0 +1,32 @@
+"""Naming/startpoint utilities, mirroring ``pymc3/util.py``."""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+__all__ = ["get_transformed_name", "get_var_name", "update_start_vals"]
+
+
+def get_transformed_name(name: str, transform) -> str:
+    """``x`` + Log -> ``x_log__`` (cf. ``pymc3/util.py:50``)."""
+    return f"{name}_{transform.name}__"
+
+
+def get_var_name(var) -> str:
+    return getattr(var, "name", None) or str(var)
+
+
+def update_start_vals(a: Dict, b: Dict, model) -> None:
+    """Update a with b, transforming untransformed entries to match model
+    (cf. ``pymc3/util.py:147``)."""
+    if model is not None:
+        for name in list(a):
+            rv = model.named_vars.get(name)
+            if rv is not None and hasattr(rv, "transformed_name") and rv.transformed_name:
+                tname = rv.transformed_name
+                if tname not in a:
+                    a[tname] = np.asarray(rv.transform.forward_val(np.asarray(a[name])))
+    for k, v in b.items():
+        if k not in a:
+            a[k] = v
