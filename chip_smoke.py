@@ -18,9 +18,23 @@ a non-zero exit and no result line:
    500 tune + 500 draws, 4 chains) sampled by NUTS through the kernel;
    moment check against ``BASELINE_CPU.json`` and R-hat < 1.01;
 5. the radon model of ``bench.py`` at 2048 chains with pooled adaptation,
-   1000 tune + 400 draws (the draws are cut from 500 to keep the whole run
-   well inside 20 minutes); moment check of ``mu_a`` and R-hat < 1.01;
-6. a JSON line describing every kernel, then the result line
+   600 tune + 400 draws (tune cut from 1000 and draws from 500, to keep the
+   whole run under 1000 s; ``PERF.md``); moment check of ``mu_a`` and
+   R-hat < 1.01;
+6. BEST (``scripts/bench_suite.py::best_model``, 47 + 42 rows, StudentT
+   likelihoods) at 256 chains, pooled, 500 tune + 200 draws; moment check
+   of ``difference_of_means`` and R-hat < 1.01; then the posterior
+   predictive of both groups at all 51,200 draws on the card: shapes,
+   finiteness, and the median of the ``drug`` draws against the posterior
+   median of ``group1_mean`` within four Monte-Carlo standard errors;
+7. the 3-component mixture (``pymc3_tpu_torch/examples/suite.py``, 1000
+   rows, Dirichlet weights, ordered means, Gamma precisions) at 512
+   chains, pooled, 500 tune + 200 draws; moment check of ``mu`` and R-hat
+   < 1.01; the posterior predictive of ``x_obs`` at all 102,400 draws
+   (mean and sd against the data's) and 100,000 prior predictive draws
+   (weights on the simplex, means of ``mu`` and ``tau`` against their
+   priors);
+8. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -171,9 +185,17 @@ def _gate(pm, trace, names, ref, wall, label):
     rhat_max = max(float(np.max(rhat[v])) for v in names)
     ess_min = min(float(np.min(ess[v])) for v in names)
     n_div = int(np.sum(trace.get_sampler_stats("diverging")))
+    depth = ""
+    if "depth" in trace.stat_names:
+        # (chains, draws): a batched NUTS step lasts as long as its
+        # deepest lane's tree
+        d = np.stack(trace.get_sampler_stats("depth", combine=False,
+                                             squeeze=False))
+        depth = (f", mean tree depth {d.mean():.2f}, deepest lane "
+                 f"{d.max(axis=0).mean():.2f}")
     print(f"{label}: wall {wall:.2f} s, min ESS {ess_min:.1f}, ESS/s "
           f"{ess_min / wall:.2f}, max R-hat {rhat_max:.4f}, divergences "
-          f"{n_div}, moment check {check}", flush=True)
+          f"{n_div}{depth}, moment check {check}", flush=True)
     if not check["pass"]:
         fail(f"{label} posterior moments disagree with BASELINE_CPU.json")
     if not rhat_max < 1.01:
@@ -199,7 +221,7 @@ def phase_gp(pm, gp_cov, draws=500, tune=500, chains=4):
     return launches
 
 
-def phase_radon(pm, draws=400, tune=1000, chains=2048):
+def phase_radon(pm, draws=400, tune=600, chains=2048):
     from pymc3_tpu_torch.examples.radon import build_model
     with torch.device("cuda"):
         model = build_model(pm)
@@ -215,7 +237,110 @@ def phase_radon(pm, draws=400, tune=1000, chains=2048):
           f"radon chains={chains} tune={tune} draws={draws}")
 
 
+def _median_se(x, n_eff):
+    """Standard error of a sample median: sqrt(pi/2) sd / sqrt(n_eff), with
+    the sd read robustly from the interquartile range."""
+    q1, q3 = np.quantile(x, [0.25, 0.75])
+    return np.sqrt(np.pi / 2.0) * (q3 - q1) / 1.349 / np.sqrt(n_eff)
+
+
+def phase_best(pm, draws=200, tune=500, chains=256):
+    from bench_suite import best_model
+    with torch.device("cuda"):
+        model, names = best_model(pm)
+    t0 = time.time()
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      progressbar=False, random_seed=2,
+                      axis_name="chains_local",
+                      compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    _gate(pm, trace, names, _baseline()["best"]["moments"], wall,
+          f"best chains={chains} tune={tune} draws={draws}")
+
+    n = chains * draws
+    t0 = time.time()
+    ppc = pm.sample_posterior_predictive(trace, model=model, random_seed=3)
+    pwall = time.time() - t0
+    # the JAX package returns (samples, *observed shape) per observed var
+    want = {"drug": (n, 47), "placebo": (n, 42)}
+    got = {k: v.shape for k, v in ppc.items()}
+    if got != want:
+        fail(f"best predictive shapes {got}, expected {want}")
+    if not all(np.isfinite(v).all() for v in ppc.values()):
+        fail("best predictive draws are not all finite")
+    # the median, not the mean: the StudentT has no variance where nu <= 2.
+    # Each draw sits on its own posterior draw of group1_mean, so both
+    # medians carry that variable's Monte-Carlo error (its ESS)
+    g1 = trace.get_values("group1_mean", combine=True)
+    ess = float(np.min(pm.ess(trace, var_names=["group1_mean"])
+                       ["group1_mean"]))
+    drug = ppc["drug"].ravel()
+    tol = 4.0 * np.hypot(_median_se(drug, ess), _median_se(g1, ess))
+    diff = abs(float(np.median(drug)) - float(np.median(g1)))
+    print(f"best predictive: {n} draws x (47 + 42) in {pwall:.2f} s, all "
+          f"finite; median drug {np.median(drug):.4f} against median "
+          f"group1_mean {np.median(g1):.4f}, |diff| {diff:.4f} < tol "
+          f"{tol:.4f}", flush=True)
+    if not diff < tol:
+        fail("best predictive median disagrees with the posterior")
+
+
+def phase_mixture(pm, draws=200, tune=500, chains=512,
+                  prior_samples=100_000):
+    from pymc3_tpu_torch.examples.suite import mixture_model
+    with torch.device("cuda"):
+        model, names = mixture_model(pm)
+    t0 = time.time()
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      progressbar=False, random_seed=2,
+                      axis_name="chains_local",
+                      compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    _gate(pm, trace, names, _baseline()["mixture"]["moments"], wall,
+          f"mixture chains={chains} tune={tune} draws={draws}")
+
+    n = chains * draws
+    x = model["x_obs"].data.astype(np.float64)
+    t0 = time.time()
+    ppc = pm.sample_posterior_predictive(trace, model=model, random_seed=3)
+    pwall = time.time() - t0
+    draws_x = ppc["x_obs"]
+    if draws_x.shape != (n, x.size) or not np.isfinite(draws_x).all():
+        fail(f"mixture predictive: shape {draws_x.shape}, expected "
+             f"{(n, x.size)}, or draws not finite")
+    mean = float(np.mean(draws_x, dtype=np.float64))
+    sd = float(np.std(draws_x, dtype=np.float64))
+    mean_tol = 4.0 * x.std() / np.sqrt(x.size)
+    print(f"mixture predictive: {draws_x.size} values in {pwall:.2f} s; "
+          f"mean {mean:.4f} against data {x.mean():.4f} (tol {mean_tol:.4f})"
+          f", sd {sd:.4f} against data {x.std():.4f} (tol 5%)", flush=True)
+    if not abs(mean - x.mean()) < mean_tol:
+        fail("mixture predictive mean disagrees with the data")
+    if not abs(sd / x.std() - 1.0) < 0.05:
+        fail("mixture predictive sd disagrees with the data")
+
+    t0 = time.time()
+    prior = pm.sample_prior_predictive(samples=prior_samples, model=model,
+                                       random_seed=4)
+    prwall = time.time() - t0
+    simplex = float(np.abs(prior["w"].sum(-1) - 1.0).max())
+    # priors: mu ~ N(0, 10), tau ~ Gamma(1, 1) (mean 1, sd 1)
+    z_mu = np.abs(prior["mu"].mean(0)) / (10.0 / np.sqrt(prior_samples))
+    z_tau = np.abs(prior["tau"].mean(0) - 1.0) / (1.0 / np.sqrt(prior_samples))
+    print(f"mixture prior predictive: {prior_samples} samples in "
+          f"{prwall:.2f} s; max |sum(w) - 1| {simplex:.2e}; z of mean mu "
+          f"{np.round(z_mu, 2).tolist()}, of mean tau "
+          f"{np.round(z_tau, 2).tolist()}", flush=True)
+    if not simplex < 1e-5:
+        fail("mixture prior weights leave the simplex")
+    if not (np.all(z_mu < 4.0) and np.all(z_tau < 4.0)):
+        fail("mixture prior means disagree with the priors")
+
+
 def main():
+    t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
@@ -228,6 +353,9 @@ def main():
     max_err, timings = phase_kernel(gp_cov, card)
     launches = phase_gp(pm, gp_cov)
     phase_radon(pm)
+    phase_best(pm)
+    phase_mixture(pm)
+    print(f"phases 1-7: {time.time() - t_start:.1f} s", flush=True)
 
     ms, plain_ms = timings[(4, 200, 200, 1)]
     print(json.dumps({"kernels": [{

@@ -1,9 +1,11 @@
 """pymc3_tpu_torch: the PyTorch/CUDA port of pymc3_tpu.
 
 Same public names as the JAX package for the ported slice: the model DSL,
-Normal/HalfNormal/HalfCauchy/Gamma/MvNormal, GP marginal regression, NUTS
-with pooled or per-chain adaptation, ``sample()``, traces and diagnostics.
-Imports torch and numpy only, never jax or pymc3_tpu.
+the 30 continuous distributions, every transform, ``Bound``,
+``Mixture``/``NormalMixture``, ``Dirichlet`` and ``MvNormal``, GP marginal
+regression, NUTS with pooled or per-chain adaptation, ``sample()``, prior
+and posterior predictive draws, traces and diagnostics. Imports torch and
+numpy only, never jax or pymc3_tpu.
 """
 from .config import floatX, intX, get_config, set_config
 from . import node
@@ -19,6 +21,9 @@ from .exceptions import *  # noqa: F401,F403
 from .step_methods import NUTS
 from .backends.base import MultiTrace
 from .backends.ndarray import NDArray
-from .sampling import sample, init_nuts
+from .sampling import (
+    sample, init_nuts, sample_prior_predictive, sample_posterior_predictive,
+    fast_sample_posterior_predictive, sample_posterior_predictive_w,
+)
 from .stats import ess, rhat, mcse, summary
 from . import gp

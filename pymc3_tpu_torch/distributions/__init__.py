@@ -1,8 +1,28 @@
 """Distributions library (cf. ``pymc3_tpu/distributions/__init__.py``)."""
 from . import transforms
-from .distribution import Distribution, Continuous
-from .continuous import Normal, HalfNormal, HalfCauchy, Gamma
-from .multivariate import MvNormal
+from .distribution import (
+    Distribution, Continuous, Discrete, NoDistribution, DensityDist,
+    TransformedDistribution, draw_values, generate_samples,
+)
+from .continuous import (
+    Uniform, Flat, HalfFlat, Normal, TruncatedNormal, HalfNormal, Wald, Beta,
+    Kumaraswamy, Exponential, Laplace, Lognormal, StudentT, Pareto, Cauchy,
+    HalfCauchy, Gamma, InverseGamma, ChiSquared, Weibull, HalfStudentT,
+    ExGaussian, VonMises, SkewNormal, Triangular, Gumbel, Rice, Logistic,
+    LogitNormal, Interpolated,
+)
+from .multivariate import MvNormal, Dirichlet
+from .mixture import Mixture, NormalMixture
+from .bound import Bound
 
-__all__ = ["Normal", "HalfNormal", "HalfCauchy", "Gamma", "MvNormal",
-           "Distribution", "Continuous", "transforms"]
+__all__ = [
+    "Uniform", "Flat", "HalfFlat", "Normal", "TruncatedNormal", "HalfNormal",
+    "Wald", "Beta", "Kumaraswamy", "Exponential", "Laplace", "Lognormal",
+    "StudentT", "Pareto", "Cauchy", "HalfCauchy", "Gamma", "InverseGamma",
+    "ChiSquared", "Weibull", "HalfStudentT", "ExGaussian", "VonMises",
+    "SkewNormal", "Triangular", "Gumbel", "Rice", "Logistic", "LogitNormal",
+    "Interpolated", "MvNormal", "Dirichlet", "Mixture", "NormalMixture",
+    "Bound", "Distribution", "Continuous", "Discrete", "NoDistribution",
+    "DensityDist", "TransformedDistribution", "draw_values",
+    "generate_samples", "transforms",
+]

@@ -1,28 +1,67 @@
 """Numeric helpers for log-densities (cf. ``pymc3_tpu/distributions/dist_math.py``).
 
-Only what the ported distributions use. All are tensor functions that
-batch under ``torch.func.vmap``: no data-dependent Python control flow.
+Tensor functions that batch under ``torch.func.vmap``: no data-dependent
+Python control flow. Two pieces have no torch counterpart of the XLA
+intrinsic the JAX package calls:
+
+- ``incomplete_beta``: torch has no ``betainc``. The port evaluates the
+  regularized incomplete beta by its continued fraction (modified Lentz,
+  Numerical Recipes 6.4) with a fixed trip count in float64, inside an
+  ``autograd.Function`` whose gradient in ``x`` is the Beta density;
+- ``interp``: ``jnp.interp``'s clamped linear interpolation, through
+  ``torch.searchsorted``.
+
+The random-draw helpers take an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-__all__ = ["bound", "alltrue_elemwise", "logpow"]
+from ..config import floatX, torch_floatX
+
+__all__ = [
+    "bound", "alltrue_elemwise", "alltrue_scalar", "logpow", "factln",
+    "betaln", "binomln", "std_cdf", "normal_lcdf", "normal_lccdf",
+    "log_diff_normal_cdf", "sigma2rho", "rho2sigma", "log_normal",
+    "SplineWrapper", "i0e", "i1e", "incomplete_beta", "betainc",
+    "random_choice", "zvalue", "clipped_beta_rvs", "interp",
+]
+
+
+def _as_cond(c, like):
+    if isinstance(c, torch.Tensor):
+        return c
+    return torch.as_tensor(bool(c), device=like.device)
 
 
 def alltrue_elemwise(conditions):
-    """Elementwise AND over boolean tensors (broadcasting)."""
-    conds = [torch.as_tensor(c) for c in conditions]
-    ret = conds[0]
-    for c in conds[1:]:
-        ret = ret & c
+    """Elementwise AND over boolean tensors (broadcasting); ``None`` when
+    every condition is the constant ``True``."""
+    ret = None
+    for c in conditions:
+        if c is True:
+            continue
+        ret = c if ret is None else ret & c
     return ret
 
 
-def bound(logp, *conditions):
+def alltrue_scalar(conditions):
+    return torch.stack([torch.all(c) for c in conditions]).all()
+
+
+def bound(logp, *conditions, broadcast_conditions=True):
     """``logp`` where all conditions hold, ``-inf`` elsewhere
-    (cf. ``pymc3/dist_math.py:38``)."""
-    return torch.where(alltrue_elemwise(conditions), logp, -torch.inf)
+    (cf. ``pymc3/dist_math.py:38``). With ``broadcast_conditions=False``
+    the conditions reduce to one scalar gate (multivariate logps)."""
+    if broadcast_conditions:
+        cond = alltrue_elemwise(conditions)
+        if cond is None:
+            return logp
+    else:
+        cond = alltrue_scalar([_as_cond(c, logp) for c in conditions])
+    return torch.where(_as_cond(cond, logp), logp, -torch.inf)
 
 
 def logpow(x, m):
@@ -31,3 +70,275 @@ def logpow(x, m):
     inner = torch.where(m == 0, 0.0, -torch.inf)
     return torch.where(zero, inner,
                        m * torch.log(torch.where(zero, 1.0, x)))
+
+
+def factln(n):
+    return torch.special.gammaln(n + 1.0)
+
+
+def betaln(x, y):
+    gl = torch.special.gammaln
+    return gl(x) + gl(y) - gl(x + y)
+
+
+def binomln(n, k):
+    return factln(n) - factln(k) - factln(n - k)
+
+
+def std_cdf(x):
+    """Standard normal CDF (cf. ``dist_math.py:98``)."""
+    return torch.special.ndtr(x)
+
+
+def zvalue(value, mu=0.0, sigma=1.0):
+    return (value - mu) / sigma
+
+
+def normal_lcdf(mu, sigma, x):
+    """log Phi((x - mu) / sigma), stable in both tails (cf. ``dist_math.py:105``)."""
+    return torch.special.log_ndtr((x - mu) / sigma)
+
+
+def normal_lccdf(mu, sigma, x):
+    """log(1 - Phi((x - mu) / sigma)) (cf. ``dist_math.py:114``)."""
+    return torch.special.log_ndtr(-(x - mu) / sigma)
+
+
+def _logdiffexp(a, b):
+    return a + torch.log1p(-torch.exp(torch.clamp(b - a, max=-1e-12)))
+
+
+def log_diff_normal_cdf(mu, sigma, x, y):
+    """log(Phi((x - mu)/s) - Phi((y - mu)/s)) for x > y
+    (cf. ``dist_math.py:124``): the right tail goes through lccdf."""
+    x_z = (x - mu) / sigma
+    y_z = (y - mu) / sigma
+    return torch.where(
+        (x_z > 0) & (y_z > 0),
+        _logdiffexp(normal_lccdf(mu, sigma, y), normal_lccdf(mu, sigma, x)),
+        _logdiffexp(normal_lcdf(mu, sigma, x), normal_lcdf(mu, sigma, y)))
+
+
+def sigma2rho(sigma):
+    """sigma -> softplus-inverse rho (cf. ``dist_math.py:155``)."""
+    return torch.log(torch.expm1(torch.abs(sigma)))
+
+
+def rho2sigma(rho):
+    """rho -> softplus sigma (cf. ``dist_math.py:164``)."""
+    return F.softplus(rho)
+
+
+rho2sd = rho2sigma
+sd2rho = sigma2rho
+
+
+def log_normal(x, mean, **kwargs):
+    """Normal log-density by sd, tau, w or rho (cf. ``dist_math.py:140``)."""
+    sigma = kwargs.get("sigma", kwargs.get("sd"))
+    w = kwargs.get("w")
+    rho = kwargs.get("rho")
+    tau = kwargs.get("tau")
+    eps = kwargs.get("eps", 0.0)
+    check = sum(v is not None for v in [sigma, w, rho, tau])
+    if check > 1:
+        raise ValueError("more than one required kwarg is passed")
+    if check == 0:
+        raise ValueError("none of required kwarg is passed")
+    if sigma is not None:
+        std = sigma
+    elif w is not None:
+        std = torch.exp(w)
+    elif rho is not None:
+        std = rho2sigma(rho)
+    else:
+        std = tau ** (-0.5)
+    std = std + eps
+    return -0.5 * ((x - mean) / std) ** 2 - torch.log(std) \
+        - 0.5 * np.log(2.0 * np.pi)
+
+
+def interp(x, xp, fp):
+    """Piecewise-linear interpolation of ``fp`` over increasing ``xp``,
+    clamped to the end values outside the grid (``jnp.interp``)."""
+    n = xp.shape[-1]
+    i = torch.searchsorted(xp, x.detach().contiguous()).clamp(1, n - 1)
+    x0, x1 = xp[i - 1], xp[i]
+    f0, f1 = fp[i - 1], fp[i]
+    y = f0 + (x - x0) / (x1 - x0) * (f1 - f0)
+    return torch.where(x < xp[0], fp[0], torch.where(x > xp[-1], fp[-1], y))
+
+
+class SplineWrapper:
+    """A fixed scipy spline as a differentiable tensor function.
+
+    The spline is sampled densely once, on the host, when the wrapper is
+    made (cf. ``dist_math.py:251``); calls interpolate that grid on the
+    argument's device.
+    """
+
+    def __init__(self, spline, x_lo=None, x_hi=None, n=4096):
+        self.spline = spline
+        knots = getattr(spline, "get_knots", lambda: None)()
+        if x_lo is None:
+            x_lo = float(knots[0]) if knots is not None else 0.0
+        if x_hi is None:
+            x_hi = float(knots[-1]) if knots is not None else 1.0
+        grid = np.linspace(x_lo, x_hi, n)
+        self.x_grid = floatX(grid)
+        self.y_grid = floatX(np.asarray(spline(grid)))
+        self._on = {}
+
+    def __call__(self, x):
+        if x.device not in self._on:
+            self._on[x.device] = (
+                torch.as_tensor(self.x_grid, device=x.device),
+                torch.as_tensor(self.y_grid, device=x.device))
+        xp, fp = self._on[x.device]
+        return interp(x, xp, fp)
+
+
+def i0e(x):
+    """Exponentially scaled modified Bessel I0 (cf. ``dist_math.py:288``)."""
+    return torch.special.i0e(x)
+
+
+def i1e(x):
+    return torch.special.i1e(x)
+
+
+# -- regularized incomplete beta --------------------------------------------
+# Trip count of the continued fraction. Each trip is two of its terms; it
+# converges in O(sqrt(max(a, b))) trips, so 200 carries float64 precision
+# well past the parameters any model here uses (a, b up to ~1e4).
+_BETAINC_TRIPS = 200
+_TINY = 1e-300
+
+
+def _betacf(a, b, x):
+    """Continued fraction of I_x(a, b), modified Lentz, fixed trip count."""
+    qab, qap, qam = a + b, a + 1.0, a - 1.0
+
+    def fix(v):
+        return torch.where(torch.abs(v) < _TINY, _TINY, v)
+
+    c = torch.ones_like(x)
+    d = 1.0 / fix(1.0 - qab * x / qap)
+    h = d
+    for m in range(1, _BETAINC_TRIPS + 1):
+        m2 = 2.0 * m
+        aa = m * (b - m) * x / ((qam + m2) * (a + m2))
+        d = 1.0 / fix(1.0 + aa * d)
+        c = fix(1.0 + aa / c)
+        h = h * d * c
+        aa = -(a + m) * (qab + m) * x / ((a + m2) * (qap + m2))
+        d = 1.0 / fix(1.0 + aa * d)
+        c = fix(1.0 + aa / c)
+        h = h * d * c
+    return h
+
+
+def _betainc_f64(a, b, x):
+    """I_x(a, b) in float64 for broadcast tensors."""
+    inside = (x > 0) & (x < 1)
+    xs = torch.where(inside, x, 0.5)
+    # the fraction converges fast for x < (a + 1) / (a + b + 2); past it,
+    # use I_x(a, b) = 1 - I_{1-x}(b, a)
+    swap = xs >= (a + 1.0) / (a + b + 2.0)
+    a2 = torch.where(swap, b, a)
+    b2 = torch.where(swap, a, b)
+    x2 = torch.where(swap, 1.0 - xs, xs)
+    log_front = (a2 * torch.log(x2) + b2 * torch.log1p(-x2)
+                 - betaln(a2, b2))
+    part = torch.exp(log_front) * _betacf(a2, b2, x2) / a2
+    val = torch.where(swap, 1.0 - part, part)
+    return torch.where(x <= 0, 0.0, torch.where(x >= 1, 1.0, val))
+
+
+class _BetaInc(torch.autograd.Function):
+    """Regularized incomplete beta with its gradient in ``x`` (the Beta
+    density). Its derivative in ``a`` and ``b`` is not implemented and
+    raises, as torch's ``gammainc`` does in its shape argument."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, b, x):
+        a64, b64, x64 = torch.broadcast_tensors(a.double(), b.double(),
+                                                x.double())
+        return _betainc_f64(a64, b64, x64).to(x.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b, x = ctx.saved_tensors
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            raise NotImplementedError(
+                "the derivative of the incomplete beta in its shape "
+                "parameters a, b is not implemented")
+        inside = (x > 0) & (x < 1)
+        xs = torch.where(inside, x, 0.5)
+        dens = torch.exp((a - 1.0) * torch.log(xs)
+                         + (b - 1.0) * torch.log1p(-xs) - betaln(a, b))
+        gx = grad * torch.where(inside, dens, 0.0)
+        return None, None, _sum_to(gx, x.shape)
+
+
+def _sum_to(g, shape):
+    """Reduce a broadcast gradient back to ``shape``."""
+    while g.ndim > len(shape):
+        g = g.sum(0)
+    for i, s in enumerate(shape):
+        if s == 1 and g.shape[i] != 1:
+            g = g.sum(i, keepdim=True)
+    return g
+
+
+def betainc(a, b, x):
+    """Regularized incomplete beta I_x(a, b) on tensors."""
+    x = torch.as_tensor(x)
+    a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    b = torch.as_tensor(b, dtype=x.dtype, device=x.device)
+    return _BetaInc.apply(a, b, x)
+
+
+def incomplete_beta(a, b, value):
+    """Regularized incomplete beta I_x(a, b) (cf. ``dist_math.py:216``)."""
+    return betainc(a, b, value)
+
+
+# -- random draws ------------------------------------------------------------
+def random_choice(p, size=None, gen=None):
+    """Categorical draws from (batched) probability rows on ``p``'s device
+    (cf. ``dist_math.py:225``): one draw per row, or ``size`` draws from a
+    single row."""
+    p = torch.as_tensor(p)
+    p = p / p.sum(-1, keepdim=True)
+    if p.ndim > 1:
+        target = (tuple(np.atleast_1d(size)) if size is not None
+                  else tuple(p.shape[:-1]))
+        rows = torch.broadcast_to(p, target + p.shape[-1:]).reshape(
+            -1, p.shape[-1])
+        return torch.multinomial(rows, 1, replacement=True,
+                                 generator=gen).reshape(target)
+    target = tuple(np.atleast_1d(size)) if size is not None else ()
+    n = int(np.prod(target, dtype=int)) if target else 1
+    out = torch.multinomial(p, n, replacement=True, generator=gen)
+    return out.reshape(target)
+
+
+def clipped_beta_rvs(a, b, size=None, gen=None, dtype=None):
+    """Beta draws clipped away from 0 and 1 by the float's epsilon
+    (cf. ``dist_math.py:553``), made from two float64 gamma draws."""
+    a = torch.as_tensor(a, dtype=torch.float64)
+    b = torch.as_tensor(b, dtype=torch.float64)
+    shape = (tuple(np.atleast_1d(size)) if size is not None
+             else np.broadcast_shapes(tuple(a.shape), tuple(b.shape)))
+    ga = torch._standard_gamma(a.expand(shape).contiguous(), generator=gen)
+    gb = torch._standard_gamma(b.expand(shape).contiguous(), generator=gen)
+    dtype = dtype or torch_floatX()
+    eps = torch.finfo(dtype).eps
+    return torch.clamp(ga / (ga + gb), eps, 1.0 - eps).to(dtype)

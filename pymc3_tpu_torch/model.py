@@ -19,6 +19,9 @@ import torch
 
 from .blocking import ArrayOrdering, DictToArrayBijection
 from .config import floatX, torch_floatX
+from .distributions.distribution import (
+    BatchedPoint, _as_tensor, make_generator,
+)
 from .memoize import WithMemoization
 from .node import Node, NamedNode, ConstantNode, as_node, _ev
 from .torchf import batched_value_and_grad
@@ -77,7 +80,9 @@ def modelcontext(model: Optional["Model"]) -> "Model":
 class FreeRV(NamedNode):
     """Unobserved random variable in *unconstrained* space
     (cf. ``model.py:1420``). For transformed distributions this is the
-    ``name_{transform}__`` variable the samplers see."""
+    ``name_{transform}__`` variable the samplers see; its shape is the
+    transform's ``forward_shape`` of the distribution's (one less on the
+    last axis for the simplex transforms)."""
 
     def __init__(self, name, distribution, model, transform=None,
                  orig_name=None):
@@ -87,10 +92,11 @@ class FreeRV(NamedNode):
         self.transform = transform
         self.orig_name = orig_name or name
         shape = tuple(distribution.shape)
-        self.unconstrained_shape = shape
         testval = distribution.default()
         if transform is not None:
+            shape = tuple(transform.forward_shape(shape))
             testval = transform.forward_val(floatX(testval))
+        self.unconstrained_shape = shape
         self._test_value = floatX(np.broadcast_to(testval, shape))
         self._default = torch.as_tensor(self._test_value, device=model.device)
 
@@ -105,8 +111,8 @@ class FreeRV(NamedNode):
         """Summed logp term incl. transform jacobian."""
         z = _ev(self, env, memo)
         if self.transform is not None:
-            x = self.transform.backward(z)
-            jac = self.transform.jacobian_det(z)
+            x = self.transform.backward(z, env, memo)
+            jac = self.transform.jacobian_det(z, env, memo)
             lp = self.distribution.logp(x, env, memo)
             return torch.sum(lp) + torch.sum(jac)
         return torch.sum(self.distribution.logp(z, env, memo))
@@ -131,7 +137,8 @@ class TransformedRV(NamedNode):
         return np.dtype(floatX())
 
     def _eval_default(self, env, memo):
-        return self.transform.backward(_ev(self.transformed, env, memo))
+        return self.transform.backward(_ev(self.transformed, env, memo),
+                                       env, memo)
 
 
 class ObservedRV(NamedNode):
@@ -327,9 +334,20 @@ class Model(WithMemoization, metaclass=ContextMeta):
         env = {}
         for vm in (self.ordering if ordering is None else ordering).vmap:
             env[vm.var] = q[vm.slc].reshape(vm.shp)
+        self._decode_transformed(env)
+        return env
+
+    def _decode_transformed(self, env):
+        """Add the constrained value of every transformed variable whose
+        unconstrained value is in ``env``, in declaration order, so that a
+        bound's parents are decoded before it (cf. ``model.py:574-583``).
+        Each decode evaluates its bounds afresh (no shared memo): they may
+        read variables decoded just before."""
         for rv in self.free_RVs:
-            if rv.transform is not None:
-                env[rv.orig_name] = rv.transform.backward(env[rv.name])
+            if rv.transform is not None and rv.name in env \
+                    and rv.orig_name not in env:
+                env[rv.orig_name] = rv.transform.backward(env[rv.name], env,
+                                                          {})
         return env
 
     def logp_from_env(self, env, memo=None):
@@ -351,11 +369,7 @@ class Model(WithMemoization, metaclass=ContextMeta):
     def _point_to_env(self, point):
         env = {k: torch.as_tensor(np.asarray(v), device=self.device)
                for k, v in point.items()}
-        for rv in self.free_RVs:
-            if rv.transform is not None and rv.name in env \
-                    and rv.orig_name not in env:
-                env[rv.orig_name] = rv.transform.backward(env[rv.name])
-        return env
+        return self._decode_transformed(env)
 
     def logp(self, point=None):
         """Host-side total logp at a Point (transformed-space names)."""
@@ -381,6 +395,123 @@ class Model(WithMemoization, metaclass=ContextMeta):
                     for o in outs_list]
             return vals[0] if single else vals
         return f
+
+    # -- forward (predictive) sampling ---------------------------------------
+    # Draws come from an explicit ``torch.Generator`` on the model's device
+    # and stay there: these methods return tensors.
+    def _generator(self, gen):
+        return gen if gen is not None else make_generator(self.device)
+
+    def draw_point(self, point=None, gen=None):
+        """One forward draw of every variable in declaration order, given
+        the values already in ``point`` (cf. ``model.py:818``)."""
+        gen = self._generator(gen)
+        point = {k: _as_tensor(v, self.device)
+                 for k, v in (point or {}).items()}
+        for factor in self._factor_order:
+            orig = getattr(factor, "orig_name", factor.name)
+            if orig in point or factor.name in point:
+                continue
+            val = factor.distribution.random(point=point, gen=gen)
+            point[orig] = val
+            if isinstance(factor, FreeRV) and factor.transform is not None:
+                point[factor.name] = factor.transform.forward(val, point, {})
+        memo = {}
+        for det in self.deterministics:
+            if det.name not in point:
+                point[det.name] = _ev(det, point, memo)
+        return point
+
+    def _batched_random(self, dist, point, size, gen):
+        """Draws of ``size + dist.shape`` at a batched point, in one
+        vectorized call: a shape that cannot be drawn so raises."""
+        expect = tuple(size) + tuple(dist.shape)
+        out = dist.random(point=point, size=size, gen=gen)
+        if tuple(out.shape) != expect:
+            out = torch.broadcast_to(out, expect).contiguous()
+        return out
+
+    def _vmap_eval(self, nodes, point):
+        """Named nodes evaluated at every sample of a batched point."""
+        def evaluate_all(env):
+            memo = {}
+            return [_ev(n, env, memo) for n in nodes]
+        return {n.name: v.contiguous()
+                for n, v in zip(nodes, point.vmap(evaluate_all))}
+
+    @staticmethod
+    def _add_transformed(point, rv, forward):
+        """Add a transformed variable's value in its other space at every
+        sample: unconstrained from constrained (``forward``), or back."""
+        src, dst = (rv.orig_name, rv.name) if forward else \
+            (rv.name, rv.orig_name)
+        fn = rv.transform.forward if forward else rv.transform.backward
+        point.add(dst, point.vmap(lambda env: [fn(env[src], env, {})])[0])
+
+    def sample_forward(self, samples, point=None, gen=None):
+        """Prior (predictive) draws ``{name: (samples, *shape)}`` of every
+        variable in declaration order, then the deterministics
+        (cf. ``model.py:863``). Entries of ``point`` whose leading axis is
+        ``samples`` long are per-sample values; the others are shared."""
+        gen = self._generator(gen)
+        vals = {k: _as_tensor(v, self.device)
+                for k, v in (point or {}).items()}
+        batched = {k for k, v in vals.items()
+                   if v.ndim and v.shape[0] == samples}
+        bp = BatchedPoint(vals, batched, samples)
+        for factor in self._factor_order:
+            orig = getattr(factor, "orig_name", factor.name)
+            if orig in bp or factor.name in bp:
+                continue
+            bp.add(orig, self._batched_random(factor.distribution, bp,
+                                              (samples,), gen))
+            if isinstance(factor, FreeRV) and factor.transform is not None:
+                self._add_transformed(bp, factor, forward=True)
+        if self.deterministics:
+            bp.update(self._vmap_eval(self.deterministics, bp))
+        return dict(bp)
+
+    def sample_forward_conditional(self, points, idx, vars, size=None,
+                                   gen=None):
+        """Posterior predictive: ``vars`` drawn forward at the trace points
+        ``idx`` (cf. ``model.py:912``). ``points`` is the trace as stacked
+        arrays ``{name: (n_points, *shape)}``. Returns
+        ``{name: (len(idx), *shape)}``, or ``(len(idx), size, *shape)`` for
+        observed variables when ``size`` is given."""
+        gen = self._generator(gen)
+        idx = np.asarray(idx)
+        n = int(idx.shape[0])
+        bp = BatchedPoint({}, (), n)
+        for k, v in points.items():
+            if isinstance(v, torch.Tensor):
+                v = v[torch.as_tensor(idx, device=v.device)]
+            else:
+                v = np.asarray(v)[idx]
+            bp.add(k, _as_tensor(v, self.device))
+        # constrained views of transformed values, parents first
+        for rv in self.free_RVs:
+            if rv.transform is not None and rv.name in bp \
+                    and rv.orig_name not in bp:
+                self._add_transformed(bp, rv, forward=False)
+        obs_size = (n,) if size is None else (n, int(size))
+        out = {}
+        dets = []
+        for var in vars:
+            var = self.named_vars.get(getattr(var, "name", var), var)
+            if isinstance(var, ObservedRV):
+                out[var.name] = self._batched_random(var.distribution, bp,
+                                                     obs_size, gen)
+            elif isinstance(var, DeterministicRV):
+                dets.append(var)
+            elif isinstance(var, (FreeRV, TransformedRV)):
+                out[var.name] = bp[var.name] if var.name in bp else \
+                    self._batched_random(var.distribution, bp, (n,), gen)
+            else:
+                raise ValueError(f"cannot draw {var!r} forward: not a "
+                                 "random variable or deterministic")
+        if dets:
+            out.update(self._vmap_eval(dets, bp))
+        return out
 
     def __str__(self):
         return f"Model({self.name or 'unnamed'}: {len(self.free_RVs)} free, " \

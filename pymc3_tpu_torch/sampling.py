@@ -6,6 +6,11 @@ model's device; a Python loop runs the draws, the random numbers come from
 one ``torch.Generator`` on that device seeded from ``random_seed``, and the
 kept draws are decoded on the device into per-block buffers that are copied
 to the host once per block.
+
+The predictive entry points draw every variable for all samples at once on
+the model's device, from a ``torch.Generator`` seeded from ``random_seed``
+(the JAX package seeds numpy's global generator and draws on the host), and
+return numpy arrays with the JAX package's keys and shapes.
 """
 from __future__ import annotations
 
@@ -23,15 +28,19 @@ from .backends.base import MultiTrace
 from .backends.ndarray import NDArray
 from .backends.report import SamplerReport, SamplerWarning, WarningType
 from .config import floatX, torch_floatX
+from .distributions.distribution import make_generator
+from .distributions.shape_utils import to_tuple
 from .exceptions import SamplingError
 from .model import all_continuous, modelcontext
 from .node import _ev
 from .step_methods.arraystep import TuneContext
 from .step_methods.hmc.nuts import NUTS, GeneratorNoise, find_reasonable_eps
 from .step_methods.hmc.quadpotential import QuadPotentialDiagAdapt
-from .util import update_start_vals
+from .util import get_var_name, update_start_vals
 
-__all__ = ["sample", "init_nuts"]
+__all__ = ["sample", "init_nuts", "sample_prior_predictive",
+           "sample_posterior_predictive", "fast_sample_posterior_predictive",
+           "sample_posterior_predictive_w"]
 
 _log = logging.getLogger("pymc3_tpu_torch")
 
@@ -39,8 +48,9 @@ _log = logging.getLogger("pymc3_tpu_torch")
 _BLOCK_BUDGET = int(5e7)
 
 
-def sample(draws=500, step=None, init="auto", start=None, trace=None,
-           chain_idx=0, chains=None, cores=None, tune=500, progressbar=True,
+def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
+           trace=None, chain_idx=0, chains=None, cores=None, tune=500,
+           progressbar=True,
            model=None, random_seed=None, discard_tuned_samples=True,
            compute_convergence_checks=True, target_accept=None,
            axis_name=None, record_stats=None, **kwargs):
@@ -76,8 +86,8 @@ def sample(draws=500, step=None, init="auto", start=None, trace=None,
             raise NotImplementedError("only continuous models (NUTS) are "
                                       "ported")
         start_points, step = init_nuts(
-            init=init, chains=chains, model=model, random_seed=random_seed,
-            axis_name=axis_name, **nuts_kwargs)
+            init=init, chains=chains, n_init=n_init, model=model,
+            random_seed=random_seed, axis_name=axis_name, **nuts_kwargs)
     elif not isinstance(step, NUTS):
         raise NotImplementedError("only the NUTS stepper is ported")
     else:
@@ -251,13 +261,15 @@ def _attach_divergence_warnings(mtrace):
                 "warn", None, None, None)], chain)
 
 
-def init_nuts(init="auto", chains=1, model=None, random_seed=None,
-              axis_name=None, **kwargs):
+def init_nuts(init="auto", chains=1, n_init=500000, model=None,
+              random_seed=None, axis_name=None, **kwargs):
     """NUTS with its mass-matrix initialization (cf. ``sampling.py:930``).
 
     Only ``jitter+adapt_diag`` (also what "auto" selects) is ported. The
     jitter comes from numpy's global generator seeded with ``random_seed``,
     so the start points equal the JAX package's for the same seed.
+    ``n_init`` (the iterations of the ADVI initializations) is accepted as
+    in the JAX package; jitter+adapt_diag does not use it.
     """
     model = modelcontext(model)
     if not all_continuous(model.vars):
@@ -284,3 +296,169 @@ def init_nuts(init="auto", chains=1, model=None, random_seed=None,
     step = NUTS(potential=potential, model=model, axis_name=axis_name,
                 **kwargs)
     return start, step
+
+
+# ---------------------------------------------------------------------------
+# Predictive sampling (cf. pymc3_tpu/sampling.py:1036-1198)
+# ---------------------------------------------------------------------------
+class IncorrectArgumentsError(ValueError):
+    pass
+
+
+def _generator(model, random_seed):
+    return make_generator(model.device, None if random_seed is None
+                          else np.atleast_1d(random_seed)[0])
+
+
+def _host(x):
+    return x.detach().cpu().numpy()
+
+
+def sample_prior_predictive(samples=500, model=None, vars=None,
+                            var_names=None, random_seed=None
+                            ) -> Dict[str, np.ndarray]:
+    """Draws from the prior predictive distribution (cf. ``sampling.py:1036``).
+
+    ``samples`` is an int or a size tuple: every draw carries that leading
+    shape, with 1 or (1,) giving unbatched draws, as in the JAX package.
+    """
+    model = modelcontext(model)
+    if vars is None and var_names is None:
+        names = [get_var_name(v) for v in
+                 model.unobserved_RVs + list(model.deterministics)
+                 + model.observed_RVs]
+    elif vars is None:
+        names = list(var_names)
+    elif var_names is None:
+        names = [get_var_name(v) for v in vars]
+    else:
+        raise ValueError("Cannot supply both vars and var_names arguments.")
+
+    size = to_tuple(samples) if samples is not None else ()
+    if size == (1,):
+        size = ()
+    flat = int(np.prod(size, dtype=int)) if size else 1
+    values = model.sample_forward(flat, gen=_generator(model, random_seed))
+    data = {}
+    for name in names:
+        if name in values:
+            out = _host(values[name])
+            data[name] = out.reshape(size + out.shape[1:])
+    if not data:
+        raise AssertionError(
+            f"No variables sampled: attempting to sample {names}")
+    return data
+
+
+def _trace_arrays(trace, model):
+    """The trace as stacked arrays ``{name: (n_points, ...)}``, chain after
+    chain, with its chain count."""
+    if isinstance(trace, MultiTrace):
+        return ({name: trace.get_values(name, combine=True)
+                 for name in trace.varnames}, trace.nchains)
+    if isinstance(trace, dict):
+        arrays = {k: np.asarray(v) for k, v in trace.items()}
+        if len({len(np.atleast_1d(v)) for v in arrays.values()}) != 1:
+            raise ValueError("Arrays in trace dict must have equal length")
+        return arrays, 1
+    if isinstance(trace, list):
+        return ({k: np.stack([np.asarray(p[k]) for p in trace])
+                 for k in trace[0]}, 1)
+    raise TypeError("Unsupported trace type")
+
+
+def _posterior_predictive(trace, samples, model, vars, var_names, size,
+                          keep_size, gen):
+    points, nchain = _trace_arrays(trace, model)
+    n_points = len(next(iter(points.values())))
+    len_trace = n_points // max(nchain, 1)
+
+    if keep_size and samples is not None:
+        raise IncorrectArgumentsError(
+            "Should not specify both keep_size and samples arguments")
+    if keep_size and size is not None:
+        raise IncorrectArgumentsError(
+            "Should not specify both keep_size and size arguments")
+    if samples is None:
+        samples = n_points
+    if samples < len_trace * nchain:
+        warnings.warn("samples parameter is smaller than nchains times "
+                      "ndraws, some draws and/or chains may not be "
+                      "represented in the returned posterior predictive "
+                      "sample")
+    if var_names is not None:
+        if vars is not None:
+            raise IncorrectArgumentsError(
+                "Should not specify both vars and var_names arguments.")
+        vars = [model[x] for x in var_names]
+    elif vars is None:
+        vars = model.observed_RVs
+
+    # trace points cycled (or cut short) to ``samples``, as the JAX package
+    idx = np.mod(np.arange(samples), n_points)
+    out = model.sample_forward_conditional(points, idx, vars, size=size,
+                                           gen=gen)
+    out = {k: _host(v) for k, v in out.items()}
+    if keep_size:
+        out = {k: v.reshape((nchain, len_trace) + v.shape[1:])
+               for k, v in out.items()}
+    return out
+
+
+def sample_posterior_predictive(trace, samples=None, model=None, vars=None,
+                                var_names=None, size=None, keep_size=False,
+                                random_seed=None, progressbar=True
+                                ) -> Dict[str, np.ndarray]:
+    """Posterior-predictive draws given a trace (cf. ``sampling.py:1083``).
+
+    Every selected trace point is drawn forward at once on the model's
+    device; ``trace`` is a MultiTrace, a dict of equal-length arrays or a
+    list of points.
+    """
+    model = modelcontext(model)
+    return _posterior_predictive(trace, samples, model, vars, var_names,
+                                 size, keep_size,
+                                 _generator(model, random_seed))
+
+
+def fast_sample_posterior_predictive(trace, samples=None, model=None,
+                                     var_names=None, keep_size=False,
+                                     random_seed=None
+                                     ) -> Dict[str, np.ndarray]:
+    """The vectorized posterior predictive (cf. ``sampling.py:1144``): the
+    standard path is vectorized, so this is the same call."""
+    return sample_posterior_predictive(
+        trace, samples=samples, model=model, var_names=var_names,
+        keep_size=keep_size, random_seed=random_seed, progressbar=False)
+
+
+def sample_posterior_predictive_w(traces, samples=None, models=None,
+                                  weights=None, random_seed=None,
+                                  progressbar=True):
+    """Weighted posterior predictive draws from several models
+    (cf. ``sampling.py:1155``): how many draws each trace gives is itself
+    one multinomial draw from the weights."""
+    if models is None:
+        models = [modelcontext(None)] * len(traces)
+    if weights is None:
+        weights = [1.0] * len(traces)
+    if len(traces) != len(weights) or len(models) != len(weights):
+        raise ValueError("The number of traces, models and weights must be "
+                         "the same")
+    gen = _generator(models[0], random_seed)
+    if samples is None:
+        samples = min(len(tr) * tr.nchains for tr in traces)
+    p = torch.as_tensor(np.asarray(weights, dtype=float), device=gen.device)
+    pick = torch.multinomial(p / p.sum(), int(samples), replacement=True,
+                             generator=gen)
+    ns = torch.bincount(pick, minlength=len(traces)).tolist()
+    results = defaultdict(list)
+    for tr, m, n in zip(traces, models, ns):
+        if n == 0:
+            continue
+        if m.device != gen.device:
+            raise ValueError("the models must share one device")
+        sub = _posterior_predictive(tr, n, m, None, None, None, False, gen)
+        for k, v in sub.items():
+            results[k].append(v)
+    return {k: np.concatenate(v, axis=0) for k, v in results.items()}

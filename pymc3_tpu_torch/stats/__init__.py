@@ -10,7 +10,6 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
-from scipy import stats as st
 
 __all__ = ["ess", "rhat", "mcse", "summary"]
 
@@ -56,6 +55,9 @@ def _split_chains(ary):
 
 def _z_scale(ary):
     """Rank-normalization (Vehtari et al. 2019)."""
+    # imported here: scipy.stats takes seconds to load, and only the
+    # diagnostics need it
+    from scipy import stats as st
     r = st.rankdata(ary, method="average").reshape(ary.shape)
     z = st.norm.ppf((r - 0.5) / ary.size)
     return z
