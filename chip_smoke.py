@@ -9,36 +9,58 @@ Phases, each printing its own line; the first that fails ends the run with
 a non-zero exit and no result line:
 
 1. the card's name and power limit (nvidia-smi); TF32 off;
-2. build the hand-written GP covariance kernel from ``pymc3_tpu_torch/csrc``
-   (into ``build/kernels/``) and print the build time;
-3. hold the kernel against its plain PyTorch version on the card (forward
-   and gradients, five kinds, ragged and large shapes, d = 40 against a
-   float64 truth) and time both;
-4. GP marginal regression (``scripts/bench_suite.py::gp_model``, n = 200,
-   500 tune + 500 draws, 4 chains) sampled by NUTS through the kernel;
+2. build the hand-written GP covariance kernels (forward and backward) from
+   ``pymc3_tpu_torch/csrc`` into ``build/kernels/`` and print the build time;
+3. hold each kernel against its plain PyTorch version on the card (five
+   kinds, ragged, misaligned and large shapes, a stride-0 cotangent, d = 40
+   against a float64 truth, close points against a float64 truth), then time
+   both at the shapes the GP paths use: device time per launch (many
+   launches between one pair of events, queued behind a sleeping stream so
+   that they run back to back), the host's issue time per call, the plain
+   version's device time, and the bound from the bytes moved;
+4. GP marginal regression (``pymc3_tpu_torch/examples/suite.py``, n = 200,
+   500 tune + 500 draws, 4 chains) sampled by NUTS through both kernels;
    moment check against ``BASELINE_CPU.json`` and R-hat < 1.01;
-5. the radon model of ``bench.py`` at 2048 chains with pooled adaptation,
+5. GP prediction on the sampled model at the posterior mean:
+   ``predict(diag=True, pred_noise=True)`` at 16,384 new inputs (a 200 x
+   16,384 launch) and ``predict(diag=False)`` at 4,096 (200 x 4,096 and
+   4,096 x 4,096 launches); launch counts, finiteness, positive variance,
+   symmetry, the two calls' variances against each other, the same calls
+   through the plain version, and the fit at the training inputs;
+6. the radon model of ``bench.py`` at 2048 chains with pooled adaptation,
    600 tune + 400 draws (tune cut from 1000 and draws from 500, to keep the
    whole run under 1000 s; ``PERF.md``); moment check of ``mu_a`` and
    R-hat < 1.01;
-6. BEST (``scripts/bench_suite.py::best_model``, 47 + 42 rows, StudentT
-   likelihoods) at 256 chains, pooled, 500 tune + 200 draws; moment check
-   of ``difference_of_means`` and R-hat < 1.01; then the posterior
-   predictive of both groups at all 51,200 draws on the card: shapes,
-   finiteness, and the median of the ``drug`` draws against the posterior
-   median of ``group1_mean`` within four Monte-Carlo standard errors;
-7. the 3-component mixture (``pymc3_tpu_torch/examples/suite.py``, 1000
-   rows, Dirichlet weights, ordered means, Gamma precisions) at 512
-   chains, pooled, 500 tune + 200 draws; moment check of ``mu`` and R-hat
-   < 1.01; the posterior predictive of ``x_obs`` at all 102,400 draws
-   (mean and sd against the data's) and 100,000 prior predictive draws
-   (weights on the simplex, means of ``mu`` and ``tau`` against their
-   priors);
-8. a JSON line describing every kernel, then the result line
+7. BEST (47 + 42 rows, StudentT likelihoods) at 256 chains, pooled, 500
+   tune + 200 draws; moment check of ``difference_of_means`` and R-hat <
+   1.01; then the posterior predictive of both groups at all 51,200 draws
+   on the card: shapes, finiteness, and the median of the ``drug`` draws
+   against the posterior median of ``group1_mean`` within four Monte-Carlo
+   standard errors;
+8. the 3-component mixture (1000 rows, Dirichlet weights, ordered means,
+   Gamma precisions) at 512 chains, pooled, 500 tune + 200 draws; moment
+   check of ``mu`` and R-hat < 1.01; the posterior predictive of ``x_obs``
+   at all 102,400 draws (mean and sd against the data's) and 100,000 prior
+   predictive draws (weights on the simplex, means of ``mu`` and ``tau``
+   against their priors);
+9. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
+
+Two shorter runs serve measurement; neither prints the result line:
+
+    python3 chip_smoke.py --quick [--against DIR]
+    python3 chip_smoke.py --gp-wall DIR
+
+``--quick`` runs phases 1-3 and phase 5 at the model's test point (no
+sampling). With ``--against DIR``, a checkout of another commit, it also
+times that commit's forward kernel in the same call, in turns (other, this,
+this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
+(DIR, this, this, DIR) and prints each wall.
 
 Imports nothing of JAX or of the JAX package.
 """
+import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -51,10 +73,20 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # forward / gradient tolerances of tests/test_pallas_ops.py:39-40, 62-65:
-# the kernel and the plain version sum the same float32 terms in another
+# a kernel and its plain version sum the same float32 terms in another
 # order, and take expf/sqrtf where torch takes its own exp/sqrt
 FWD_TOL = dict(rtol=2e-5, atol=2e-6)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
+
+# NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
+# tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+SOURCE = "pymc3_tpu_torch/csrc/gp_cov.cu"
+MAIN_SHAPE = (4, 200, 200, 1)
+TIMED_SHAPES = (MAIN_SHAPE, (1, 4096, 4096, 4), (1, 200, 16384, 1),
+                (1, 200, 4096, 1))
 
 
 def fail(msg):
@@ -62,29 +94,49 @@ def fail(msg):
     sys.exit(1)
 
 
-def check_close(what, got, want, tol):
+def check_close(what, got, want, tol, scale=1.0):
+    """|got - want| <= atol * scale + rtol * |want| everywhere; returns the
+    largest absolute error."""
     err = (got.double() - want.double()).abs()
-    bound = tol["atol"] + tol["rtol"] * want.double().abs()
+    bound = tol["atol"] * scale + tol["rtol"] * want.double().abs()
     if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
         fail(f"{what}: max |err| {float(err.max()):.3e} exceeds "
-             f"rtol {tol['rtol']}, atol {tol['atol']}")
+             f"rtol {tol['rtol']}, atol {tol['atol'] * scale:.1e}")
     return float(err.max())
 
 
-def cuda_ms(fn, iters=50, warmup=3):
-    """Median CUDA-event time of ``fn`` in milliseconds."""
+def device_ms(fn, launches=200, warmup=5):
+    """Device time of one call of ``fn`` in milliseconds: ``launches`` calls
+    between one pair of events, queued while the stream sleeps so that they
+    run back to back, one synchronise at the end. Two results are kept
+    alive in turn, so successive calls write alternating buffers and a large
+    output does not stay in the 50 MB L2."""
+    keep = [None, None]
+    for i in range(warmup):
+        keep[i % 2] = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(60_000_000)       # about 30 ms of device time
+    start.record()
+    for i in range(launches):
+        keep[i % 2] = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def issue_ms(fn, calls=200, warmup=5):
+    """Host clock per un-synchronised call of ``fn`` in milliseconds."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / calls
 
 
 def phase_device():
@@ -104,8 +156,8 @@ def phase_build(gp_cov):
     path, seconds, log = gp_cov.build()
     ptxas = " | ".join(line.strip() for line in log.splitlines()
                        if "registers" in line or "spill" in line)
-    print(f"build: {path.name} in {seconds:.1f} s; ptxas: {ptxas}",
-          flush=True)
+    print(f"build: {path.name} in {seconds:.1f} s", flush=True)
+    print(f"ptxas: {ptxas}", flush=True)
 
 
 def _inputs(B, n, m, d, seed, scale=1.0):
@@ -116,60 +168,195 @@ def _inputs(B, n, m, d, seed, scale=1.0):
 
 
 def _apart(B, n, m, d, seed):
-    """Inputs in disjoint boxes, every pair at distance >= 0.5: the
-    closed-form backward (rowsum(w) X - w Xs) cancels where dK/dd2 is
-    singular (matern12, exponential at r -> 0), as in the JAX package,
-    whose own test keeps its points apart for the same reason."""
+    """Inputs in disjoint boxes, every pair at distance >= 0.5: the plain
+    backward (rowsum(w) X - w Xs) cancels where dK/dd2 is singular
+    (matern12, exponential at r -> 0), as in the JAX package, whose own
+    test keeps its points apart for the same reason."""
     g = torch.Generator().manual_seed(seed)
     X = torch.rand(B, n, d, generator=g)
     Xs = torch.rand(B, m, d, generator=g) + 1.5
     return X.cuda(), Xs.cuda()
 
 
-def phase_kernel(gp_cov, card):
-    """Kernel against plain version: forward and d sum(sin K) / d(X, Xs)."""
-    cases = [(kind, (4, 200, 200, 1)) for kind in gp_cov.STATIONARY_KINDS]
-    cases += [("expquad", (1, 130, 5, 2)), ("matern52", (1, 4096, 4096, 4))]
-    max_err = 0.0
-    for i, (kind, (B, n, m, d)) in enumerate(cases):
-        X, Xs = _inputs(B, n, m, d, seed=i)
-        K = gp_cov.stationary_cov(X, Xs, kind)
-        K_ref = gp_cov.stationary_cov_reference(X, Xs, kind)
-        torch.cuda.synchronize()
-        err = check_close(f"{kind} {B}x{n}x{m}x{d} forward", K, K_ref,
-                          FWD_TOL)
-        max_err = max(max_err, err)
-        X, Xs = _apart(B, n, m, d, seed=i)
-        grads = []
-        for fn in (gp_cov.stationary_cov, gp_cov.stationary_cov_reference):
-            Xg, Xsg = X.clone().requires_grad_(), Xs.clone().requires_grad_()
-            torch.sin(fn(Xg, Xsg, kind=kind)).sum().backward()
-            grads.append((Xg.grad, Xsg.grad))
-        for name, a, b in zip(("dX", "dXs"), grads[0], grads[1]):
-            check_close(f"{kind} {B}x{n}x{m}x{d} {name}", a, b, GRAD_TOL)
-        print(f"kernel ok: {kind} B={B} n={n} m={m} d={d} "
-              f"max|err| {err:.2e}", flush=True)
+def _cotangent(B, n, m, seed):
+    g = torch.Generator().manual_seed(1000 + seed)
+    return torch.randn(B, n, m, generator=g).cuda()
 
-    # d = 40 against a float64 truth (the kernel keeps exact differences
+
+def _check_forward(gp_cov, kind, shape, seed):
+    X, Xs = _inputs(*shape, seed=seed)
+    K = gp_cov.stationary_cov(X, Xs, kind)
+    K_ref = gp_cov.stationary_cov_reference(X, Xs, kind)
+    torch.cuda.synchronize()
+    return check_close(f"{kind} {shape} forward", K, K_ref, FWD_TOL)
+
+
+def _check_backward(gp_cov, kind, shape, seed):
+    """The backward kernel against its plain version on one cotangent, and
+    the whole op's gradients through autograd against the plain op's."""
+    B, n, m, d = shape
+    X, Xs = _apart(B, n, m, d, seed=seed)
+    g = _cotangent(B, n, m, seed)
+    got = gp_cov._launch_backward(kind, g, X, Xs)
+    want = gp_cov.stationary_cov_backward_reference(g, X, Xs, kind)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("dX", "dXs"), got, want):
+        err = max(err, check_close(f"{kind} {shape} backward {name}", a, b,
+                                   GRAD_TOL))
+    grads = []
+    for fn in (gp_cov.stationary_cov, gp_cov.stationary_cov_reference):
+        Xg, Xsg = X.clone().requires_grad_(), Xs.clone().requires_grad_()
+        torch.sin(fn(Xg, Xsg, kind=kind)).sum().backward()
+        grads.append((Xg.grad, Xsg.grad))
+    for name, a, b in zip(("dX", "dXs"), grads[0], grads[1]):
+        check_close(f"{kind} {shape} autograd {name}", a, b, GRAD_TOL)
+    return err
+
+
+def _bound_ms(direction, shape):
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the float32 operations at
+    their peak, whichever is larger. Returns (ms, "bytes" | "operations")."""
+    B, n, m, d = shape
+    small = B * (n + m) * d
+    if direction == "forward":
+        nbytes = 4 * (B * n * m + small)        # K out; X, Xs in
+        flops = B * n * m * (3 * d + 4)         # differences, f(d2)
+    else:
+        nbytes = 4 * (B * n * m + 2 * small)    # g, X, Xs in; dX, dXs out
+        flops = B * n * m * (7 * d + 6)         # d2, f'(d2), two sums
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_F32_FLOPS
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def _load_other(path):
+    """The ``ops/gp_cov.py`` of another checkout, as a module of its own
+    (it builds its kernel under that checkout)."""
+    file = os.path.join(path, "pymc3_tpu_torch", "ops", "gp_cov.py")
+    spec = importlib.util.spec_from_file_location("other_gp_cov", file)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build()
+    return mod
+
+
+def _time_kernels(gp_cov, card, other=None):
+    """Device, issue and plain times of both kernels at the timed shapes."""
+    rows = {"forward": {}, "backward": {}}
+    for shape in TIMED_SHAPES:
+        B, n, m, d = shape
+        X, Xs = _inputs(*shape, seed=7)
+        g = _cotangent(B, n, m, 7)
+        # the plain backward holds a (B, n, m, d) difference tensor: fewer
+        # launches where that is hundreds of MB
+        plain_n = 20 if n * m > 1_000_000 else 100
+        calls = {
+            "forward": (lambda: gp_cov._launch("expquad", X, Xs),
+                        lambda: gp_cov.stationary_cov_reference(
+                            X, Xs, "expquad")),
+            "backward": (lambda: gp_cov._launch_backward("expquad", g, X, Xs),
+                         lambda: gp_cov.stationary_cov_backward_reference(
+                             g, X, Xs, "expquad")),
+        }
+        for direction, (kernel, plain) in calls.items():
+            bound, by = _bound_ms(direction, shape)
+            row = dict(device_ms=device_ms(kernel), issue_ms=issue_ms(kernel),
+                       plain_ms=device_ms(plain, launches=plain_n),
+                       plain_issue_ms=issue_ms(plain, calls=plain_n),
+                       bound_ms=bound, bound_by=by)
+            if other is not None and direction == "forward":
+                old = lambda: other._launch("expquad", X, Xs)  # noqa: E731
+                turns = [(device_ms(f), issue_ms(f))
+                         for f in (old, kernel, kernel, old)]
+                for key, (a, b) in (("other", (0, 3)), ("this", (1, 2))):
+                    row[f"{key}_device_ms"] = [turns[a][0], turns[b][0]]
+                    row[f"{key}_issue_ms"] = [turns[a][1], turns[b][1]]
+            rows[direction][shape] = row
+            share = row["bound_ms"] / row["device_ms"]
+            print(f"timing expquad {direction} B,n,m,d={shape}: "
+                  + json.dumps(row) + f" share_of_bound {share:.3f} "
+                  f"({card})", flush=True)
+    return rows
+
+
+def phase_kernel(gp_cov, card, other=None):
+    """Each kernel against its plain version, then the timings. Returns the
+    largest absolute error per direction and the timing rows."""
+    cases = [(kind, MAIN_SHAPE) for kind in gp_cov.STATIONARY_KINDS]
+    cases += [("expquad", (1, 130, 5, 2)), ("matern52", (1, 4096, 4096, 4)),
+              # m and n * m odd: every row and every batch entry starts at
+              # another alignment, so the scalar store variant runs
+              ("matern32", (3, 201, 203, 1)), ("exponential", (2, 65, 131, 3)),
+              # 4 < d <= 16: the staged backward kernel in one chunk
+              ("matern12", (2, 70, 300, 7))]
+    max_err = {"forward": 0.0, "backward": 0.0}
+    for i, (kind, shape) in enumerate(cases):
+        fwd = _check_forward(gp_cov, kind, shape, seed=i)
+        bwd = _check_backward(gp_cov, kind, shape, seed=i)
+        max_err["forward"] = max(max_err["forward"], fwd)
+        max_err["backward"] = max(max_err["backward"], bwd)
+        print(f"kernels ok: {kind} B,n,m,d={shape} forward max|err| "
+              f"{fwd:.2e}, backward max|err| {bwd:.2e}", flush=True)
+
+    # a stride-0 cotangent: K.sum().backward() hands the op an expanded one
+    X, Xs = _apart(2, 77, 130, 2, seed=50)
+    grads = []
+    for fn in (gp_cov.stationary_cov, gp_cov.stationary_cov_reference):
+        Xg, Xsg = X.clone().requires_grad_(), Xs.clone().requires_grad_()
+        fn(Xg, Xsg, kind="matern52").sum().backward()
+        grads.append((Xg.grad, Xsg.grad))
+    for name, a, b in zip(("dX", "dXs"), grads[0], grads[1]):
+        check_close(f"stride-0 cotangent {name}", a, b, GRAD_TOL)
+    ones = torch.ones(1, 1, 1).cuda().expand(2, 77, 130)
+    got = gp_cov._launch_backward("matern52", ones, X, Xs)
+    for name, a, b in zip(("dX", "dXs"), got, grads[1]):
+        check_close(f"stride-0 launch {name}", a, b, GRAD_TOL)
+    print("kernels ok: stride-0 cotangent (expanded, read in place)",
+          flush=True)
+
+    # d = 40 against a float64 truth (the kernels keep exact differences
     # where the JAX fallback switched to the matmul form above d = 32)
     X, Xs = _inputs(1, 64, 48, 40, seed=99, scale=0.2)
+    g = _cotangent(1, 64, 48, 99)
     for kind in gp_cov.STATIONARY_KINDS:
         K = gp_cov.stationary_cov(X, Xs, kind)
         truth = gp_cov.stationary_cov_reference(X.double(), Xs.double(), kind)
-        max_err = max(max_err, check_close(f"{kind} d=40 vs float64", K,
-                                           truth, FWD_TOL))
-    print("kernel ok: d=40 against float64 truth, all kinds", flush=True)
+        max_err["forward"] = max(max_err["forward"], check_close(
+            f"{kind} d=40 forward vs float64", K, truth, FWD_TOL))
+        got = gp_cov._launch_backward(kind, g, X, Xs)
+        want = gp_cov.stationary_cov_backward_reference(
+            g.double(), X.double(), Xs.double(), kind)
+        for name, a, b in zip(("dX", "dXs"), got, want):
+            max_err["backward"] = max(max_err["backward"], check_close(
+                f"{kind} d=40 backward {name} vs float64", a, b, GRAD_TOL))
+    print("kernels ok: d=40 against float64 truth, all kinds, both "
+          "directions", flush=True)
 
-    timings = {}
-    for shape in ((4, 200, 200, 1), (1, 4096, 4096, 4)):
-        X, Xs = _inputs(*shape, seed=7)
-        ms = cuda_ms(lambda: gp_cov._launch("expquad", X, Xs))
-        plain = cuda_ms(lambda: gp_cov.stationary_cov_reference(
-            X, Xs, "expquad"))
-        timings[shape] = (ms, plain)
-        print(f"timing expquad B,n,m,d={shape}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms ({card})", flush=True)
-    return max_err, timings
+    # close points, where dK/dd2 of matern12 and exponential is singular:
+    # the kernel sums w (x - x'), the plain version rowsum(w) x - w x'
+    gen = torch.Generator().manual_seed(123)
+    X = torch.rand(1, 300, 2, generator=gen).cuda()
+    Xs = (X[:, :257] + 1e-3 * torch.randn(1, 257, 2, generator=gen).cuda())
+    g = _cotangent(1, 300, 257, 123)
+    for kind in ("matern12", "exponential"):
+        truth = gp_cov.stationary_cov_backward_reference(
+            g.double(), X.double(), Xs.double(), kind)
+        got = gp_cov._launch_backward(kind, g, X, Xs)
+        plain = gp_cov.stationary_cov_backward_reference(g, X, Xs, kind)
+        scale = max(float(t.abs().max()) for t in truth)
+        errs = [max(float((a.double() - t).abs().max())
+                    for a, t in zip(pair, truth)) for pair in (got, plain)]
+        print(f"close points {kind}: max |gradient| {scale:.3e}; against "
+              f"float64 the kernel errs by {errs[0]:.3e}, the plain version "
+              f"by {errs[1]:.3e}", flush=True)
+        for name, a, t in zip(("dX", "dXs"), got, truth):
+            check_close(f"{kind} close points {name} vs float64", a, t,
+                        GRAD_TOL, scale)
+
+    return max_err, _time_kernels(gp_cov, card, other)
 
 
 def _baseline():
@@ -178,7 +365,8 @@ def _baseline():
 
 
 def _gate(pm, trace, names, ref, wall, label):
-    from bench_suite import moment_check, posterior_moments
+    from pymc3_tpu_torch.examples.suite import (moment_check,
+                                                 posterior_moments)
     check = moment_check(posterior_moments(pm, trace, names), ref)
     rhat = pm.rhat(trace, var_names=names)
     ess = pm.ess(trace, var_names=names)
@@ -203,22 +391,130 @@ def _gate(pm, trace, names, ref, wall, label):
 
 
 def phase_gp(pm, gp_cov, draws=500, tune=500, chains=4):
-    from bench_suite import gp_model
+    """Returns the launch counts of ``sample()`` and what the prediction
+    phase needs: the model, its ``Marginal`` and the trace."""
+    from pymc3_tpu_torch.examples.suite import gp_regression
     with torch.device("cuda"):
-        model, names = gp_model(pm)
+        model, names, gp = gp_regression(pm)
     gp_cov.LAUNCHES = 0
+    gp_cov.BACKWARD_LAUNCHES = 0
     t0 = time.time()
     trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
                       progressbar=False, random_seed=2,
                       compute_convergence_checks=False)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = gp_cov.LAUNCHES
-    print(f"gp: {launches} kernel launches during sample()", flush=True)
-    if launches <= 0:
-        fail("the GP main path never launched the gp_cov kernel")
+    launches = {"forward": gp_cov.LAUNCHES,
+                "backward": gp_cov.BACKWARD_LAUNCHES}
+    print(f"gp: {launches['forward']} forward and {launches['backward']} "
+          f"backward kernel launches during sample()", flush=True)
+    if launches["forward"] <= 0:
+        fail("the GP main path never launched the forward gp_cov kernel")
+    if launches["backward"] <= 0:
+        fail("the GP main path never launched the backward gp_cov kernel")
     _gate(pm, trace, names, _baseline()["gp"]["moments"], wall, "gp")
-    return launches
+    return launches, (model, gp, trace)
+
+
+def _timed_predict(gp_cov, model, gp, Xnew, point, expect, label, **kwargs):
+    """One ``predict`` call on the card: its results, and a failure unless
+    the forward kernel was launched ``expect`` times."""
+    gp_cov.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with model:
+        mu, cov = gp.predict(Xnew, point=point, **kwargs)
+    wall = time.time() - t0
+    if gp_cov.LAUNCHES != expect:
+        fail(f"{label}: {gp_cov.LAUNCHES} forward launches, expected "
+             f"{expect}")
+    if not (np.isfinite(mu).all() and np.isfinite(cov).all()):
+        fail(f"{label}: mean or covariance not finite")
+    print(f"{label}: wall {wall:.3f} s, {expect} forward launches, mean "
+          f"{mu.shape}, covariance {cov.shape}", flush=True)
+    return mu, cov
+
+
+def phase_predict(gp_cov, model, gp, point, label="predict"):
+    """GP prediction at ``point`` through the forward kernel at full width.
+    Returns the forward launches of the two wide calls."""
+    from pymc3_tpu_torch.examples.suite import gp_data
+    from pymc3_tpu_torch.gp.util import _default_jitter
+    X, y = gp_data()
+    wide = np.linspace(-0.5, 4.5, 16384, dtype=np.float32)[:, None]
+    grid = np.linspace(X.min(), X.max(), 4096, dtype=np.float32)[:, None]
+
+    def calls():
+        # K(X) and K(X, Xnew); K(Xnew) too for the full covariance
+        return (_timed_predict(gp_cov, model, gp, wide, point, 2,
+                               f"{label} 16384 diag+noise", diag=True,
+                               pred_noise=True),
+                _timed_predict(gp_cov, model, gp, grid, point, 3,
+                               f"{label} 4096 full", diag=False))
+    (mu_w, var_w), (mu_g, cov_g) = calls()
+    if not var_w.min() > 0.0:
+        fail(f"{label}: predictive variance {var_w.min():.3e} <= 0")
+    asym = float(np.abs(cov_g - cov_g.T).max())
+    if not asym <= 1e-5:
+        fail(f"{label}: covariance asymmetric by {asym:.3e}")
+
+    # the diagonal of the full covariance against the diag=True variance at
+    # the same points; the full noise-free covariance carries the jitter.
+    # rtol 1e-4 with atol 2e-5: both subtract sum(A^2) of about eta^2 from
+    # eta^2 in float32, one by a matmul, one by a sum of squares
+    _, var_g = _timed_predict(gp_cov, model, gp, grid, point, 2,
+                              f"{label} 4096 diag", diag=True)
+    if not var_g.min() > 0.0:
+        fail(f"{label}: latent variance {var_g.min():.3e} <= 0")
+    diag = np.diagonal(cov_g) - _default_jitter()
+    err = np.abs(diag - var_g)
+    if not np.all(err <= 2e-5 + 1e-4 * np.abs(var_g)):
+        fail(f"{label}: diagonal of the covariance off the variance by "
+             f"{err.max():.3e}")
+
+    # the same two calls with the kernel swapped for its plain version
+    kernel_forward = gp_cov._cov_forward
+    gp_cov._cov_forward = lambda kind, A, B: gp_cov.stationary_cov_reference(
+        A, B, kind)
+    try:
+        with model:
+            ref_w = gp.predict(wide, point=point, diag=True, pred_noise=True)
+            ref_g = gp.predict(grid, point=point, diag=False)
+    finally:
+        gp_cov._cov_forward = kernel_forward
+    worst = 0.0
+    for name, got, want in (("mean 16384", mu_w, ref_w[0]),
+                            ("variance 16384", var_w, ref_w[1]),
+                            ("mean 4096", mu_g, ref_g[0]),
+                            ("covariance 4096", cov_g, ref_g[1])):
+        err = np.abs(got.astype(np.float64) - want)
+        worst = max(worst, float(err.max()))
+        if not np.all(err <= 1e-5 + 1e-4 * np.abs(want)):
+            fail(f"{label}: {name} differs from the plain version's by "
+                 f"{err.max():.3e} (rtol 1e-4, atol 1e-5)")
+
+    # the fit: the predictive mean at the training inputs against y
+    mu_x, _ = _timed_predict(gp_cov, model, gp, X, point, 2,
+                             f"{label} at the 200 training inputs",
+                             diag=True)
+    env = model._point_to_env(point)
+    sigma = float(env["sigma"]) if "sigma" in env else float(
+        np.exp(point["sigma_log__"]))
+    inside = float(np.mean(np.abs(mu_x - y) < 3.0 * sigma))
+    print(f"{label}: variance min {var_w.min():.3e}, asymmetry {asym:.2e}, "
+          f"max |kernel - plain| {worst:.2e}, {100 * inside:.1f}% of y "
+          f"within 3 sd (sigma {sigma:.4f}) of the mean", flush=True)
+    if not inside >= 0.95:
+        fail(f"{label}: only {100 * inside:.1f}% of y within 3 noise sd")
+    return 5
+
+
+def _posterior_mean_point(model, trace):
+    """The mean of every free variable's draws, in the sampler's
+    (transformed) space."""
+    return {rv.name: np.asarray(trace.get_values(rv.name, combine=True),
+                                dtype=np.float64).mean(0)
+            for rv in model.free_RVs}
 
 
 def phase_radon(pm, draws=400, tune=600, chains=2048):
@@ -245,7 +541,7 @@ def _median_se(x, n_eff):
 
 
 def phase_best(pm, draws=200, tune=500, chains=256):
-    from bench_suite import best_model
+    from pymc3_tpu_torch.examples.suite import best_model
     with torch.device("cuda"):
         model, names = best_model(pm)
     t0 = time.time()
@@ -339,35 +635,86 @@ def phase_mixture(pm, draws=200, tune=500, chains=512,
         fail("mixture prior means disagree with the priors")
 
 
+def _gp_wall(other):
+    """Phase 4 alone in four fresh processes: other, this, this, other."""
+    code = ("import sys, torch; sys.path[:0] = ['.', 'scripts']; "
+            "import chip_smoke, pymc3_tpu_torch as pm; "
+            "from pymc3_tpu_torch.ops import gp_cov; "
+            "chip_smoke.phase_device(); chip_smoke.phase_gp(pm, gp_cov)")
+    for where in (other, ROOT, ROOT, other):
+        out = subprocess.run([sys.executable, "-c", code], cwd=where,
+                             capture_output=True, text=True)
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith(("gp:", "card:"))]
+        print(f"gp-wall in {os.path.relpath(where, ROOT)}: "
+              + " || ".join(lines), flush=True)
+        if out.returncode != 0:
+            fail(f"phase 4 failed in {where}:\n{out.stdout}\n{out.stderr}")
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--quick", action="store_true",
+                        help="phases 1-3 and prediction at the test point")
+    parser.add_argument("--against", metavar="DIR",
+                        help="with --quick: time DIR's forward kernel too")
+    parser.add_argument("--gp-wall", metavar="DIR",
+                        help="phase 4 alone: DIR, this, this, DIR")
+    args = parser.parse_args()
+
     t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import pymc3_tpu_torch as pm
     from pymc3_tpu_torch.ops import gp_cov
 
+    if args.gp_wall:
+        _gp_wall(os.path.abspath(args.gp_wall))
+        return
     card = phase_device()
     phase_build(gp_cov)
-    max_err, timings = phase_kernel(gp_cov, card)
-    launches = phase_gp(pm, gp_cov)
+    other = _load_other(os.path.abspath(args.against)) if args.against else None
+    max_err, timings = phase_kernel(gp_cov, card, other)
+    if args.quick:
+        from pymc3_tpu_torch.examples.suite import gp_regression
+        with torch.device("cuda"):
+            model, _, gp = gp_regression(pm)
+        phase_predict(gp_cov, model, gp, model.test_point,
+                      "predict (test point)")
+        print(f"quick: ok in {time.time() - t_start:.1f} s", flush=True)
+        return
+    launches, (model, gp, trace) = phase_gp(pm, gp_cov)
+    predict_launches = phase_predict(gp_cov, model, gp,
+                                     _posterior_mean_point(model, trace))
+    del model, gp, trace
     phase_radon(pm)
     phase_best(pm)
     phase_mixture(pm)
-    print(f"phases 1-7: {time.time() - t_start:.1f} s", flush=True)
+    print(f"phases 1-8: {time.time() - t_start:.1f} s", flush=True)
 
-    ms, plain_ms = timings[(4, 200, 200, 1)]
-    print(json.dumps({"kernels": [{
-        "name": "stationary_cov",
-        "route": "cuda",
-        "source": "pymc3_tpu_torch/csrc/gp_cov.cu",
-        "replaces": "pymc3_tpu/ops/pallas/gp_cov.py:110",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",
+                "backward": "pymc3_tpu/ops/pallas/gp_cov.py:215"}
+    kernels = []
+    for direction, name in (("forward", "stationary_cov"),
+                            ("backward", "stationary_cov_backward")):
+        row = timings[direction][MAIN_SHAPE]
+        wide = timings[direction][(1, 4096, 4096, 4)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces[direction],
+            "launches": launches[direction],
+            "launches_predict": predict_launches if direction == "forward"
+            else 0,
+            "max_abs_err": max_err[direction],
+            "ms": row["device_ms"], "device_ms": row["device_ms"],
+            "issue_ms": row["issue_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
+            "at_1x4096x4096x4": {k: wide[k] for k in (
+                "device_ms", "issue_ms", "plain_ms", "bound_ms", "bound_by")},
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,11 @@ numbers: a point dict becomes the port's flat ``q``; the JAX sampler state
 ``jax.tree_util.tree_map(np.asarray, state)``) becomes the port's state
 NamedTuples on a given device. Field names are the same in both packages;
 each leaf keeps its leading chain dimension.
+
+GP prediction carries nothing more: a GP has no parameters beyond the
+model's free variables, so a point dict of the JAX model (transformed names,
+numpy values) passes to the port's ``Marginal.predict(Xnew, point=...)``
+unchanged.
 """
 from __future__ import annotations
 

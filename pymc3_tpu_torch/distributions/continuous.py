@@ -10,9 +10,10 @@ generator.
 
 Where torch differs from XLA:
 
-- Gamma and InverseGamma ``logcdf`` use ``torch.special.gammainc`` /
-  ``gammaincc``: value and gradient in ``x`` match the JAX package; torch
-  has no derivative in the shape ``alpha`` and raises its own error;
+- Gamma and InverseGamma ``logcdf`` use the port's incomplete gamma
+  (``dist_math.gammainc`` / ``gammaincc``), differentiable in the value and
+  in the shape ``alpha`` as ``jax.scipy.special.gammainc`` is (torch's own
+  has no derivative in the shape);
 - Beta and StudentT ``logcdf`` use the port's incomplete beta
   (``dist_math.betainc``);
 - samplers use the generator-taking primitives of torch (normal, uniform,
@@ -34,7 +35,7 @@ from ..node import Node, as_node, apply
 from . import transforms
 from .dist_math import (
     bound, logpow, betaln, normal_lcdf, normal_lccdf, log_diff_normal_cdf,
-    betainc, clipped_beta_rvs, interp,
+    betainc, gammainc, gammaincc, clipped_beta_rvs, interp,
 )
 from .special import log_i0
 from .distribution import (
@@ -921,7 +922,7 @@ class Gamma(PositiveContinuous):
     def logcdf(self, value, env=None, memo=None):
         alpha, beta = self._ev_params(("alpha", "beta"), env, memo)
         safe = torch.where(value > 0, value, 1.0)
-        return bound(torch.log(torch.special.gammainc(alpha, beta * safe)),
+        return bound(torch.log(gammainc(alpha, beta * safe)),
                      value >= 0, alpha > 0, beta > 0)
 
     def random(self, point=None, size=None, gen=None):
@@ -975,7 +976,7 @@ class InverseGamma(PositiveContinuous):
     def logcdf(self, value, env=None, memo=None):
         alpha, beta = self._ev_params(("alpha", "beta"), env, memo)
         safe = torch.where(value > 0, value, 1.0)
-        return bound(torch.log(torch.special.gammaincc(alpha, beta / safe)),
+        return bound(torch.log(gammaincc(alpha, beta / safe)),
                      value > 0, alpha > 0, beta > 0)
 
     def random(self, point=None, size=None, gen=None):

@@ -1,10 +1,12 @@
-"""Models of the JAX package's bench suite (``scripts/bench_suite.py``) that
-need a port-side copy.
+"""The port's copy of the JAX package's bench suite
+(``scripts/bench_suite.py``): the GP, BEST and mixture models with the same
+data and seeds, and the moment gate that holds a posterior against
+``BASELINE_CPU.json``.
 
-BEST needs none: ``scripts/bench_suite.py::best_model(pm)`` runs unchanged
-with ``pm = pymc3_tpu_torch``. The mixture builder there writes its ordering
-``Potential`` with ``jax.numpy``; :func:`mixture_model` is the same model
-with the potential in ``torch.where``.
+The suite's own file imports the JAX package, so the port keeps what it
+needs here. The mixture model there writes its ordering ``Potential``
+with ``jax.numpy``; :func:`mixture_model` is the same model with the
+potential in ``torch.where``.
 """
 import numpy as np
 import torch
@@ -38,3 +40,106 @@ def mixture_model(pm):
                        testval=1.0 / sigma ** 2)
         pm.NormalMixture("x_obs", w=w, mu=mu, tau=tau, observed=x)
     return model, ["mu"]
+
+
+DRUG = np.array([101, 100, 102, 104, 102, 97, 105, 105, 98, 101,
+                 100, 123, 105, 103, 100, 95, 102, 106, 109, 102, 82,
+                 102, 100, 102, 102, 101, 102, 102, 103, 103, 97, 97,
+                 103, 101, 97, 104, 96, 103, 124, 101, 101, 100, 101,
+                 101, 104, 100, 101], dtype=np.float64)
+PLACEBO = np.array([99, 101, 100, 101, 102, 100, 97, 101, 104, 101,
+                    102, 102, 100, 105, 88, 101, 100, 104, 100, 100,
+                    100, 101, 102, 103, 97, 101, 101, 100, 101, 99,
+                    101, 100, 100, 101, 100, 99, 101, 100, 102, 99,
+                    100, 99], dtype=np.float64)
+
+
+def best_model(pm):
+    """BEST two-group comparison (``scripts/bench_suite.py:35-54``)."""
+    y = np.r_[DRUG, PLACEBO]
+    y_mean, y_std = y.mean(), y.std() * 2
+    with pm.Model() as model:
+        g1_mean = pm.Normal("group1_mean", y_mean, sigma=y_std)
+        g2_mean = pm.Normal("group2_mean", y_mean, sigma=y_std)
+        g1_std = pm.Uniform("group1_std", lower=1, upper=10)
+        g2_std = pm.Uniform("group2_std", lower=1, upper=10)
+        nu = pm.Exponential("nu_minus_one", 1 / 29.0) + 1
+        pm.StudentT("drug", nu=nu, mu=g1_mean, lam=g1_std ** -2,
+                    observed=DRUG)
+        pm.StudentT("placebo", nu=nu, mu=g2_mean, lam=g2_std ** -2,
+                    observed=PLACEBO)
+        diff = pm.Deterministic("difference_of_means", g1_mean - g2_mean)
+        pm.Deterministic("difference_of_stds", g1_std - g2_std)
+        pm.Deterministic(
+            "effect_size",
+            diff / pm.math.sqrt((g1_std ** 2 + g2_std ** 2) / 2))
+    return model, ["difference_of_means"]
+
+
+def gp_data(n=200):
+    """The suite's GP regression data (``RandomState(21)``): sorted inputs
+    on [0, 4] as an (n, 1) column, and noisy observations of a sum of two
+    waves."""
+    rng = np.random.RandomState(21)
+    X = np.sort(rng.uniform(0, 4, n))[:, None].astype(np.float32)
+    f_true = np.sin(2 * X[:, 0]) + 0.5 * np.cos(5 * X[:, 0])
+    y = (f_true + 0.3 * rng.randn(n)).astype(np.float32)
+    return X, y
+
+
+def gp_regression(pm):
+    """Marginal GP regression on n = 200 observations with sampled
+    lengthscale, amplitude and noise (``scripts/bench_suite.py:102-117``);
+    returns the model, the gated names and the ``Marginal`` object, which
+    predicts at new inputs once the model is sampled."""
+    X, y = gp_data()
+    with pm.Model() as model:
+        ls = pm.Gamma("ls", alpha=2, beta=2)
+        eta = pm.HalfNormal("eta", sigma=2)
+        cov = (eta ** 2) * pm.gp.cov.ExpQuad(1, ls)
+        gp = pm.gp.Marginal(cov_func=cov)
+        sigma = pm.HalfNormal("sigma", sigma=1)
+        gp.marginal_likelihood("y", X=X, y=y, noise=sigma)
+    return model, ["ls", "eta", "sigma"], gp
+
+
+def gp_model(pm):
+    """:func:`gp_regression` without the ``Marginal`` object, as the
+    suite's ``gp_model`` returns it."""
+    return gp_regression(pm)[:2]
+
+
+def posterior_moments(pm, trace, var_names):
+    """Per-element posterior mean, sd and MCSE of the tracked variables,
+    accumulated in float64 (a sequential float32 reduce over a million
+    draws drifts by a fifth of a posterior sd)."""
+    out = {}
+    ess_tbl = pm.ess(trace, var_names=var_names)
+    for v in var_names:
+        vals = np.asarray(trace[v], dtype=np.float64).reshape(
+            len(trace[v]), -1)
+        mean = vals.mean(axis=0)
+        sd = vals.std(axis=0)
+        ess = np.atleast_1d(np.asarray(ess_tbl[v], dtype=np.float64)).ravel()
+        mcse = sd / np.sqrt(np.maximum(ess, 1.0))
+        out[v] = {"mean": mean.tolist(), "sd": sd.tolist(),
+                  "mcse": mcse.tolist()}
+    return out
+
+
+def moment_check(bench_m, ref_m, z_max=4.0, sd_rtol=0.2):
+    """|difference of means| / combined MCSE below ``z_max`` and the sds
+    within ``sd_rtol``, over every element of every variable."""
+    worst_z, worst_sd = 0.0, 0.0
+    for v in bench_m:
+        mb, mr = (np.asarray(bench_m[v]["mean"]),
+                  np.asarray(ref_m[v]["mean"]))
+        eb, er = (np.asarray(bench_m[v]["mcse"]),
+                  np.asarray(ref_m[v]["mcse"]))
+        z = np.abs(mb - mr) / np.sqrt(eb ** 2 + er ** 2 + 1e-300)
+        worst_z = max(worst_z, float(np.max(z)))
+        sb, sr = np.asarray(bench_m[v]["sd"]), np.asarray(ref_m[v]["sd"])
+        rel = np.abs(sb - sr) / np.maximum(np.abs(sr), 1e-12)
+        worst_sd = max(worst_sd, float(np.max(rel)))
+    return {"pass": bool(worst_z < z_max and worst_sd < sd_rtol),
+            "max_z": round(worst_z, 2), "max_sd_rel": round(worst_sd, 3)}

@@ -282,7 +282,7 @@ class NamedNode(Node):
 class OpNode(Node):
     """fn(*args, **kwargs) over symbolic/constant operands."""
 
-    __slots__ = ("fn", "args", "kwargs", "_test_value", "name")
+    __slots__ = ("fn", "args", "kwargs", "_test_value", "_device", "name")
 
     def __init__(self, fn: Callable, args: Sequence[Any], kwargs=None,
                  name: Optional[str] = None):
@@ -290,9 +290,20 @@ class OpNode(Node):
         self.args = tuple(args)
         self.kwargs = dict(kwargs or {})
         self.name = name
-        device = current_device()
-        tv_args = [_test_operand(a, device) for a in self.args]
-        self._test_value = _to_numpy(fn(*tv_args, **self.kwargs))
+        self._device = current_device()
+        self._test_value = None
+
+    @property
+    def test_value(self):
+        """The value at the operands' test values, computed on the device
+        the node was built for when first asked for (a shape query, a
+        distribution's default) and kept on the host. A graph that is only
+        evaluated, as GP prediction at thousands of new inputs, never
+        computes it."""
+        if self._test_value is None:
+            tv_args = [_test_operand(a, self._device) for a in self.args]
+            self._test_value = _to_numpy(self.fn(*tv_args, **self.kwargs))
+        return self._test_value
 
     def _eval(self, env, memo):
         vals = [_ev(a, env, memo) for a in self.args]

@@ -1,21 +1,21 @@
-"""Fused stationary GP covariance: the hand-written CUDA kernel and its plain
-PyTorch version (the port of ``pymc3_tpu/ops/pallas/gp_cov.py``).
+"""Fused stationary GP covariance: the hand-written CUDA kernels and their
+plain PyTorch versions (the port of ``pymc3_tpu/ops/pallas/gp_cov.py``).
 
 ``stationary_cov(X, Xs, kind)`` computes ``K = f(|x - x'|^2)`` over
 lengthscale-scaled inputs, ``X: (n, d)`` or ``(B, n, d)``. On a CUDA tensor
-the forward is the kernel in ``csrc/gp_cov.cu`` (built with ``nvcc`` at
-first use into ``build/kernels/`` and loaded with ``ctypes``); on a CPU
-tensor it is :func:`stationary_cov_reference`. There is no fallback from
-the card to the plain version: a CUDA tensor the kernel does not take
-raises.
+the forward and the backward are the two kernels of ``csrc/gp_cov.cu``
+(built with ``nvcc`` at first use into ``build/kernels/`` and loaded with
+``ctypes``); on a CPU tensor they are :func:`stationary_cov_reference` and
+:func:`stationary_cov_backward_reference`. There is no fallback from the
+card to the plain versions: a CUDA tensor a kernel does not take raises.
 
-Gradients go through a ``torch.autograd.Function`` whose backward is the
-plain-PyTorch transcription of the JAX package's custom VJP (which also ran
-outside the TPU kernel): recompute d^2, weight by dK/dd^2, two batched
-matmuls. Its ``vmap`` rule moves the chain dimension of a
-``torch.func.vmap`` over the model's logp (with or without
-``torch.func.grad`` inside) into the kernel's batch argument, so a batch of
-chains is ONE launch on plain tensors.
+Gradients go through a ``torch.autograd.Function`` whose backward is a
+second Function around the backward kernel (the JAX package's custom VJP ran
+outside its TPU kernel, fused by XLA). Both have a ``vmap`` rule that moves
+the chain dimension of a ``torch.func.vmap`` over the model's logp (with or
+without ``torch.func.grad`` inside) into the kernels' batch argument, so a
+batch of chains is ONE forward launch and ONE backward call on plain
+tensors. The op is once-differentiable: a second derivative raises.
 """
 from __future__ import annotations
 
@@ -29,15 +29,21 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["stationary_cov", "stationary_cov_reference", "STATIONARY_KINDS",
-           "LAUNCHES", "build"]
+__all__ = ["stationary_cov", "stationary_cov_reference",
+           "stationary_cov_backward_reference", "STATIONARY_KINDS",
+           "LAUNCHES", "BACKWARD_LAUNCHES", "build"]
 
 STATIONARY_KINDS = ("expquad", "matern52", "matern32", "matern12",
                     "exponential")
 _EPS = 1e-12
 
-#: Number of CUDA kernel launches since import (or since a caller reset it).
+_KIND_INDEX = {kind: i for i, kind in enumerate(STATIONARY_KINDS)}
+
+#: Forward kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
+#: Calls of the backward kernel (each is its two launches: the tile pass and
+#: the pass that adds the tiles' partial sums).
+BACKWARD_LAUNCHES = 0
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gp_cov.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -89,12 +95,25 @@ def _sqdist(X, Xs):
 
 
 def stationary_cov_reference(X, Xs=None, kind="expquad"):
-    """Plain PyTorch version of the kernel: same inputs, same output."""
+    """Plain PyTorch version of the forward kernel: same inputs, same
+    output."""
     return _apply_covfn(kind, _sqdist(X, X if Xs is None else Xs))
 
 
+def stationary_cov_backward_reference(g, X, Xs, kind="expquad"):
+    """Plain PyTorch version of the backward kernel, the closed form of the
+    JAX package's custom VJP (gp_cov.py:215-222): w = g dK/dd2,
+    dX = 2 (rowsum(w) X - w Xs), dXs = 2 (colsum(w) Xs - w^T X), for any
+    leading batch dims. The kernel sums w (x - x') instead, which is the
+    same sum and cancels less."""
+    w = g * _dcov_dd2(kind, _sqdist(X, Xs))
+    dX = 2.0 * (w.sum(-1, keepdim=True) * X - w @ Xs)
+    dXs = 2.0 * (w.sum(-2)[..., None] * Xs - w.transpose(-1, -2) @ X)
+    return dX, dXs
+
+
 # --------------------------------------------------------------------------
-# the CUDA kernel: build, load, launch
+# the CUDA kernels: build, load, launch
 # --------------------------------------------------------------------------
 
 def _nvcc():
@@ -108,9 +127,9 @@ def _nvcc():
 
 
 def build():
-    """Compile ``csrc/gp_cov.cu`` (if its build is not there yet) and load
-    it. Returns ``(path, seconds, compiler_output)``; the library is keyed
-    by the source's hash, so an edited source is rebuilt."""
+    """Compile ``csrc/gp_cov.cu``, both kernels (if its build is not there
+    yet), and load it. Returns ``(path, seconds, compiler_output)``; the
+    library is keyed by the source's hash, so an edited source is rebuilt."""
     global _lib
     src = _SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
@@ -129,41 +148,95 @@ def build():
             raise RuntimeError(f"nvcc failed building {_SOURCE}:\n{log}")
         os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
-    fn = lib.gp_cov_forward_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gp_cov_forward_f32.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.gp_cov_forward_f32.restype = i32
+    lib.gp_cov_backward_scratch_f32.argtypes = [i32] * 4
+    lib.gp_cov_backward_scratch_f32.restype = i64
+    lib.gp_cov_backward_f32.argtypes = (
+        [ptr] + [i64] * 3 + [ptr] * 5 + [i64] + [i32] * 5 + [ptr])
+    lib.gp_cov_backward_f32.restype = i32
     _lib = lib
     return path, seconds, log
 
 
-def _launch(kind, X, Xs):
-    """One kernel launch on plain contiguous float32 CUDA tensors
-    ``X (B, n, d)``, ``Xs (B, m, d)``; returns ``K (B, n, m)``."""
-    global LAUNCHES
-    if X.dtype != torch.float32 or Xs.dtype != torch.float32:
+def _checked(kind, X, Xs):
+    """The argument checks both launches share (host-side only: no device
+    query); returns ``(B, n, m, d)`` and contiguous ``X``, ``Xs``."""
+    if kind not in _KIND_INDEX:
+        raise ValueError(f"kind must be one of {STATIONARY_KINDS}")
+    if X.dtype is not torch.float32 or Xs.dtype is not torch.float32:
         raise TypeError(f"the gp_cov kernel takes float32, got {X.dtype} "
                         f"and {Xs.dtype}")
-    if X.device != Xs.device:
-        raise ValueError("X and Xs must be on the same device")
+    if not X.is_cuda or X.device != Xs.device:
+        raise ValueError("X and Xs must be on the same CUDA device, got "
+                         f"{X.device} and {Xs.device}")
     B, n, d = X.shape
+    m = Xs.shape[1]
     if Xs.shape[0] != B or Xs.shape[2] != d:
         raise ValueError(f"shape mismatch: X {tuple(X.shape)}, "
                          f"Xs {tuple(Xs.shape)}")
+    if min(B, n, m, d) <= 0:
+        raise ValueError(f"empty input: X {tuple(X.shape)}, "
+                         f"Xs {tuple(Xs.shape)}")
     if _lib is None:
         build()
-    X = X.contiguous()
-    Xs = Xs.contiguous()
-    m = Xs.shape[1]
-    out = torch.empty((B, n, m), dtype=torch.float32, device=X.device)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    with torch.cuda.device(X.device):
-        rc = _lib.gp_cov_forward_f32(X.data_ptr(), Xs.data_ptr(),
-                                     out.data_ptr(), B, n, m, d,
-                                     STATIONARY_KINDS.index(kind), stream)
+    if not X.is_contiguous():
+        X = X.contiguous()
+    if not Xs.is_contiguous():
+        Xs = Xs.contiguous()
+    return B, n, m, d, X, Xs
+
+
+def _call(fn, device, *args):
+    """Call a kernel's C entry on the current stream of ``device``; the
+    device is switched to only when it is not the current one."""
+    index = device.index
+    if index is None or index == torch.cuda.current_device():
+        # the stream's handle alone: no Stream object per launch
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device() if index is None else index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gp_cov kernel launch failed: CUDA error {rc}")
+
+
+def _launch(kind, X, Xs):
+    """One forward launch on plain float32 CUDA tensors ``X (B, n, d)``,
+    ``Xs (B, m, d)``; returns ``K (B, n, m)``."""
+    global LAUNCHES
+    B, n, m, d, X, Xs = _checked(kind, X, Xs)
+    out = torch.empty((B, n, m), dtype=torch.float32, device=X.device)
+    _call(_lib.gp_cov_forward_f32, X.device, X.data_ptr(), Xs.data_ptr(),
+          out.data_ptr(), B, n, m, d, _KIND_INDEX[kind])
     LAUNCHES += 1
     return out
+
+
+def _launch_backward(kind, g, X, Xs):
+    """One call of the backward kernel on plain float32 CUDA tensors:
+    cotangent ``g (B, n, m)`` with any strides (an expanded, stride-0 one is
+    read in place), ``X (B, n, d)``, ``Xs (B, m, d)``; returns
+    ``dX (B, n, d)``, ``dXs (B, m, d)``."""
+    global BACKWARD_LAUNCHES
+    B, n, m, d, X, Xs = _checked(kind, X, Xs)
+    if g.dtype is not torch.float32 or g.device != X.device:
+        raise TypeError("the cotangent must be float32 on X's device, got "
+                        f"{g.dtype} on {g.device}")
+    if tuple(g.shape) != (B, n, m):
+        raise ValueError(f"cotangent shape {tuple(g.shape)}, expected "
+                         f"{(B, n, m)}")
+    dX = torch.empty((B, n, d), dtype=torch.float32, device=X.device)
+    dXs = torch.empty((B, m, d), dtype=torch.float32, device=X.device)
+    floats = _lib.gp_cov_backward_scratch_f32(B, n, m, d)
+    scratch = torch.empty((floats,), dtype=torch.float32, device=X.device)
+    _call(_lib.gp_cov_backward_f32, X.device, g.data_ptr(), *g.stride(),
+          X.data_ptr(), Xs.data_ptr(), dX.data_ptr(), dXs.data_ptr(),
+          scratch.data_ptr(), floats, B, n, m, d, _KIND_INDEX[kind])
+    BACKWARD_LAUNCHES += 1
+    return dX, dXs
 
 
 def _cov_forward(kind, X, Xs):
@@ -171,6 +244,60 @@ def _cov_forward(kind, X, Xs):
     if X.is_cuda:
         return _launch(kind, X, Xs)
     return stationary_cov_reference(X, Xs, kind)
+
+
+def _cov_backward(kind, g, X, Xs):
+    """Backward on plain tensors with a leading batch dimension."""
+    if X.is_cuda:
+        return _launch_backward(kind, g, X, Xs)
+    return stationary_cov_backward_reference(g, X, Xs, kind)
+
+
+def _front(t, dim, batch_size):
+    """Bring the vmapped dimension of ``t`` to the front (or expand a
+    tensor that has none)."""
+    if dim is None:
+        return t.expand(batch_size, *t.shape)
+    return t.movedim(dim, 0)
+
+
+def _fold(t):
+    """(B, C, ...) -> (B * C, ...): a vmap over an already batched call."""
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
+class _StationaryCovBackward(torch.autograd.Function):
+    """(dX, dXs) from the cotangent of K. A Function of its own so that the
+    backward of ``_StationaryCov``, traced under ``torch.func.vmap``, folds
+    the chains into one kernel call as the forward does."""
+
+    @staticmethod
+    def forward(g, X, Xs, kind):
+        if X.ndim == 2:
+            dX, dXs = _cov_backward(kind, g[None], X[None], Xs[None])
+            return dX[0], dXs[0]
+        return _cov_backward(kind, g, X, Xs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("stationary_cov is once-differentiable: its "
+                           "backward has no derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, g, X, Xs, kind):
+        g, X, Xs = (_front(t, dim, info.batch_size)
+                    for t, dim in zip((g, X, Xs), in_dims[:3]))
+        if X.ndim == 3:
+            return _StationaryCovBackward.apply(g, X, Xs, kind), (0, 0)
+        B = X.shape[0]
+        dX, dXs = _StationaryCovBackward.apply(_fold(g), _fold(X), _fold(Xs),
+                                               kind)
+        return (dX.reshape(B, -1, *dX.shape[1:]),
+                dXs.reshape(B, -1, *dXs.shape[1:])), (0, 0)
 
 
 class _StationaryCov(torch.autograd.Function):
@@ -191,28 +318,19 @@ class _StationaryCov(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         X, Xs = ctx.saved_tensors
-        # w = g * dK/dd2; dX = 2(rowsum(w) X - w Xs), dXs = 2(colsum(w) Xs
-        # - w^T X), for any leading batch dims
-        w = g * _dcov_dd2(ctx.kind, _sqdist(X, Xs))
-        dX = 2.0 * (w.sum(-1, keepdim=True) * X - w @ Xs)
-        dXs = 2.0 * (w.sum(-2)[..., None] * Xs - w.transpose(-1, -2) @ X)
+        dX, dXs = _StationaryCovBackward.apply(g, X, Xs, ctx.kind)
         return dX, dXs, None
 
     @staticmethod
     def vmap(info, in_dims, X, Xs, kind):
         # fold the vmapped dimension into the kernel's batch argument
-        def front(t, dim):
-            if dim is None:
-                return t.expand(info.batch_size, *t.shape)
-            return t.movedim(dim, 0)
-        X = front(X, in_dims[0])
-        Xs = front(Xs, in_dims[1])
+        X = _front(X, in_dims[0], info.batch_size)
+        Xs = _front(Xs, in_dims[1], info.batch_size)
         if X.ndim == 3:
             return _StationaryCov.apply(X, Xs, kind), 0
-        B, C = X.shape[:2]
-        K = _StationaryCov.apply(X.reshape(B * C, *X.shape[2:]),
-                                 Xs.reshape(B * C, *Xs.shape[2:]), kind)
-        return K.reshape(B, C, *K.shape[1:]), 0
+        B = X.shape[0]
+        K = _StationaryCov.apply(_fold(X), _fold(Xs), kind)
+        return K.reshape(B, -1, *K.shape[1:]), 0
 
 
 def stationary_cov(X, Xs=None, kind="expquad"):

@@ -26,7 +26,8 @@ import jax.numpy as jnp
 
 import pymc3_tpu as pj
 import pymc3_tpu_torch as pt
-from pymc3_tpu_torch.distributions.dist_math import betainc
+from pymc3_tpu_torch.distributions.dist_math import (
+    betainc, gammainc, gammaincc)
 
 from .test_distributions_matrix import (
     CONTINUOUS_LOGP, CONTINUOUS_LOGCDF, TAIL_CASES, combos,
@@ -169,7 +170,8 @@ def test_logp_gradient_matches_jax(name, dist, domains, grid, logpdf,
     ("InverseGamma", dict(alpha=3.0, beta=2.0), [0.2, 1.0, 4.0]),
 ], ids=["beta", "studentt", "gamma", "inversegamma"])
 def test_logcdf_gradient_in_value(cls, params, grid):
-    """betainc's gradient in x is the Beta density; gammainc's is torch's."""
+    """betainc's gradient in x is the Beta density, gammainc's the Gamma
+    density."""
     v = np.asarray(grid, dtype=np.float32)
     dj = getattr(pj, cls).dist(**params)
     want = np.asarray(jax.grad(lambda x: jnp.sum(dj.logcdf(x)))(
@@ -181,14 +183,99 @@ def test_logcdf_gradient_in_value(cls, params, grid):
 
 
 def test_shape_parameter_gradients_of_the_incomplete_functions_raise():
-    """No silent zero: the derivative in the shape parameter is not
-    implemented for the incomplete beta (the port's) nor the incomplete
-    gamma (torch's own error)."""
+    """No silent zero: the derivative of the incomplete beta in its shape
+    parameters is not implemented and raises. The incomplete gamma is the
+    port's own and has its shape derivative, where torch's raises."""
     a = torch.tensor(2.0, requires_grad=True)
     with pytest.raises(NotImplementedError):
         betainc(a, torch.tensor(3.0), torch.tensor(0.4)).backward()
     with pytest.raises(RuntimeError, match="igamma"):
         torch.special.gammainc(a, torch.tensor(1.0)).backward()
+    gammainc(a, torch.tensor(1.0)).backward()
+    assert torch.isfinite(a.grad) and float(a.grad) < 0.0
+
+
+# -- the incomplete gamma and its shape derivative ----------------------------
+GAMMA_SHAPES = [0.3, 1.0, 2.5, 20.0, 150.0]
+# beta * x (Gamma) or beta / x (InverseGamma) relative to alpha: both the
+# series (x < a + 1) and the continued fraction run
+BOTH_SIDES = np.array([0.5, 0.9, 1.2, 1.8])
+
+
+@pytest.mark.parametrize("upper", [False, True], ids=["lower", "upper"])
+def test_gammainc_matches_scipy(upper):
+    import scipy.special as sp
+    rng = np.random.default_rng(1)
+    a = rng.uniform(0.05, 500.0, 2000)
+    x = a * rng.uniform(0.01, 3.0, 2000)
+    fn, oracle = ((gammaincc, sp.gammaincc) if upper
+                  else (gammainc, sp.gammainc))
+    got = fn(torch.tensor(a), torch.tensor(x)).numpy()
+    np.testing.assert_allclose(got, oracle(a, x), rtol=1e-10, atol=1e-13)
+
+
+def _logcdf_inputs(cls, alpha, dtype):
+    beta = dtype(1.5)
+    t = dtype(alpha) * BOTH_SIDES.astype(dtype)
+    return beta, (t / beta if cls == "Gamma" else beta / t).astype(dtype)
+
+
+def _port_alpha_grad(cls, alpha, beta, x, dtype):
+    with pt.Model():
+        node = pt.Flat("a", testval=np.float32(alpha))
+        d = getattr(pt, cls).dist(alpha=node, beta=beta)
+    a = torch.tensor(alpha, dtype=dtype, requires_grad=True)
+    lp = d.logcdf(torch.as_tensor(x, dtype=dtype), {"a": a}, {}).sum()
+    return float(torch.autograd.grad(lp, a)[0])
+
+
+@pytest.mark.parametrize("alpha", GAMMA_SHAPES)
+@pytest.mark.parametrize("cls", ["Gamma", "InverseGamma"])
+def test_logcdf_gradient_in_alpha_matches_jax(cls, alpha):
+    """rtol 1e-5: the inputs are float32 in both packages; the port sums
+    its series in float64 and rounds once, ``jax.grad`` carries
+    ``igamma_grad_a`` in float32 (its own error is a few 1e-6)."""
+    beta, x = _logcdf_inputs(cls, alpha, np.float32)
+    with pj.Model():
+        node = pj.Flat("a", testval=np.float32(alpha))
+        dj = getattr(pj, cls).dist(alpha=node, beta=beta)
+    want = float(jax.grad(lambda a: jnp.sum(
+        dj.logcdf(jnp.asarray(x), {"a": a}, {})))(jnp.float32(alpha)))
+    got = _port_alpha_grad(cls, alpha, beta, x, torch.float32)
+    assert got == pytest.approx(want, rel=1e-5)
+
+
+@pytest.mark.parametrize("alpha", GAMMA_SHAPES)
+@pytest.mark.parametrize("cls", ["Gamma", "InverseGamma"])
+def test_logcdf_gradient_in_alpha_matches_scipy_difference(cls, alpha):
+    """Against a central difference of scipy's float64 incomplete gamma
+    (step 1e-5 max(alpha, 1); truncation and rounding leave about 1e-7)."""
+    import scipy.special as sp
+    beta, x = _logcdf_inputs(cls, alpha, np.float64)
+
+    def logcdf(a):
+        if cls == "Gamma":
+            return np.log(sp.gammainc(a, beta * x)).sum()
+        return np.log(sp.gammaincc(a, beta / x)).sum()
+    h = 1e-5 * max(alpha, 1.0)
+    want = (logcdf(alpha + h) - logcdf(alpha - h)) / (2.0 * h)
+    got = _port_alpha_grad(cls, alpha, beta, x, torch.float64)
+    assert got == pytest.approx(want, rel=1e-6)
+
+
+def test_gammainc_batches_under_vmap_of_grad():
+    """No host loop, no data-dependent branch: the value and both
+    gradients batch under ``torch.func.vmap``."""
+    a = torch.tensor([0.3, 2.5, 20.0], dtype=torch.float64)
+    x = torch.tensor([0.5, 2.0, 30.0], dtype=torch.float64)
+    ga, gx = torch.func.vmap(torch.func.grad(
+        lambda a_, x_: torch.log(gammainc(a_, x_)), argnums=(0, 1)))(a, x)
+    for i in range(3):
+        ai = a[i].clone().requires_grad_()
+        xi = x[i].clone().requires_grad_()
+        wa, wx = torch.autograd.grad(torch.log(gammainc(ai, xi)), (ai, xi))
+        assert float(ga[i]) == pytest.approx(float(wa), rel=1e-12)
+        assert float(gx[i]) == pytest.approx(float(wx), rel=1e-12)
 
 
 def test_betainc_matches_scipy():
