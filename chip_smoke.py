@@ -28,9 +28,10 @@ a non-zero exit and no result line:
    symmetry, the two calls' variances against each other, the same calls
    through the plain version, and the fit at the training inputs;
 6. the radon model of ``bench.py`` at 2048 chains with pooled adaptation,
-   600 tune + 400 draws (tune cut from 1000 and draws from 500, to keep the
-   whole run under 1000 s; ``PERF.md``); moment check of ``mu_a`` and
-   R-hat < 1.01;
+   600 tune + 300 draws (tune cut from 1000 and draws from 500, to keep the
+   whole run under 1000 s as phases were added; split R-hat - 1 grows as
+   1 / draws whatever the chain count, and at 200 draws it passed 0.01;
+   ``PERF.md``); moment check of ``mu_a`` and R-hat < 1.01;
 7. BEST (47 + 42 rows, StudentT likelihoods) at 256 chains, pooled, 500
    tune + 200 draws; moment check of ``difference_of_means`` and R-hat <
    1.01; then the posterior predictive of both groups at all 51,200 draws
@@ -43,8 +44,29 @@ a non-zero exit and no result line:
    at all 102,400 draws (mean and sd against the data's) and 100,000 prior
    predictive draws (weights on the simplex, means of ``mu`` and ``tau``
    against their priors);
-9. a JSON line describing every kernel, then the result line
+9. the coal-mining switchpoint model (``examples/disaster_model.py``, 111
+   years) at 256 chains, 300 tune + 600 draws, with no ``step`` argument:
+   ``sample()`` must compound a NUTS over the two rates with a Metropolis
+   over the discrete switchpoint and record both steppers' statistics;
+   posterior means and sds of all three variables against the model's exact
+   posterior (closed form, float64), the switchpoint's mode exactly, R-hat <
+   1.01 for the rates and < 1.05 for the switchpoint (a random walk); ms per
+   logp-only and per logp+grad call at 256 chains;
+10. eight binary indicators of a regression (``examples/suite.py``) at 1024
+   chains, 200 draws, no tuning, no ``step``: ``BinaryGibbsMetropolis`` must
+   be assigned; the inclusion probabilities against the enumeration of all
+   256 states, each within four Monte-Carlo standard errors;
+11. a 10-dimensional normal with an AR(1) covariance sampled by
+   ``DEMetropolis`` as a population of 2048 chains, 500 tune + 1500 draws:
+   ``sample()`` must step the population as one; means within four
+   standard errors, marginal sds within 10%, R-hat < 1.05 (a random-walk
+   population, not NUTS, so the looser limit);
+12. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
+
+Phases 9-11 each print a JSON line of their own. Every model is built with
+no device argument and must come out on the card: that is the port's
+default.
 
 Two shorter runs serve measurement; neither prints the result line:
 
@@ -364,38 +386,57 @@ def _baseline():
         return json.load(f)["configs"]
 
 
-def _gate(pm, trace, names, ref, wall, label):
+def _on_card(model, label):
+    if model.device.type != "cuda":
+        fail(f"{label}: the model was built on {model.device}, not on the "
+             "card, with no device asked for")
+
+
+def _gate(pm, trace, names, ref, wall, label, against="BASELINE_CPU.json",
+          rhat_limit=1.01):
+    """Moment check against ``ref`` and R-hat below its limit (one number,
+    or one per variable); prints the phase's line and returns its
+    numbers."""
     from pymc3_tpu_torch.examples.suite import (moment_check,
                                                  posterior_moments)
     check = moment_check(posterior_moments(pm, trace, names), ref)
     rhat = pm.rhat(trace, var_names=names)
     ess = pm.ess(trace, var_names=names)
-    rhat_max = max(float(np.max(rhat[v])) for v in names)
+    rhat_by = {v: float(np.max(rhat[v])) for v in names}
+    rhat_max = max(rhat_by.values())
     ess_min = min(float(np.min(ess[v])) for v in names)
-    n_div = int(np.sum(trace.get_sampler_stats("diverging")))
-    depth = ""
+    n_div = (int(np.sum(trace.get_sampler_stats("diverging")))
+             if "diverging" in trace.stat_names else 0)
+    depth, deepest = "", None
     if "depth" in trace.stat_names:
         # (chains, draws): a batched NUTS step lasts as long as its
         # deepest lane's tree
         d = np.stack(trace.get_sampler_stats("depth", combine=False,
                                              squeeze=False))
+        deepest = float(d.max(axis=0).mean())
         depth = (f", mean tree depth {d.mean():.2f}, deepest lane "
-                 f"{d.max(axis=0).mean():.2f}")
+                 f"{deepest:.2f}")
     print(f"{label}: wall {wall:.2f} s, min ESS {ess_min:.1f}, ESS/s "
           f"{ess_min / wall:.2f}, max R-hat {rhat_max:.4f}, divergences "
           f"{n_div}{depth}, moment check {check}", flush=True)
     if not check["pass"]:
-        fail(f"{label} posterior moments disagree with BASELINE_CPU.json")
-    if not rhat_max < 1.01:
-        fail(f"{label} R-hat {rhat_max:.4f} >= 1.01")
+        fail(f"{label} posterior moments disagree with {against}")
+    limits = (rhat_limit if isinstance(rhat_limit, dict)
+              else dict.fromkeys(names, rhat_limit))
+    for v in names:
+        if not rhat_by[v] < limits[v]:
+            fail(f"{label} R-hat of {v} {rhat_by[v]:.4f} >= {limits[v]}")
+    return {"wall_s": wall, "min_ess": ess_min, "ess_per_s": ess_min / wall,
+            "rhat": rhat_by, "divergences": n_div,
+            "deepest_lane_depth": deepest, "moment_check": check}
 
 
 def phase_gp(pm, gp_cov, draws=500, tune=500, chains=4):
     """Returns the launch counts of ``sample()`` and what the prediction
     phase needs: the model, its ``Marginal`` and the trace."""
     from pymc3_tpu_torch.examples.suite import gp_regression
-    with torch.device("cuda"):
-        model, names, gp = gp_regression(pm)
+    model, names, gp = gp_regression(pm)
+    _on_card(model, "gp")
     gp_cov.LAUNCHES = 0
     gp_cov.BACKWARD_LAUNCHES = 0
     t0 = time.time()
@@ -517,10 +558,10 @@ def _posterior_mean_point(model, trace):
             for rv in model.free_RVs}
 
 
-def phase_radon(pm, draws=400, tune=600, chains=2048):
+def phase_radon(pm, draws=300, tune=600, chains=2048):
     from pymc3_tpu_torch.examples.radon import build_model
-    with torch.device("cuda"):
-        model = build_model(pm)
+    model = build_model(pm)
+    _on_card(model, "radon")
     t0 = time.time()
     trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
                       progressbar=False, random_seed=2, target_accept=0.9,
@@ -542,8 +583,8 @@ def _median_se(x, n_eff):
 
 def phase_best(pm, draws=200, tune=500, chains=256):
     from pymc3_tpu_torch.examples.suite import best_model
-    with torch.device("cuda"):
-        model, names = best_model(pm)
+    model, names = best_model(pm)
+    _on_card(model, "best")
     t0 = time.time()
     trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
                       progressbar=False, random_seed=2,
@@ -585,8 +626,8 @@ def phase_best(pm, draws=200, tune=500, chains=256):
 def phase_mixture(pm, draws=200, tune=500, chains=512,
                   prior_samples=100_000):
     from pymc3_tpu_torch.examples.suite import mixture_model
-    with torch.device("cuda"):
-        model, names = mixture_model(pm)
+    model, names = mixture_model(pm)
+    _on_card(model, "mixture")
     t0 = time.time()
     trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
                       progressbar=False, random_seed=2,
@@ -635,6 +676,165 @@ def phase_mixture(pm, draws=200, tune=500, chains=512,
         fail("mixture prior means disagree with the priors")
 
 
+def _synced_ms(fn, calls=50, warmup=5):
+    """Host clock per call of ``fn`` in milliseconds, each call waited for."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def _exact_ref(moments):
+    """A known mean and sd in the shape ``moment_check`` compares with (no
+    Monte-Carlo error of its own)."""
+    return {name: {"mean": np.atleast_1d(m["mean"]).tolist(),
+                   "sd": np.atleast_1d(m["sd"]).tolist(),
+                   "mcse": np.zeros_like(np.atleast_1d(m["mean"])).tolist()}
+            for name, m in moments.items()}
+
+
+def phase_disaster(pm, card, draws=600, tune=300, chains=256):
+    """The slice's main path at full width: NUTS + Metropolis, assigned and
+    compounded by ``sample()`` itself, against the exact posterior.
+
+    R-hat: below 1.01 for the two rates (NUTS) and below 1.05 for the
+    switchpoint. Its Metropolis walk starts at scale 1 against a posterior
+    sd of 2.45 and is tuned three times in 300 draws, so a chain of 600
+    draws holds about 60 effective ones, and split R-hat is about
+    sqrt(1 + 1 / ESS of half a chain) however many chains there are."""
+    from pymc3_tpu_torch.examples import disaster_model
+    from pymc3_tpu_torch.examples.suite import disaster_exact_posterior
+    model = disaster_model.build_model()
+    _on_card(model, "disaster")
+    names = ["switchpoint", "early_mean", "late_mean"]
+
+    # what sample() will pick when it is given no step
+    picked = pm.assign_step_methods(model)
+    kinds = sorted((type(m).__name__, [v.name for v in m.vars])
+                   for m in (picked if isinstance(picked, list) else [picked]))
+    want = [("Metropolis", ["switchpoint"]),
+            ("NUTS", ["early_mean_log__", "late_mean_log__"])]
+    if kinds != want:
+        fail(f"disaster: steppers assigned {kinds}, expected {want}")
+    nuts = next(m for m in picked if isinstance(m, pm.NUTS))
+    if not nuts.is_partial or nuts.dim != 2:
+        fail("disaster: the NUTS is not over the two rates only")
+
+    t0 = time.time()
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      progressbar=False, random_seed=2,
+                      compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    need = {"depth", "diverging", "accept", "scaling"}
+    if not need <= trace.stat_names:
+        fail(f"disaster: the trace lacks statistics "
+             f"{sorted(need - trace.stat_names)} of its two steppers")
+    if len(trace._straces[0].sampler_vars) != 2:
+        fail("disaster: expected one block of statistics per stepper")
+
+    exact = disaster_exact_posterior(disaster_model.disasters_data)
+    out = _gate(pm, trace, names, _exact_ref({n: exact[n] for n in names}),
+                wall, f"disaster chains={chains} tune={tune} draws={draws}",
+                against="the exact posterior",
+                rhat_limit={"switchpoint": 1.05, "early_mean": 1.01,
+                            "late_mean": 1.01})
+    s = np.asarray(trace["switchpoint"])
+    if not np.all(s == np.round(s)):
+        fail("disaster: switchpoint draws are not integers")
+    mode = int(np.bincount(s.astype(np.int64), minlength=111).argmax())
+    if mode != int(exact["w"].argmax()):
+        fail(f"disaster: switchpoint mode {mode}, exact "
+             f"{int(exact['w'].argmax())}")
+
+    q = torch.as_tensor(np.stack([model.dict_to_array(model.test_point)]
+                                 * chains), device=model.device)
+    logp_fn, vag = model.make_logp_fn(), model.logp_dlogp_function()
+    out.update(phase="disaster", chains=chains, tune=tune, draws=draws,
+               switchpoint_mode=mode,
+               switchpoint_dtype=str(s.dtype),
+               metropolis_accept=float(np.mean(
+                   trace.get_sampler_stats("accept"))),
+               logp_ms=_synced_ms(lambda: logp_fn(q)),
+               logp_grad_ms=_synced_ms(lambda: vag(q)), card=card)
+    print(json.dumps(out), flush=True)
+
+
+def phase_binary(pm, card, draws=200, tune=0, chains=1024):
+    """Eight Bernoulli indicators through the Gibbs scan ``sample()``
+    assigns, against the enumeration of all 256 states."""
+    from pymc3_tpu_torch.examples.suite import (indicator_exact_inclusion,
+                                                 indicator_model)
+    model, names = indicator_model(pm)
+    _on_card(model, "binary")
+    picked = pm.assign_step_methods(model)
+    if type(picked).__name__ != "BinaryGibbsMetropolis":
+        fail(f"binary: {picked!r} assigned, expected BinaryGibbsMetropolis")
+    t0 = time.time()
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      progressbar=False, random_seed=2,
+                      compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    z = np.asarray(trace["z"], dtype=np.float64)
+    exact = indicator_exact_inclusion()
+    ess = np.asarray(pm.ess(trace, var_names=names)["z"], dtype=np.float64)
+    se = z.std(axis=0) / np.sqrt(ess)
+    zscore = np.abs(z.mean(axis=0) - exact) / se
+    out = {"phase": "binary", "wall_s": wall, "chains": chains, "tune": tune,
+           "draws": draws, "logp_calls_per_draw": z.shape[1],
+           "inclusion": z.mean(axis=0).tolist(), "exact": exact.tolist(),
+           "max_z": float(zscore.max()), "min_ess": float(ess.min()),
+           "card": card}
+    print(json.dumps(out), flush=True)
+    if not zscore.max() < 4.0:
+        fail(f"binary: an inclusion probability is {zscore.max():.2f} "
+             "standard errors off the enumeration")
+
+
+def phase_population(pm, card, draws=1500, tune=500, chains=2048):
+    """``DEMetropolis`` over a population of 2048 chains on a correlated
+    normal whose moments are known."""
+    from pymc3_tpu_torch.examples.suite import correlated_normal_model
+    model, names, mean, sd = correlated_normal_model(pm)
+    _on_card(model, "population")
+    step = pm.DEMetropolis(model=model)
+    calls = [0]
+    stepped = step.population_kernel_step
+
+    def counted(*args):
+        calls[0] += 1
+        return stepped(*args)
+    step.population_kernel_step = counted
+    t0 = time.time()
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      step=step, progressbar=False, random_seed=2,
+                      compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if calls[0] != draws + tune:
+        fail(f"population: sample() stepped the population {calls[0]} "
+             f"times, expected {draws + tune}")
+    # R-hat < 1.05: a random-walk population, not NUTS
+    out = _gate(pm, trace, names,
+                _exact_ref({"x": {"mean": mean, "sd": sd}}), wall,
+                f"population chains={chains} tune={tune} draws={draws}",
+                against="the known normal", rhat_limit=1.05)
+    x = np.asarray(trace["x"], dtype=np.float64)
+    sd_rel = float(np.max(np.abs(x.std(axis=0) / sd - 1.0)))
+    out.update(phase="population", chains=chains, tune=tune, draws=draws,
+               max_sd_rel=sd_rel,
+               accept=float(np.mean(trace.get_sampler_stats("accepted"))),
+               card=card)
+    print(json.dumps(out), flush=True)
+    if not sd_rel < 0.10:
+        fail(f"population: a marginal sd is {100 * sd_rel:.1f}% off")
+
+
 def _gp_wall(other):
     """Phase 4 alone in four fresh processes: other, this, this, other."""
     code = ("import sys, torch; sys.path[:0] = ['.', 'scripts']; "
@@ -678,8 +878,8 @@ def main():
     max_err, timings = phase_kernel(gp_cov, card, other)
     if args.quick:
         from pymc3_tpu_torch.examples.suite import gp_regression
-        with torch.device("cuda"):
-            model, _, gp = gp_regression(pm)
+        model, _, gp = gp_regression(pm)
+        _on_card(model, "gp")
         phase_predict(gp_cov, model, gp, model.test_point,
                       "predict (test point)")
         print(f"quick: ok in {time.time() - t_start:.1f} s", flush=True)
@@ -691,7 +891,10 @@ def main():
     phase_radon(pm)
     phase_best(pm)
     phase_mixture(pm)
-    print(f"phases 1-8: {time.time() - t_start:.1f} s", flush=True)
+    phase_disaster(pm, card)
+    phase_binary(pm, card)
+    phase_population(pm, card)
+    print(f"phases 1-11: {time.time() - t_start:.1f} s", flush=True)
 
     replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",
                 "backward": "pymc3_tpu/ops/pallas/gp_cov.py:215"}

@@ -1,4 +1,5 @@
-"""Global configuration: the float and int widths of the port.
+"""Global configuration: the float and int widths of the port and the device
+its models are built on.
 
 Mirrors ``pymc3_tpu/config.py`` without the JAX compile-cache and Pallas
 dispatch settings, which have no counterpart in eager PyTorch.
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ["floatX", "intX", "torch_floatX", "get_config", "set_config",
-           "Config"]
+           "Config", "default_device"]
 
 
 @dataclasses.dataclass
@@ -21,10 +22,13 @@ class Config:
 
     ``floatX`` is the float width of every continuous computation (float32
     by default, as on the card); ``intX`` follows it (int32 or int64).
+    ``device`` is where a model is built, and so where it is sampled, when
+    ``Model(device=...)`` names none: the card by default.
     """
 
     floatX: str = "float32"
     intX: str = "int32"
+    device: str = "cuda"
 
 
 _config = Config()
@@ -42,6 +46,19 @@ def set_config(**kwargs: Any) -> Config:
         setattr(_config, k, v)
     _config.intX = "int64" if _config.floatX == "float64" else "int32"
     return _config
+
+
+def default_device() -> torch.device:
+    """The configured device. Raises when it is a CUDA device and there is
+    none: a model is never moved to the CPU behind the caller's back."""
+    device = torch.device(_config.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the configured device is {_config.device!r} and torch finds no "
+            "CUDA device. To run on the CPU ask for it: "
+            "set_config(device=\"cpu\") for every model, or "
+            "Model(device=\"cpu\") for one.")
+    return device
 
 
 def torch_floatX() -> torch.dtype:

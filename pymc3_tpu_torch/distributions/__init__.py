@@ -11,6 +11,12 @@ from .continuous import (
     ExGaussian, VonMises, SkewNormal, Triangular, Gumbel, Rice, Logistic,
     LogitNormal, Interpolated,
 )
+from .discrete import (
+    Binomial, BetaBinomial, Bernoulli, DiscreteWeibull, Poisson,
+    NegativeBinomial, Constant, ConstantDist, ZeroInflatedPoisson,
+    ZeroInflatedBinomial, ZeroInflatedNegativeBinomial, DiscreteUniform,
+    Geometric, Categorical, OrderedLogistic,
+)
 from .multivariate import MvNormal, Dirichlet
 from .mixture import Mixture, NormalMixture
 from .bound import Bound
@@ -21,7 +27,11 @@ __all__ = [
     "StudentT", "Pareto", "Cauchy", "HalfCauchy", "Gamma", "InverseGamma",
     "ChiSquared", "Weibull", "HalfStudentT", "ExGaussian", "VonMises",
     "SkewNormal", "Triangular", "Gumbel", "Rice", "Logistic", "LogitNormal",
-    "Interpolated", "MvNormal", "Dirichlet", "Mixture", "NormalMixture",
+    "Interpolated", "Binomial", "BetaBinomial", "Bernoulli",
+    "DiscreteWeibull", "Poisson", "NegativeBinomial", "Constant",
+    "ConstantDist", "ZeroInflatedPoisson", "ZeroInflatedBinomial",
+    "ZeroInflatedNegativeBinomial", "DiscreteUniform", "Geometric",
+    "Categorical", "OrderedLogistic", "MvNormal", "Dirichlet", "Mixture", "NormalMixture",
     "Bound", "Distribution", "Continuous", "Discrete", "NoDistribution",
     "DensityDist", "TransformedDistribution", "draw_values",
     "generate_samples", "transforms",

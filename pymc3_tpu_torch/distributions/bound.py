@@ -1,7 +1,4 @@
-"""Bound: truncate a continuous distribution (cf. ``pymc3_tpu/distributions/bound.py``).
-
-The bounded discrete case waits for the discrete family.
-"""
+"""Bound: truncate a distribution (cf. ``pymc3_tpu/distributions/bound.py``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,7 +8,9 @@ from ..config import floatX
 from ..node import Node, as_node, evaluate
 from . import transforms
 from .dist_math import bound as bound_mask
-from .distribution import Continuous, Distribution, draw_values, point_lead
+from .distribution import (
+    Continuous, Discrete, Distribution, draw_values, point_lead,
+)
 from .shape_utils import to_tuple
 
 __all__ = ["Bound"]
@@ -111,6 +110,27 @@ class _Bounded(Distribution):
         return out
 
 
+class _DiscreteBounded(_Bounded, Discrete):
+    """cf. ``bound.py:102``: no transform; the test value is the middle of
+    the bounds, or one step inside the only bound."""
+
+    def __init__(self, distribution, lower, upper, transform="infer",
+                 *args, **kwargs):
+        if transform == "infer":
+            transform = None
+        if transform is not None:
+            raise ValueError("Can't transform discrete variable.")
+        if lower is None and upper is None:
+            default = None
+        elif lower is not None and upper is not None:
+            default = (int(np.asarray(lower)) + int(np.asarray(upper))) // 2
+        elif lower is not None:
+            default = int(np.asarray(lower)) + 1
+        else:
+            default = int(np.asarray(upper)) - 1
+        super().__init__(distribution, lower, upper, default, *args, **kwargs)
+
+
 class _ContinuousBounded(_Bounded, Continuous):
     """cf. ``bound.py:122``."""
 
@@ -141,9 +161,6 @@ class Bound:
     def __init__(self, distribution, lower=None, upper=None):
         if isinstance(distribution, _Bounded):
             raise ValueError("Cannot bound a bounded distribution")
-        if not issubclass(distribution, Continuous):
-            raise NotImplementedError(
-                "Bound of a discrete distribution is not ported yet")
         self.distribution = distribution
         self.lower = lower
         self.upper = upper
@@ -155,10 +172,15 @@ class Bound:
                 "to model truncated data you can use a pm.Potential in "
                 "combination with the cumulative probability function.")
         transform = kwargs.pop("transform", "infer")
-        return _ContinuousBounded(name, self.distribution, self.lower,
-                                  self.upper, transform, *args, **kwargs)
+        return self._bounded_class()(name, self.distribution, self.lower,
+                                     self.upper, transform, *args, **kwargs)
+
+    def _bounded_class(self):
+        return (_ContinuousBounded if issubclass(self.distribution, Continuous)
+                else _DiscreteBounded)
 
     def dist(self, *args, **kwargs):
         transform = kwargs.pop("transform", "infer")
-        return _ContinuousBounded.dist(self.distribution, self.lower,
-                                       self.upper, transform, *args, **kwargs)
+        return self._bounded_class().dist(self.distribution, self.lower,
+                                          self.upper, transform, *args,
+                                          **kwargs)

@@ -1,7 +1,11 @@
 """The port's copy of the JAX package's bench suite
 (``scripts/bench_suite.py``): the GP, BEST and mixture models with the same
 data and seeds, and the moment gate that holds a posterior against
-``BASELINE_CPU.json``.
+``BASELINE_CPU.json``. Beside them, three models whose posteriors are known
+without a sampler: the exact posterior of the coal-mining switchpoint model
+(``examples/disaster_model.py``), a binary-indicator regression with its
+posterior by enumeration, and a correlated normal for the population
+sampler.
 
 The suite's own file imports the JAX package, so the port keeps what it
 needs here. The mixture model there writes its ordering ``Potential``
@@ -107,6 +111,97 @@ def gp_model(pm):
     """:func:`gp_regression` without the ``Marginal`` object, as the
     suite's ``gp_model`` returns it."""
     return gp_regression(pm)[:2]
+
+
+def disaster_exact_posterior(y):
+    """The switchpoint model's posterior in closed form, float64.
+
+    With Exponential(1) priors the two rates are conjugate given the
+    switchpoint ``s``: ``early | s ~ Gamma(1 + S1, 1 + n1)`` with ``n1 = s``
+    years summing to ``S1``, likewise ``late`` over the other ``n2 = N - s``
+    years. Integrating them out leaves the switchpoint's weights
+
+        log w(s) = lgamma(1+S1) - (1+S1) log(1+n1)
+                 + lgamma(1+S2) - (1+S2) log(1+n2),   s = 0..N-1.
+
+    Returns the weights and, for ``switchpoint``, ``early_mean`` and
+    ``late_mean``, the posterior mean and sd (the rates' as mixtures of
+    their Gammas over ``w``)."""
+    from math import lgamma
+    y = np.asarray(y, dtype=np.float64)
+    N = len(y)
+    s = np.arange(N)
+    S1 = np.concatenate([[0.0], np.cumsum(y)[:-1]])
+    S2 = y.sum() - S1
+    n1, n2 = s.astype(np.float64), (N - s).astype(np.float64)
+    logw = np.array([lgamma(1 + a) - (1 + a) * np.log1p(m)
+                     + lgamma(1 + b) - (1 + b) * np.log1p(n)
+                     for a, m, b, n in zip(S1, n1, S2, n2)])
+    w = np.exp(logw - logw.max())
+    w /= w.sum()
+
+    def mixed(mean, var):
+        m = float(np.sum(w * mean))
+        return {"mean": m, "sd": float(np.sqrt(
+            np.sum(w * (var + mean ** 2)) - m ** 2))}
+    return {"w": w,
+            "switchpoint": mixed(s.astype(np.float64), np.zeros(N)),
+            "early_mean": mixed((1 + S1) / (1 + n1), (1 + S1) / (1 + n1) ** 2),
+            "late_mean": mixed((1 + S2) / (1 + n2), (1 + S2) / (1 + n2) ** 2)}
+
+
+def indicator_data(rows=64, k=8, seed=7):
+    """Design, fixed coefficients and observations of the binary-indicator
+    regression: ``y = X @ (z_true * beta) + N(0, 1)``. The coefficients are
+    small enough that several indicators stay uncertain."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(rows, k)
+    beta = np.array([0.3, -0.25, 0.2, 0.3, -0.3, 0.25, 0.2, 0.15])[:k]
+    z_true = (np.arange(k) % 2 == 0).astype(np.float64)
+    y = X @ (z_true * beta) + rng.randn(rows)
+    return X, beta, y
+
+
+def indicator_model(pm):
+    """``z ~ Bernoulli(0.5, shape=8)``, ``y ~ Normal(X @ (z * beta), 1)``
+    observed: the free variables are the eight indicators."""
+    X, beta, y = indicator_data()
+    with pm.Model() as model:
+        z = pm.Bernoulli("z", p=0.5, shape=len(beta))
+        mu = pm.node.apply(lambda z, Xb: Xb @ z, z,
+                           pm.node.as_node((X * beta).astype(np.float32)))
+        pm.Normal("y", mu=mu, sigma=1.0, observed=y)
+    return model, ["z"]
+
+
+def indicator_exact_inclusion():
+    """The eight inclusion probabilities by enumeration of all 256 states,
+    float64 (the prior is uniform over the states)."""
+    X, beta, y = indicator_data()
+    k = len(beta)
+    states = ((np.arange(2 ** k)[:, None] >> np.arange(k)) & 1).astype(
+        np.float64)
+    resid = y[None, :] - states @ (X * beta).T
+    logw = -0.5 * np.sum(resid ** 2, axis=1)
+    w = np.exp(logw - logw.max())
+    w /= w.sum()
+    return w @ states
+
+
+def ar1_cov(n=10, rho=0.9):
+    """The AR(1) covariance ``rho ** |i - j|`` (unit marginal variances)."""
+    i = np.arange(n)
+    return rho ** np.abs(i[:, None] - i[None, :])
+
+
+def correlated_normal_model(pm, n=10, rho=0.9):
+    """An ``n``-dimensional normal with mean ``arange(n) / 2`` and the
+    AR(1) covariance, for the population sampler; returns the model, the
+    variable's name, and the known mean and marginal sds."""
+    mean = np.arange(n) / 2.0
+    with pm.Model() as model:
+        pm.MvNormal("x", mu=mean, cov=ar1_cov(n, rho), shape=n)
+    return model, ["x"], mean, np.ones(n)
 
 
 def posterior_moments(pm, trace, var_names):

@@ -2,12 +2,14 @@
 
 ``Model`` is a context-managed registry of free, observed and deterministic
 variables. Its factor list contracts into one function of the flat
-unconstrained vector, ``logp_point(q)``, written for one point; the sampler
-sees only :class:`ValueGradFunction`, which batches that function over
-chains with ``torch.func.vmap`` and differentiates the batch with autograd.
+unconstrained vector, ``logp_point(q)``, written for one point. The samplers
+see two batched forms of it: :class:`ValueGradFunction`, which batches it
+over chains with ``torch.func.vmap`` and differentiates the batch with
+autograd, and ``make_logp_fn()``, the same batch without a gradient, for
+the steppers that never use one.
 
-Every model constant lives on ``Model(device=...)`` (torch's default device,
-the CPU unless changed, when not given).
+Every model constant lives on ``Model(device=...)``; when that is not given,
+on the configured device (``config.device``, the card by default).
 """
 from __future__ import annotations
 
@@ -18,15 +20,15 @@ import numpy as np
 import torch
 
 from .blocking import ArrayOrdering, DictToArrayBijection
-from .config import floatX, torch_floatX
+from .config import default_device, floatX, torch_floatX
 from .distributions.distribution import (
     BatchedPoint, _as_tensor, make_generator,
 )
 from .memoize import WithMemoization
 from .node import Node, NamedNode, ConstantNode, as_node, _ev
-from .torchf import batched_value_and_grad
+from .torchf import batched_value, batched_value_and_grad
 from .util import get_transformed_name, get_var_name
-from .vartypes import continuous_types
+from .vartypes import continuous_types, discrete_types
 
 __all__ = ["Model", "modelcontext", "Point", "Deterministic", "Potential",
            "FreeRV", "ObservedRV", "TransformedRV", "DeterministicRV",
@@ -186,7 +188,9 @@ class Model(WithMemoization, metaclass=ContextMeta):
     """The variables and likelihood factors of a model (cf. ``model.py:716``).
 
     ``device``: where every constant of the model lives and where its logp
-    runs; torch's default device when not given.
+    runs. When not given, a sub-model takes its parent's and any other model
+    the configured one (``set_config(device=...)``, "cuda" by default);
+    without a CUDA device that raises instead of building on the CPU.
     """
 
     def __new__(cls, *args, **kwargs):
@@ -199,7 +203,7 @@ class Model(WithMemoization, metaclass=ContextMeta):
         self.name = name
         if device is None:
             device = (self.parent.device if self.parent is not None
-                      else torch.get_default_device())
+                      else default_device())
         self.device = torch.device(device)
         if self.parent is not None:
             self.named_vars = self.parent.named_vars
@@ -303,6 +307,11 @@ class Model(WithMemoization, metaclass=ContextMeta):
                 if str(v.distribution.dtype) in continuous_types]
 
     @property
+    def disc_vars(self):
+        return [v for v in self.free_RVs
+                if str(v.distribution.dtype) in discrete_types]
+
+    @property
     def test_point(self) -> Dict[str, np.ndarray]:
         """Test point in unconstrained space (cf. ``model.py:946``)."""
         return {v.name: v.test_value for v in self.free_RVs}
@@ -364,6 +373,14 @@ class Model(WithMemoization, metaclass=ContextMeta):
     def logp_dlogp_function(self):
         """cf. ``model.py:885`` — returns a :class:`ValueGradFunction`."""
         return ValueGradFunction(self)
+
+    def make_logp_fn(self):
+        """Batched logp without a gradient, ``q: (chains, n) -> (chains,)``
+        (cf. ``make_logp_fn``, ``model.py:601``, which is for one point and
+        is vmapped by its callers). Discrete values ride in ``q`` as
+        floats."""
+        ordering = self.ordering
+        return batched_value(lambda q: self.logp_point(q, ordering))
 
     # -- host-side conveniences ---------------------------------------------
     def _point_to_env(self, point):

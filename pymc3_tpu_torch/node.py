@@ -21,20 +21,20 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from .config import floatX
+from .config import default_device, floatX
 
 __all__ = ["Node", "ConstantNode", "OpNode", "NamedNode", "apply", "as_node",
            "evaluate", "current_device"]
 
 
 def current_device() -> torch.device:
-    """Device of the model on the context stack; torch's default device
-    when there is none."""
+    """Device of the model on the context stack; the configured device
+    (``config.default_device``) when there is none."""
     from .model import Model
     model = Model.get_context(error_if_none=False)
     if model is not None:
         return model.device
-    return torch.get_default_device()
+    return default_device()
 
 
 def _to_numpy(x):

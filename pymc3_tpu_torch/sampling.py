@@ -1,6 +1,8 @@
 """Sampling driver (cf. ``pymc3_tpu/sampling.py``).
 
-``sample()`` keeps the JAX package's surface for the NUTS path. All chains
+``sample()`` keeps the JAX package's surface: NUTS with its initialization
+for a continuous model, and otherwise the step methods that
+``assign_step_methods`` picks for each variable, compounded. All chains
 advance together as the leading dimension of ``(chains, n)`` tensors on the
 model's device; a Python loop runs the draws, the random numbers come from
 one ``torch.Generator`` on that device seeded from ``random_seed``, and the
@@ -33,12 +35,15 @@ from .distributions.shape_utils import to_tuple
 from .exceptions import SamplingError
 from .model import all_continuous, modelcontext
 from .node import _ev
-from .step_methods.arraystep import TuneContext
-from .step_methods.hmc.nuts import NUTS, GeneratorNoise, find_reasonable_eps
+from .step_methods import STEP_METHODS, CompoundStep, DEMetropolis, NUTS
+from .step_methods.arraystep import GeneratorNoise, TuneContext
+from .step_methods.hmc.nuts import find_reasonable_eps
 from .step_methods.hmc.quadpotential import QuadPotentialDiagAdapt
 from .util import get_var_name, update_start_vals
+from .vartypes import discrete_types
 
-__all__ = ["sample", "init_nuts", "sample_prior_predictive",
+__all__ = ["sample", "init_nuts", "stop_tuning", "assign_step_methods",
+           "instantiate_steppers", "sample_prior_predictive",
            "sample_posterior_predictive", "fast_sample_posterior_predictive",
            "sample_posterior_predictive_w"]
 
@@ -48,52 +53,155 @@ _log = logging.getLogger("pymc3_tpu_torch")
 _BLOCK_BUDGET = int(5e7)
 
 
+def instantiate_steppers(model, steps, selected_steps, step_kwargs=None):
+    """Instantiate the step method chosen for each group of variables
+    (cf. ``sampling.py:56``)."""
+    if step_kwargs is None:
+        step_kwargs = {}
+    used_keys = set()
+    for step_class, vars in selected_steps.items():
+        if len(vars) == 0:
+            continue
+        args = step_kwargs.get(step_class.name, {})
+        used_keys.add(step_class.name)
+        steps.append(step_class(vars=vars, model=model, **args))
+
+    unused_args = set(step_kwargs).difference(used_keys)
+    if unused_args:
+        raise ValueError(f"Unused step method arguments: {unused_args}")
+    if len(steps) == 1:
+        return steps[0]
+    return steps
+
+
+def assign_step_methods(model, step=None, methods=STEP_METHODS,
+                        step_kwargs=None):
+    """Assign every free variable that ``step`` does not cover to the step
+    method most competent for it (cf. ``sampling.py:80``)."""
+    steps = []
+    assigned_vars = set()
+    if step is not None:
+        try:
+            steps += list(step)
+        except TypeError:
+            steps.append(step)
+        for s in steps:
+            assigned_vars |= {get_var_name(v) for v in s.vars}
+
+    selected_steps = defaultdict(list)
+    for var in model.free_RVs:
+        if get_var_name(var) in assigned_vars:
+            continue
+        has_grad = _has_grad(model, var)
+        selected = max(methods,
+                       key=lambda method: method.competence(var, has_grad))
+        selected_steps[selected].append(var)
+    return instantiate_steppers(model, steps, selected_steps, step_kwargs)
+
+
+def _has_grad(model, var):
+    """Is d logp / d var finite at the test point? A discrete variable has
+    no gradient, and autograd is not asked for one."""
+    if str(np.dtype(var.distribution.dtype)) in discrete_types:
+        return False
+    try:
+        q = torch.as_tensor(model.dict_to_array(model.test_point),
+                            dtype=torch_floatX(), device=model.device)[None]
+        _, grad = model.logp_dlogp_function()(q)
+        vm = model.ordering.by_name[var.name]
+        return bool(torch.isfinite(grad[0, vm.slc]).all())
+    except (RuntimeError, NotImplementedError):
+        return False
+
+
+_STEPPER_NAMES = ("nuts", "hmc", "metropolis", "slice", "DEMetropolis",
+                  "DEMetropolisZ", "binary_metropolis",
+                  "binary_gibbs_metropolis", "categorical_gibbs_metropolis")
+
+
 def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
            trace=None, chain_idx=0, chains=None, cores=None, tune=500,
            progressbar=True,
            model=None, random_seed=None, discard_tuned_samples=True,
            compute_convergence_checks=True, target_accept=None,
            axis_name=None, record_stats=None, **kwargs):
-    """Draw samples from the posterior with NUTS (cf. ``sampling.py:230``).
+    """Draw samples from the posterior (cf. ``sampling.py:128``).
+
+    With no ``step``, a model of continuous variables only gets NUTS with
+    its mass-matrix initialization; any other model gets the step methods
+    that :func:`assign_step_methods` picks, compounded. ``step`` may be one
+    stepper or a list; the variables it leaves out are assigned as above.
 
     ``chains`` is the batch dimension (default 4); ``cores`` is accepted
     for API parity and ignored. ``trace`` may list the variables to record;
     ``record_stats`` lists the sampler statistics to keep ("diverging" is
     always kept). ``axis_name`` (any value) pools step-size and mass-matrix
-    adaptation over all chains. NUTS arguments go by name:
-    ``nuts={"max_treedepth": 8}``.
+    adaptation over all chains. Step-method arguments go by stepper name,
+    ``nuts={"max_treedepth": 8}``, or together as ``step_kwargs={...}``.
     """
     model = modelcontext(model)
     if not model.free_RVs:
         raise ValueError("The model does not contain any free variables.")
     if chains is None:
         chains = max(4, cores or 0)
-    nuts_kwargs = dict(kwargs.pop("nuts", {}))
+    step_kwargs = {name: dict(kwargs.pop(name)) for name in _STEPPER_NAMES
+                   if name in kwargs}
+    legacy = kwargs.pop("step_kwargs", None)
+    if legacy:
+        bad = set(legacy) - set(_STEPPER_NAMES)
+        if bad:
+            raise ValueError(
+                f"Unknown step method(s) in step_kwargs: {sorted(bad)!r}; "
+                f"valid names are {list(_STEPPER_NAMES)}")
+        step_kwargs.update(legacy)
     if kwargs:
-        raise ValueError(f"Unknown keyword argument(s) for sample: "
-                         f"{sorted(kwargs)!r}")
+        raise ValueError(
+            f"Unknown keyword argument(s) for sample: {sorted(kwargs)!r}. "
+            f"Step-method arguments are passed by stepper name, e.g. "
+            f"sample(..., nuts={{'target_accept': 0.9}}).")
     if target_accept is not None:
-        nuts_kwargs["target_accept"] = target_accept
+        step_kwargs.setdefault("nuts", {})["target_accept"] = target_accept
     if random_seed is None:
         random_seed = np.random.randint(0, 2 ** 30)
     random_seed = int(np.asarray(random_seed).ravel()[0])
+    start = _check_start_shape(model, start, chains)
     draws, tune = int(draws), int(tune)
     if draws + tune <= 0:
         raise ValueError("Argument `draws` must be greater than 0.")
 
-    if step is None:
-        if not all_continuous(model.free_RVs):
-            raise NotImplementedError("only continuous models (NUTS) are "
-                                      "ported")
+    # -- step method selection (cf. sampling.py:201-235) ---------------------
+    start_points = None
+    if step is None and init is not None and all_continuous(model.free_RVs):
         start_points, step = init_nuts(
             init=init, chains=chains, n_init=n_init, model=model,
-            random_seed=random_seed, axis_name=axis_name, **nuts_kwargs)
-    elif not isinstance(step, NUTS):
-        raise NotImplementedError("only the NUTS stepper is ported")
+            random_seed=random_seed, axis_name=axis_name,
+            **step_kwargs.get("nuts", {}))
     else:
-        start_points = [model.test_point] * chains
-    chain_starts = start_points if start is None else (
-        [start] * chains if isinstance(start, dict) else list(start))
+        step = assign_step_methods(model, step, step_kwargs=step_kwargs)
+    if isinstance(step, list):
+        step = CompoundStep(step)
+
+    if any(isinstance(m, DEMetropolis) for m in _members(step)):
+        ndim = model.ndim
+        if chains < 3:
+            raise ValueError(
+                f"DEMetropolis requires at least 3 chains. For this "
+                f"{ndim}-dimensional model you should use >= {ndim + 1} "
+                f"chains")
+        if chains <= ndim:
+            warnings.warn(
+                f"DEMetropolis should be used with more chains than "
+                f"dimensions! (The model has {ndim} dimensions.)",
+                UserWarning)
+
+    # every chain of a run without the NUTS initialization starts at the
+    # test point, as in the JAX package (no jitter)
+    if start is not None:
+        chain_starts = start
+    elif start_points is not None:
+        chain_starts = start_points
+    else:
+        chain_starts = [model.test_point] * chains
 
     q0 = np.stack([model.dict_to_array(_complete_point(model, p))
                    for p in chain_starts]).astype(floatX())
@@ -123,11 +231,41 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
     return mtrace
 
 
+def _members(step):
+    return step.methods if isinstance(step, CompoundStep) else [step]
+
+
 def _complete_point(model, point):
     """Fill a (possibly partial, possibly untransformed) start point."""
     start = dict(point or {})
     update_start_vals(start, model.test_point, model)
     return {k: v for k, v in start.items() if k in model.ordering.by_name}
+
+
+def _check_start_shape(model, start, chains):
+    """One start point per chain, each value of its variable's shape
+    (cf. ``sampling.py:347``)."""
+    if start is None:
+        return None
+    if isinstance(start, dict):
+        start = [start] * chains
+    e = ""
+    for elem in start:
+        for var in model.free_RVs:
+            name = var.name
+            if name in elem:
+                var_shape = np.shape(var.test_value)
+                start_var_shape = np.shape(elem[name])
+                if start_var_shape:
+                    if start_var_shape != var_shape:
+                        e += f"\nExpected shape {var_shape} for var " \
+                             f"'{name}', got: {start_var_shape}"
+                elif var_shape:
+                    e += f"\nExpected shape {var_shape} for var " \
+                         f"'{name}', got scalar {elem[name]}"
+    if e:
+        raise ValueError(f"Bad shape for start argument:{e}")
+    return list(start)
 
 
 def _check_bad_init(model, start):
@@ -162,20 +300,29 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
                    keep_from, trace_vars, record_stats):
     """Run warmup and draws over all chains at once.
 
-    Returns ``values`` {name: (chains, n_kept, ...)} and ``stats``
-    {name: (chains, n_kept)} on the host, and the final kernel state.
+    A compound threads ``q`` through its members' kernels; a population
+    stepper (``population_based``) steps the ``(chains, n)`` population
+    through ``population_kernel_step``. Returns ``values`` {name: (chains,
+    n_kept, ...)} and ``stats``, one {name: (chains, n_kept)} per stepper
+    that generates statistics, on the host, and the final kernel state.
     """
     device = model.device
-    chains, dim = q0.shape
+    chains = q0.shape[0]
     total = draws + tune
     gen = torch.Generator(device=device)
     gen.manual_seed(random_seed)
-    noise = GeneratorNoise(gen, chains, dim, device)
+    noise = GeneratorNoise(gen, chains, device)
     q = torch.as_tensor(q0, dtype=torch_floatX(), device=device)
 
-    if tune > 0 and step.adapt_step_size:
-        step.step_size = find_reasonable_eps(step, q, noise)
+    if tune > 0:
+        for m in _members(step):
+            if getattr(m, "adapt_step_size", False) and \
+                    hasattr(m, "step_size") and hasattr(m, "potential"):
+                m.step_size = find_reasonable_eps(m, q, noise)
     state = step.kernel_init(q)
+    kernel_step = (step.population_kernel_step
+                   if getattr(step, "population_based", False)
+                   else step.kernel_step)
 
     ordering = model.ordering
 
@@ -185,37 +332,46 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
         return {v.name: _ev(v, env, memo) for v in trace_vars}
     decode_batch = torch.func.vmap(decode)
 
-    stat_names = [k for k in step.stats_dtypes[0]
-                  if record_stats is None or k in record_stats
-                  or k == "diverging"]
+    stat_names = [[k for k in dtypes
+                   if record_stats is None or k in record_stats
+                   or k == "diverging"]
+                  for dtypes in (step.stats_dtypes if step.generates_stats
+                                 else [])]
     n_keep = total - keep_from
     width = sum(max(1, int(np.prod(np.shape(v.test_value))))
-                for v in trace_vars) + len(stat_names)
+                for v in trace_vars) + sum(len(n) for n in stat_names)
     block = max(1, min(n_keep, _BLOCK_BUDGET // max(1, chains * width)))
     host_vals = defaultdict(list)
-    host_stats = defaultdict(list)
-    buf_vals, buf_stats = defaultdict(list), defaultdict(list)
+    host_stats = [defaultdict(list) for _ in stat_names]
+    buf_vals = defaultdict(list)
+    buf_stats = [defaultdict(list) for _ in stat_names]
 
     def flush():
         for name, rows in buf_vals.items():
             host_vals[name].append(torch.stack(rows, 1).cpu().numpy())
-        for name, rows in buf_stats.items():
-            host_stats[name].append(torch.stack(rows, 1).cpu().numpy())
+        for host, buf in zip(host_stats, buf_stats):
+            for name, rows in buf.items():
+                host[name].append(torch.stack(rows, 1).cpu().numpy())
+            buf.clear()
         buf_vals.clear()
-        buf_stats.clear()
 
     t0 = time.time()
+    held = 0
     for idx in range(total):
         tctx = TuneContext(idx < tune, idx, tune)
-        q, state, stats = step.kernel_step(state, tctx, noise)
+        q, state, stats = kernel_step(q, state, tctx, noise)
         if idx < keep_from:
             continue
         for name, val in decode_batch(q).items():
             buf_vals[name].append(val)
-        for name in stat_names:
-            buf_stats[name].append(stats[name])
-        if len(buf_stats[stat_names[0]]) == block or idx == total - 1:
+        per_stepper = stats if isinstance(stats, list) else [stats]
+        for names, buf, st in zip(stat_names, buf_stats, per_stepper):
+            for name in names:
+                buf[name].append(st[name])
+        held += 1
+        if held == block or idx == total - 1:
             flush()
+            held = 0
             if progressbar:
                 sys.stderr.write(f"\rSampling {chains} chains: {idx + 1}/"
                                  f"{total} draws ({time.time() - t0:.1f} s)")
@@ -225,32 +381,43 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
     def cat(chunks):
         return np.concatenate(chunks, axis=1)
     return {"values": {k: cat(v) for k, v in host_vals.items()},
-            "stats": {k: cat(v) for k, v in host_stats.items()},
-            "final_state": state, "n_kept": n_keep}
+            "stats": [{k: cat(v) for k, v in host.items()}
+                      for host in host_stats],
+            "final_state": state, "n_kept": n_keep, "chains": chains}
 
 
 def _flush_to_traces(model, step, result, chain_idx, trace_vars):
     """Record the (chains, n_kept, ...) host blocks into one NDArray per
-    chain."""
+    chain, with one dictionary of statistics per stepper."""
     values, stats = result["values"], result["stats"]
     nkept = result["n_kept"]
-    dtypes = {k: dt for k, dt in step.stats_dtypes[0].items() if k in stats}
-    chains = next(iter(stats.values())).shape[0] if stats else 0
+    # only the statistics that were kept (a record_stats subset trims them)
+    dtypes = [{k: dt for k, dt in full.items() if k in kept}
+              for full, kept in zip(step.stats_dtypes, stats)]
     traces = []
-    for ci in range(chains):
+    for ci in range(result["chains"]):
         strace = NDArray(model=model, vars=trace_vars)
-        strace.setup(nkept, chain_idx + ci, [dtypes])
+        strace.setup(nkept, chain_idx + ci, dtypes)
         if nkept:
             strace.record_batch(
                 {k: v[ci] for k, v in values.items()}, nkept,
-                [{k: stats[k][ci].astype(dt) for k, dt in dtypes.items()}])
+                [{k: kept[k][ci].astype(dt) for k, dt in dts.items()}
+                 for dts, kept in zip(dtypes, stats)])
         strace.close()
         traces.append(strace)
     return traces
 
 
+def stop_tuning(step):
+    """Stop tuning the current step method (cf. ``sampling.py:921``)."""
+    step.stop_tuning()
+    return step
+
+
 def _attach_divergence_warnings(mtrace):
     report = mtrace.report
+    if "diverging" not in mtrace.stat_names:
+        return
     div = mtrace.get_sampler_stats("diverging", combine=False, squeeze=False)
     for chain, d in zip(mtrace.chains, div):
         n = int(np.sum(d))

@@ -19,9 +19,17 @@ cannot batch data-dependent loops, so here NUTS is written explicitly over
 
 The random numbers of a transition come from a ``noise`` object: standard
 normal momenta, and per depth the direction, merge and leaf-proposal
-uniforms for all chains at once. :class:`GeneratorNoise` draws them from one
-``torch.Generator`` on the device; a test can hand in the JAX package's own
-numbers instead and compare transitions exactly.
+uniforms for all chains at once. ``arraystep.GeneratorNoise`` draws them
+from one ``torch.Generator`` on the device; a test can hand in the JAX
+package's own numbers instead and compare transitions exactly.
+
+Over a subset of the flat vector (inside a ``CompoundStep``) the kernel
+works on ``x = q[:, idx]``: logp and gradient come from the full batched
+function with the other coordinates held at ``q``'s values and the gradient
+cut to ``idx``, the cached logp and gradient are recomputed at the start of
+each transition (another stepper has moved ``q`` since), and the result is
+scattered back into ``q``. Potential, step size and momentum have the
+subset's dimension.
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...config import floatX, torch_floatX
+from ...config import floatX
 from ...model import modelcontext
 from ..arraystep import Competence, TuneContext
 from ..step_sizes import DAState, da_init, da_update, da_current
@@ -40,30 +48,7 @@ from .quadpotential import (
     DiagAdaptState, diag_adapt_update, mass_velocity, QuadPotentialDiagAdapt,
 )
 
-__all__ = ["NUTS", "NutsKernelState", "GeneratorNoise", "nuts_draw",
-           "find_reasonable_eps"]
-
-
-class GeneratorNoise:
-    """The random numbers of NUTS transitions, drawn from ``generator``."""
-
-    def __init__(self, generator, chains, dim, device):
-        self.generator = generator
-        self.shape = (chains, dim)
-        self.device = device
-
-    def momentum(self):
-        """Standard normal ``(chains, n)``; the momentum is scaled from it."""
-        return torch.randn(self.shape, generator=self.generator,
-                           dtype=torch_floatX(), device=self.device)
-
-    def depth(self, depth, n_take):
-        """Uniforms of one doubling: direction ``(chains,)``, merge
-        ``(chains,)``, and one per leaf for the proposal ``(n_take,
-        chains)``."""
-        u = torch.rand((2 + n_take, self.shape[0]), generator=self.generator,
-                       dtype=torch_floatX(), device=self.device)
-        return u[0], u[1], u[2:]
+__all__ = ["NUTS", "NutsKernelState", "nuts_draw", "find_reasonable_eps"]
 
 
 def _select(mask, a, b):
@@ -282,17 +267,19 @@ def find_reasonable_eps(step, q0, noise):
     """Stan-style step-size probe (cf. ``find_reasonable_eps``,
     nuts.py:310): double or halve eps until the one-leapfrog acceptance,
     pooled over all chains, lands in [0.25, 0.9]. One host sync per probe
-    (at most 30)."""
+    (at most 30). A stepper over a subset of the flat vector is probed on
+    its own coordinates, the others held at ``q0``'s values."""
     pot = step.potential.init_kernel_state(q0.shape[0], q0.device)
     var = pot.var
-    logp_fn = step._logp_dlogp_fn
-    logp0, grad0 = logp_fn(q0)
-    p0 = pot.inv_stds * noise.momentum()
+    logp_fn = step._value_and_grad_at(q0)
+    x0 = step._sub(q0)
+    logp0, grad0 = logp_fn(x0)
+    p0 = pot.inv_stds * noise.normal(step.dim)
     h0 = 0.5 * _dot(p0, mass_velocity(var, p0)) - logp0
 
     def accept_at(eps):
         p_half = p0 + 0.5 * eps * grad0
-        logp1, grad1 = logp_fn(q0 + eps * mass_velocity(var, p_half))
+        logp1, grad1 = logp_fn(x0 + eps * mass_velocity(var, p_half))
         p1 = p_half + 0.5 * eps * grad1
         de = h0 - (0.5 * _dot(p1, mass_velocity(var, p1)) - logp1)
         a = torch.where(torch.isfinite(de),
@@ -314,7 +301,7 @@ def find_reasonable_eps(step, q0, noise):
 class NutsKernelState(NamedTuple):
     """Per-chain NUTS state, each field with a leading chain dimension."""
 
-    q: torch.Tensor
+    q: torch.Tensor             # the stepper's own coordinates (chains, dim)
     logp: torch.Tensor
     grad: torch.Tensor
     da: DAState
@@ -353,9 +340,10 @@ class NUTS(BaseHMC):
                  target_accept=0.8, step_scale=0.25, Emax=1000,
                  adapt_step_size=True, potential=None, model=None,
                  gamma=0.05, k=0.75, t0=10, axis_name=None,
-                 rescue_stuck=True):
+                 rescue_stuck=True, **kwargs):
         model = modelcontext(model)
-        super().__init__(vars, model=model)
+        kwargs.pop("blocked", None)
+        super().__init__(vars, model=model, blocked=True, **kwargs)
         self.max_treedepth = int(max_treedepth)
         self.early_max_treedepth = int(early_max_treedepth)
         self.target_accept = float(target_accept)
@@ -373,12 +361,13 @@ class NUTS(BaseHMC):
         self.potential = potential
 
     def kernel_init(self, q0) -> NutsKernelState:
-        logp, grad = self._logp_dlogp_fn(q0)
+        x0 = self._sub(q0)
+        logp, grad = self._value_and_grad_at(q0)(x0)
         C = q0.shape[0]
         da = da_init(torch.full((C,), self.step_size, dtype=q0.dtype,
                                 device=q0.device))
         return NutsKernelState(
-            q=q0, logp=logp, grad=grad, da=da,
+            q=x0, logp=logp, grad=grad, da=da,
             pot=self.potential.init_kernel_state(C, q0.device),
             rescue_cnt=torch.zeros(C, dtype=torch.int32, device=q0.device),
             eps_scale=torch.ones_like(logp))
@@ -397,18 +386,27 @@ class NUTS(BaseHMC):
                 mtd = min(6, self.max_treedepth)
         return mtd
 
-    def kernel_step(self, state: NutsKernelState, tctx: TuneContext, noise):
+    def kernel_step(self, q, state: NutsKernelState, tctx: TuneContext,
+                    noise):
         """One transition of every chain (cf. ``kernel_step``, nuts.py:483)."""
         tune = tctx.tune
         eps = da_current(state.da, tune) * state.eps_scale
         var = state.pot.var
-        p0 = state.pot.inv_stds * noise.momentum()
+        p0 = state.pot.inv_stds * noise.normal(self.dim)
+        lp_fn = self._value_and_grad_at(q)
+        x0 = self._sub(q)
+        if self.is_partial:
+            # other steppers moved the rest of q since our last call: the
+            # cached logp and gradient no longer describe this point
+            logp0, grad0 = lp_fn(x0)
+        else:
+            logp0, grad0 = state.logp, state.grad
         v0 = mass_velocity(var, p0)
-        start = IntegrationState(q=state.q, p=p0, v=v0, q_grad=state.grad,
-                                 energy=0.5 * _dot(p0, v0) - state.logp,
-                                 model_logp=state.logp)
+        start = IntegrationState(q=x0, p=p0, v=v0, q_grad=grad0,
+                                 energy=0.5 * _dot(p0, v0) - logp0,
+                                 model_logp=logp0)
         h0 = start.energy
-        tree = nuts_draw(noise, start, h0, eps, var, self._logp_dlogp_fn,
+        tree = nuts_draw(noise, start, h0, eps, var, lp_fn,
                          self._max_treedepth(tctx), self.Emax)
 
         n_leaf = torch.clamp(tree.n_leapfrog, min=1)
@@ -440,7 +438,7 @@ class NUTS(BaseHMC):
                 2.0 ** -8, 1.0)
         rescue_cnt = state.rescue_cnt
         rescued = torch.zeros_like(tree.diverging)
-        if self.pooled and self.rescue_stuck:
+        if self.pooled and self.rescue_stuck and not self.is_partial:
             new_q, new_logp, new_grad, rescue_cnt, rescued = self._rescue(
                 tctx, tree.diverging, rescue_cnt, new_q, new_logp, new_grad)
 
@@ -463,7 +461,7 @@ class NUTS(BaseHMC):
             "step_size_scale": eps_scale,
             "rescued": rescued,
         }
-        return new_q, new_state, stats
+        return self._scatter(q, new_q), new_state, stats
 
     @staticmethod
     def _rescue(tctx, diverging, rescue_cnt, q, logp, grad):

@@ -18,7 +18,7 @@ import torch
 
 from .config import floatX, intX
 
-__all__ = ["batched_value_and_grad", "floatX", "intX"]
+__all__ = ["batched_value_and_grad", "batched_value", "floatX", "intX"]
 
 
 def batched_value_and_grad(logp_point: Callable) -> Callable:
@@ -33,3 +33,14 @@ def batched_value_and_grad(logp_point: Callable) -> Callable:
             grad, = torch.autograd.grad(logp.sum(), q)
         return logp.detach(), grad
     return value_and_grad
+
+
+def batched_value(logp_point: Callable) -> Callable:
+    """``q: (chains, n) -> logp (chains,)`` from a scalar ``logp_point(q:
+    (n,))``, with no autograd graph: what a gradient-free stepper calls."""
+    batched = torch.func.vmap(logp_point)
+
+    def value(q):
+        with torch.no_grad():
+            return batched(q)
+    return value

@@ -28,6 +28,7 @@ import pymc3_tpu as pj
 import pymc3_tpu_torch as pt
 from pymc3_tpu_torch.distributions.dist_math import (
     betainc, gammainc, gammaincc)
+from . import torch_models  # noqa: F401  (asks the port for the CPU)
 
 from .test_distributions_matrix import (
     CONTINUOUS_LOGP, CONTINUOUS_LOGCDF, TAIL_CASES, combos,

@@ -22,6 +22,7 @@ from pymc3_tpu_torch.ops import gp_cov
 from pymc3_tpu_torch.ops.gp_cov import (
     STATIONARY_KINDS, stationary_cov, stationary_cov_backward_reference,
     stationary_cov_reference)
+from . import torch_models  # noqa: F401  (asks the port for the CPU)
 
 torch.set_num_threads(2)
 

@@ -22,6 +22,7 @@ import jax
 
 import pymc3_tpu as pj
 import pymc3_tpu_torch as pt
+from . import torch_models  # noqa: F401  (asks the port for the CPU)
 
 torch.set_num_threads(2)
 

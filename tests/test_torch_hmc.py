@@ -138,7 +138,7 @@ class ReplayNoise:
                     jax.random.uniform(k_dir, (), jnp.float32),
                     jax.random.uniform(k_swap, (), jnp.float32), takes))
 
-    def momentum(self):
+    def normal(self, dim):
         return torch.from_numpy(np.stack(self.p))
 
     def depth(self, d, n_take):
@@ -170,7 +170,8 @@ def test_one_nuts_transition_on_identical_noise(pooled):
         axis_name="chains_local")(keys, jnp.asarray(q0), jinit)
 
     tinit = convert.nuts_kernel_state(_np(jinit))
-    tq, tst, tstats = tstep.kernel_step(tinit, TuneContext(True, 250, 1000),
+    tq, tst, tstats = tstep.kernel_step(torch.from_numpy(q0), tinit,
+                                        TuneContext(True, 250, 1000),
                                         ReplayNoise(keys, n, max_depth))
     np.testing.assert_array_equal(tstats["depth"].numpy(),
                                   np.asarray(jstats["depth"]))

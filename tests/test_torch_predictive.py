@@ -24,6 +24,7 @@ import pymc3_tpu as pj
 import pymc3_tpu_torch as pt
 from pymc3_tpu.model import ValueGradFunction as JaxVGF
 from pymc3_tpu_torch.examples.suite import mixture_model
+from . import torch_models  # noqa: F401  (asks the port for the CPU)
 
 sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))

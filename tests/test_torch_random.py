@@ -21,6 +21,7 @@ import torch
 
 import pymc3_tpu as pj
 import pymc3_tpu_torch as pt
+from . import torch_models  # noqa: F401  (asks the port for the CPU)
 
 torch.set_num_threads(2)
 N = 20000

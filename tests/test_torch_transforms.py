@@ -24,6 +24,7 @@ import pymc3_tpu_torch as pt
 from pymc3_tpu.distributions import transforms as jtr
 from pymc3_tpu.model import ValueGradFunction as JaxVGF
 from pymc3_tpu_torch.distributions import transforms as ttr
+from . import torch_models  # noqa: F401  (asks the port for the CPU)
 
 from .test_transforms_matrix import ELEMENTWISE, MODEL_CELLS, ORDERED_CELLS
 

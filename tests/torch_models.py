@@ -1,6 +1,15 @@
 """Small models shared by the port's parity tests, built with either
-package passed as ``pm``."""
+package passed as ``pm``.
+
+Importing this module asks the port for the CPU: its models build on the
+card by default, and these tests run where there is none. Every
+``tests/test_torch_*.py`` imports it.
+"""
 import numpy as np
+
+import pymc3_tpu_torch
+
+pymc3_tpu_torch.set_config(device="cpu")
 
 
 def gp_model(pm, n=30, seed=21):
