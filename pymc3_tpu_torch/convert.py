@@ -2,10 +2,14 @@
 
 The parity tests use these so that both packages compute from the same
 numbers: a point dict becomes the port's flat ``q``; the JAX sampler state
-(``DAState``, ``DiagAdaptState``, ``NutsKernelState``, after
+(``DAState``, ``DiagAdaptState``, the dense ``WelfordCovState``,
+``DenseAdaptState`` and ``DenseState``, ``NutsKernelState``, after
 ``jax.tree_util.tree_map(np.asarray, state)``) becomes the port's state
 NamedTuples on a given device. Field names are the same in both packages;
-each leaf keeps its leading chain dimension.
+each leaf keeps its leading chain dimension. A ``NutsKernelState``'s
+potential converts by the fields it has (dense adaptive, fixed dense or
+diagonal). A fixed dense state of the JAX package holds one matrix (no chain
+dimension); the port's holds it as ``(1, n, n)``.
 
 The gradient-free steppers' states come the same way (``metropolis_state``,
 ``binary_state``, ``dem_state``, ``demz_state``): proposal scales, lambda,
@@ -31,12 +35,17 @@ from .step_methods.hmc.nuts import NutsKernelState
 from .step_methods.metropolis import (
     BinaryState, DEMState, DEMZState, MetropolisState,
 )
-from .step_methods.hmc.quadpotential import DiagAdaptState, WelfordState
+from .step_methods.elliptical_slice import ESState
+from .step_methods.hmc.quadpotential import (
+    DenseAdaptState, DenseState, DiagAdaptState, WelfordCovState,
+    WelfordState,
+)
 from .step_methods.step_sizes import DAState
 
 __all__ = ["point_to_q", "q_to_point", "da_state", "welford_state",
-           "diag_adapt_state", "nuts_kernel_state", "metropolis_state",
-           "binary_state", "dem_state", "demz_state"]
+           "diag_adapt_state", "welford_cov_state", "dense_adapt_state",
+           "dense_state", "nuts_kernel_state", "metropolis_state",
+           "binary_state", "dem_state", "demz_state", "es_state"]
 
 
 def _t(x, device):
@@ -75,9 +84,38 @@ def diag_adapt_state(src, device="cpu") -> DiagAdaptState:
                    {"fg": welford_state, "bg": welford_state})
 
 
+def welford_cov_state(src, device="cpu") -> WelfordCovState:
+    return _fields(WelfordCovState, src, device)
+
+
+def dense_adapt_state(src, device="cpu") -> DenseAdaptState:
+    return _fields(DenseAdaptState, src, device,
+                   {"fg": welford_cov_state, "bg": welford_cov_state})
+
+
+def dense_state(src, device="cpu") -> DenseState:
+    def matrix(x, dev):
+        x = np.asarray(x)
+        return _t(x[None] if x.ndim == 2 else x, dev)
+    return _fields(DenseState, src, device, {"cov": matrix, "chol": matrix})
+
+
+def _potential_state(src, device="cpu"):
+    fields = getattr(type(src), "_fields", ())
+    if "window" in fields:
+        return dense_adapt_state(src, device)
+    if "chol" in fields:
+        return dense_state(src, device)
+    return diag_adapt_state(src, device)
+
+
 def nuts_kernel_state(src, device="cpu") -> NutsKernelState:
     return _fields(NutsKernelState, src, device,
-                   {"da": da_state, "pot": diag_adapt_state})
+                   {"da": da_state, "pot": _potential_state})
+
+
+def es_state(src, device="cpu") -> ESState:
+    return _fields(ESState, src, device)
 
 
 def _count(x, device):

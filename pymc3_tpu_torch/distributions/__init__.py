@@ -17,7 +17,14 @@ from .discrete import (
     ZeroInflatedBinomial, ZeroInflatedNegativeBinomial, DiscreteUniform,
     Geometric, Categorical, OrderedLogistic,
 )
-from .multivariate import MvNormal, Dirichlet
+from .multivariate import (
+    MvNormal, MvStudentT, Dirichlet, Multinomial, Wishart, WishartBartlett,
+    LKJCorr, LKJCholeskyCov, MatrixNormal, KroneckerNormal,
+)
+from .timeseries import (
+    AR1, AR, GaussianRandomWalk, GARCH11, EulerMaruyama, MvGaussianRandomWalk,
+    MvStudentTRandomWalk,
+)
 from .mixture import Mixture, NormalMixture
 from .bound import Bound
 
@@ -31,7 +38,11 @@ __all__ = [
     "DiscreteWeibull", "Poisson", "NegativeBinomial", "Constant",
     "ConstantDist", "ZeroInflatedPoisson", "ZeroInflatedBinomial",
     "ZeroInflatedNegativeBinomial", "DiscreteUniform", "Geometric",
-    "Categorical", "OrderedLogistic", "MvNormal", "Dirichlet", "Mixture", "NormalMixture",
+    "Categorical", "OrderedLogistic", "MvNormal", "MvStudentT", "Dirichlet",
+    "Multinomial", "Wishart", "WishartBartlett", "LKJCorr", "LKJCholeskyCov",
+    "MatrixNormal", "KroneckerNormal", "AR1", "AR", "GaussianRandomWalk",
+    "GARCH11", "EulerMaruyama", "MvGaussianRandomWalk",
+    "MvStudentTRandomWalk", "Mixture", "NormalMixture",
     "Bound", "Distribution", "Continuous", "Discrete", "NoDistribution",
     "DensityDist", "TransformedDistribution", "draw_values",
     "generate_samples", "transforms",

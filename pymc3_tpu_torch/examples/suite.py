@@ -4,8 +4,10 @@ data and seeds, and the moment gate that holds a posterior against
 ``BASELINE_CPU.json``. Beside them, three models whose posteriors are known
 without a sampler: the exact posterior of the coal-mining switchpoint model
 (``examples/disaster_model.py``), a binary-indicator regression with its
-posterior by enumeration, and a correlated normal for the population
-sampler.
+posterior by enumeration, a correlated normal for the population sampler,
+a latent Gaussian process for the elliptical slice sampler (its posterior
+in closed form) and a labelling model for the categorical Gibbs scan (its
+label marginals by enumeration).
 
 The suite's own file imports the JAX package, so the port keeps what it
 needs here. The mixture model there writes its ordering ``Potential``
@@ -204,6 +206,84 @@ def correlated_normal_model(pm, n=10, rho=0.9):
     return model, ["x"], mean, np.ones(n)
 
 
+def es_data(n=100, seed=5):
+    """``n`` inputs on [0, 1] as an (n, 1) column and noisy observations
+    (sd 0.3) of one period of a sine."""
+    rng = np.random.RandomState(seed)
+    X = np.linspace(0.0, 1.0, n)[:, None].astype(np.float32)
+    y = (np.sin(2.0 * np.pi * X[:, 0]) + 0.3 * rng.randn(n)).astype(
+        np.float32)
+    return X, y
+
+
+ES_NOISE = 0.3
+
+
+def es_model(pm):
+    """A latent ``f ~ MvNormal(0, K)`` at 100 inputs and ``y ~ Normal(f,
+    0.3)``; ``K`` is the port's ``ExpQuad(1, ls=0.2)`` at the inputs plus
+    ``1e-5 I``, built once on the model's device (one launch of the
+    covariance kernel). In float32 this ``K`` has an eigenvalue of about
+    -3e-7, so ``1e-6 I`` leaves it indefinite; ``1e-5 I`` is the smallest
+    power of ten that makes it positive definite. Returns the model and
+    ``K``, the prior covariance an ``EllipticalSlice`` is given."""
+    X, y = es_data()
+    n = len(y)
+    with pm.Model() as model:
+        Xt = torch.as_tensor(X, device=model.device)
+        K = pm.node.evaluate(pm.gp.cov.ExpQuad(1, ls=0.2)(Xt), {})
+        K = K + 1e-5 * torch.eye(n, dtype=K.dtype, device=K.device)
+        f = pm.MvNormal("f", mu=np.zeros(n), cov=K)
+        pm.Normal("y", mu=f, sigma=ES_NOISE, observed=y)
+    return model, K
+
+
+def es_exact_posterior(K):
+    """The latent's posterior mean and marginal sds in float64:
+    ``K (K + s² I)^-1 y`` and the diagonal of ``K - K (K + s² I)^-1 K``."""
+    _, y = es_data()
+    K = np.asarray(K, dtype=np.float64)
+    A = K + ES_NOISE ** 2 * np.eye(len(y))
+    mean = K @ np.linalg.solve(A, y.astype(np.float64))
+    cov = K - K @ np.linalg.solve(A, K)
+    return mean, np.sqrt(np.diag(cov))
+
+
+LABEL_MEANS = np.array([-1.5, 0.0, 1.5])
+LABEL_Y = np.array([-1.9, -0.4, 0.2, 0.9, 1.6, -1.1])
+
+
+def label_model(pm):
+    """Six labels ``z_i ~ Categorical(w)`` with Dirichlet(1, 1, 1) weights;
+    ``y_i ~ Normal(LABEL_MEANS[z_i], 1)`` observed. The means are evenly
+    spaced, so ``LABEL_MEANS[z]`` is ``-1.5 + 1.5 z``, which either
+    package's nodes express. Returns the model."""
+    with pm.Model() as model:
+        w = pm.Dirichlet("w", a=np.ones(3))
+        z = pm.Categorical("z", p=w, shape=len(LABEL_Y))
+        pm.Normal("y", mu=LABEL_MEANS[0] + 1.5 * z, sigma=1.0,
+                  observed=LABEL_Y)
+    return model
+
+
+def label_exact_marginals():
+    """``P(z_i = k | y)``, (6, 3), by enumeration of all 3^6 states with
+    the weights integrated out: the labels' prior is Dirichlet-multinomial,
+    ``Γ(3) / Γ(3 + 6) Π_k Γ(1 + n_k)``."""
+    from math import lgamma
+    n, k = len(LABEL_Y), len(LABEL_MEANS)
+    states = (np.arange(k ** n)[:, None] // k ** np.arange(n)) % k
+    counts = np.stack([(states == j).sum(1) for j in range(k)], 1)
+    log_prior = lgamma(k) - lgamma(k + n) + np.sum(
+        [[lgamma(1.0 + c) for c in row] for row in counts], axis=1)
+    log_lik = -0.5 * np.sum((LABEL_Y[None, :] - LABEL_MEANS[states]) ** 2,
+                            axis=1)
+    logw = log_prior + log_lik
+    w = np.exp(logw - logw.max())
+    w /= w.sum()
+    return np.stack([w @ (states == j) for j in range(k)], axis=1)
+
+
 def posterior_moments(pm, trace, var_names):
     """Per-element posterior mean, sd and MCSE of the tracked variables,
     accumulated in float64 (a sequential float32 reduce over a million
@@ -238,3 +318,20 @@ def moment_check(bench_m, ref_m, z_max=4.0, sd_rtol=0.2):
         worst_sd = max(worst_sd, float(np.max(rel)))
     return {"pass": bool(worst_z < z_max and worst_sd < sd_rtol),
             "max_z": round(worst_z, 2), "max_sd_rel": round(worst_sd, 3)}
+
+
+def chain_moments(pm, arrays):
+    """Per-element mean, sd and MCSE, in float64, of draws given as
+    ``{name: (chains, draws, ...)}`` arrays: for quantities derived from a
+    trace (a covariance ``L Lᵀ`` from its factor), in the shape
+    :func:`moment_check` compares."""
+    out = {}
+    for v, a in arrays.items():
+        a = np.asarray(a, dtype=np.float64)
+        flat = a.reshape(a.shape[0] * a.shape[1], -1)
+        ess = np.atleast_1d(np.asarray(pm.ess(a)["x"],
+                                       dtype=np.float64)).ravel()
+        sd = flat.std(axis=0)
+        out[v] = {"mean": flat.mean(axis=0).tolist(), "sd": sd.tolist(),
+                  "mcse": (sd / np.sqrt(np.maximum(ess, 1.0))).tolist()}
+    return out

@@ -1,6 +1,7 @@
 """Node-aware math (cf. ``pymc3_tpu/math.py``): each function takes
 symbolic nodes or concrete values and returns a node. The Kronecker helpers
-are not ported yet (they belong to the Kronecker GPs)."""
+apply a Kronecker product of factors to a matrix one factor at a time,
+never forming the product."""
 from __future__ import annotations
 
 import functools
@@ -23,7 +24,9 @@ __all__ = [
     "log_softmax", "logsumexp", "logaddexp", "logdiffexp", "logit",
     "invlogit", "probit", "invprobit", "expand_packed_triangular",
     "log1pexp", "log1mexp", "flatten_list", "logdet", "cholesky", "solve",
-    "solve_lower", "solve_upper", "matrix_inverse",
+    "solve_lower", "solve_upper", "matrix_inverse", "batched_diag",
+    "block_diagonal", "kronecker", "cartesian", "kron_matrix_op",
+    "kron_dot", "kron_solve_lower", "kron_solve_upper", "kron_diag",
 ]
 
 
@@ -286,3 +289,86 @@ def expand_packed_triangular(n, packed, lower=True, diagonal_only=False):
         padded = torch.cat([p, torch.zeros_like(p[..., :1])], dim=-1)
         return padded[..., torch.as_tensor(pos, device=p.device)]
     return apply(_expand, packed)
+
+
+def batched_diag(x):
+    """A stack of vectors -> a stack of diagonal matrices, or a stack of
+    matrices -> their diagonals (cf. ``pymc3/math.py:299``)."""
+    def _bd(v):
+        if v.ndim == 2:
+            return torch.diag_embed(v)
+        if v.ndim == 3:
+            return torch.diagonal(v, dim1=-2, dim2=-1)
+        raise ValueError("batched_diag expects 2d or 3d input")
+    return apply(_bd, x)
+
+
+def block_diagonal(matrices, sparse=False, format=None):
+    """Matrices (a list, or a stack ``(k, n, m)``) -> their block-diagonal
+    matrix (cf. ``pymc3/math.py:314``); ``sparse`` is accepted and ignored."""
+    if isinstance(matrices, (list, tuple)):
+        return apply(lambda *ms: torch.block_diag(*ms), *matrices)
+    return apply(lambda m: torch.block_diag(*m.unbind(0)), matrices)
+
+
+def kronecker(*Ks):
+    """Kronecker product of a sequence of matrices (``math.py:336``)."""
+    def _kron(*ms):
+        out = ms[0]
+        for m in ms[1:]:
+            out = torch.kron(out, m)
+        return out
+    return apply(_kron, *Ks)
+
+
+def cartesian(*arrays):
+    """Cartesian product of 1-d arrays, row-major (host numpy,
+    ``math.py:346``)."""
+    arrays = [np.atleast_1d(np.asarray(a)) for a in arrays]
+    grid = np.meshgrid(*arrays, indexing="ij")
+    return np.stack([g.ravel() for g in grid], axis=-1)
+
+
+def _kron_apply(ms, x, op):
+    """``op`` of each factor across the Kronecker factorization, applied
+    to the rows of ``x`` (cf. ``_kron_matrix_op``, ``math.py:353``)."""
+    if x.ndim == 1:
+        x = x[:, None]
+    n = x.shape[0]
+    res = x
+    for K in ms:
+        kn = K.shape[1]
+        cols = res.shape[1]
+        r = op(K, res.reshape(kn, n // kn * cols))
+        r = r.reshape(K.shape[0], n // kn, cols)
+        res = r.movedim(0, 1).reshape(n // kn * K.shape[0], cols)
+        n = res.shape[0]
+    return res
+
+
+def kron_matrix_op(krons, m, op):
+    return apply(lambda *a: _kron_apply(a[:-1], a[-1], op), *krons, m)
+
+
+def kron_dot(krons, m):
+    return kron_matrix_op(krons, m, lambda K, x: K @ x)
+
+
+def kron_solve_lower(krons, m):
+    return kron_matrix_op(krons, m, lambda K, x: torch.linalg.solve_triangular(
+        K, x, upper=False))
+
+
+def kron_solve_upper(krons, m):
+    return kron_matrix_op(krons, m, lambda K, x: torch.linalg.solve_triangular(
+        K, x, upper=True))
+
+
+def kron_diag(*diags):
+    """Kronecker product of diagonal vectors (``math.py:399``)."""
+    def _kd(*ds):
+        out = ds[0]
+        for d in ds[1:]:
+            out = (out[:, None] * d[None, :]).reshape(-1)
+        return out
+    return apply(_kd, *diags)

@@ -382,6 +382,21 @@ class Model(WithMemoization, metaclass=ContextMeta):
         ordering = self.ordering
         return batched_value(lambda q: self.logp_point(q, ordering))
 
+    def datalogpt_fn(self):
+        """Batched logp of the observed terms and the potentials alone,
+        ``q: (chains, n) -> (chains,)``: the likelihood an elliptical slice
+        sampler needs (cf. ``datalogpt_fn``, ``model.py:642``)."""
+        ordering = self.ordering
+
+        def datalogp_point(q):
+            env = self._env_from_q(q, ordering)
+            memo = {}
+            terms = [obs.logp_env(env, memo) for obs in self.observed_RVs]
+            terms += [torch.sum(_ev(pot, env, memo))
+                      for pot in self.potentials]
+            return sum(terms, torch.zeros((), dtype=q.dtype, device=q.device))
+        return batched_value(datalogp_point)
+
     # -- host-side conveniences ---------------------------------------------
     def _point_to_env(self, point):
         env = {k: torch.as_tensor(np.asarray(v), device=self.device)

@@ -38,11 +38,13 @@ from .node import _ev
 from .step_methods import STEP_METHODS, CompoundStep, DEMetropolis, NUTS
 from .step_methods.arraystep import GeneratorNoise, TuneContext
 from .step_methods.hmc.nuts import find_reasonable_eps
-from .step_methods.hmc.quadpotential import QuadPotentialDiagAdapt
+from .step_methods.hmc.quadpotential import (
+    QuadPotentialDiagAdapt, QuadPotentialFullAdapt,
+)
 from .util import get_var_name, update_start_vals
 from .vartypes import discrete_types
 
-__all__ = ["sample", "init_nuts", "stop_tuning", "assign_step_methods",
+__all__ = ["sample", "iter_sample", "init_nuts", "stop_tuning", "assign_step_methods",
            "instantiate_steppers", "sample_prior_predictive",
            "sample_posterior_predictive", "fast_sample_posterior_predictive",
            "sample_posterior_predictive_w"]
@@ -414,6 +416,61 @@ def stop_tuning(step):
     return step
 
 
+def iter_sample(draws, step, start=None, trace=None, chain=0, tune=None,
+                model=None, random_seed=None, callback=None):
+    """A generator that yields the trace so far after every draw
+    (cf. ``iter_sample``, ``sampling.py:853``): one chain, on the host path
+    (``step.step(point)``), for debugging and interactive use."""
+    sampling = _iter_sample(draws, step, start, trace, chain, tune, model,
+                            random_seed, callback)
+    for i, (strace, _) in enumerate(sampling):
+        yield MultiTrace([strace[:i + 1]])
+
+
+def _iter_sample(draws, step, start=None, trace=None, chain=0, tune=None,
+                 model=None, random_seed=None, callback=None):
+    """Single-chain host-side sampling generator (cf. ``sampling.py:864``).
+    ``random_seed`` seeds numpy's global generator, from which the host
+    path seeds the steppers' own generators."""
+    model = modelcontext(model)
+    draws = int(draws)
+    tune = int(tune) if tune is not None else 0
+    if random_seed is not None:
+        np.random.seed(int(np.asarray(random_seed).ravel()[0]))
+    if draws < 1:
+        raise ValueError("Argument `draws` must be greater than 0.")
+    point = _complete_point(model, start or {})
+    strace = trace if isinstance(trace, NDArray) else NDArray(model=model)
+    try:
+        step = CompoundStep(step)
+    except TypeError:
+        pass
+    strace.setup(draws, chain,
+                 step.stats_dtypes if step.generates_stats else None)
+    try:
+        step.tune = bool(tune)
+        if hasattr(step, "reset_tuning"):
+            step.reset_tuning()
+        for i in range(draws):
+            if i == tune:
+                step.stop_tuning()
+            if step.generates_stats:
+                point, stats = step.step(point)
+                strace.record(point, stats)
+                diverging = i > tune and any(
+                    s.get("diverging", False) for s in stats)
+            else:
+                point = step.step(point)
+                strace.record(point)
+                diverging = False
+            if callback is not None:
+                callback(trace=strace, draw=(chain, i == draws - 1, i,
+                                             i < tune, None, point))
+            yield strace, diverging
+    finally:
+        strace.close()
+
+
 def _attach_divergence_warnings(mtrace):
     report = mtrace.report
     if "diverging" not in mtrace.stat_names:
@@ -430,16 +487,21 @@ def _attach_divergence_warnings(mtrace):
 
 def init_nuts(init="auto", chains=1, n_init=500000, model=None,
               random_seed=None, axis_name=None, **kwargs):
-    """NUTS with its mass-matrix initialization (cf. ``sampling.py:930``).
+    """NUTS with its mass-matrix initialization (cf. ``sampling.py:968``).
 
-    Only ``jitter+adapt_diag`` (also what "auto" selects) is ported. The
-    jitter comes from numpy's global generator seeded with ``random_seed``,
-    so the start points equal the JAX package's for the same seed.
-    ``n_init`` (the iterations of the ADVI initializations) is accepted as
-    in the JAX package; jitter+adapt_diag does not use it.
+    ``init`` is one of ``auto`` (= ``jitter+adapt_diag``), ``adapt_diag``,
+    ``jitter+adapt_diag``, ``adapt_full``, ``jitter+adapt_full`` and
+    ``nuts``. The jitter comes from numpy's global generator seeded with
+    ``random_seed``, so the start points equal the JAX package's for the
+    same seed. The ``advi*`` and ``map`` strategies need variational
+    inference and ``find_MAP``, which the port does not have yet; ``n_init``
+    is accepted for them.
     """
     model = modelcontext(model)
-    if not all_continuous(model.vars):
+    vars = kwargs.pop("vars", model.vars)
+    if set(vars) != set(model.vars):
+        raise ValueError("Must use init_nuts on all variables of a model.")
+    if not all_continuous(vars):
         raise ValueError("init_nuts can only be used for models with only "
                          "continuous variables.")
     if not isinstance(init, str):
@@ -447,19 +509,44 @@ def init_nuts(init="auto", chains=1, n_init=500000, model=None,
     init = init.lower()
     if init == "auto":
         init = "jitter+adapt_diag"
-    if init != "jitter+adapt_diag":
-        raise NotImplementedError(f"init={init!r}: only jitter+adapt_diag "
-                                  "is ported")
+    if init in ("advi+adapt_diag", "advi+adapt_diag_grad", "advi",
+                "advi_map", "map"):
+        raise NotImplementedError(
+            f"init={init!r} needs variational inference or find_MAP, which "
+            "come with the port's VI-and-data slice; use adapt_diag, "
+            "jitter+adapt_diag, adapt_full, jitter+adapt_full or nuts")
     if random_seed is not None:
         np.random.seed(int(np.atleast_1d(random_seed)[0]))
 
     q0 = model.dict_to_array(model.test_point).astype(floatX())
     n = q0.shape[0]
-    start = [model.array_to_dict(
-        q0 + np.random.uniform(-1, 1, size=n).astype(floatX()))
-        for _ in range(chains)]
-    mean = np.stack([model.dict_to_array(p) for p in start]).mean(axis=0)
-    potential = QuadPotentialDiagAdapt(n, mean, np.ones_like(mean), 10)
+
+    def jitter_starts():
+        return [model.array_to_dict(
+            q0 + np.random.uniform(-1, 1, size=n).astype(floatX()))
+            for _ in range(chains)]
+
+    def starts_mean(starts):
+        return np.stack([model.dict_to_array(p) for p in starts]).mean(axis=0)
+
+    if init == "adapt_diag":
+        start = [model.test_point] * chains
+        potential = QuadPotentialDiagAdapt(n, q0, np.ones(n), 10)
+    elif init == "jitter+adapt_diag":
+        start = jitter_starts()
+        potential = QuadPotentialDiagAdapt(n, starts_mean(start), np.ones(n),
+                                           10)
+    elif init == "adapt_full":
+        start = [model.test_point] * chains
+        potential = QuadPotentialFullAdapt(n, q0)
+    elif init == "jitter+adapt_full":
+        start = jitter_starts()
+        potential = QuadPotentialFullAdapt(n, starts_mean(start))
+    elif init == "nuts":
+        start = jitter_starts()
+        potential = QuadPotentialDiagAdapt(n, q0, np.ones(n), 10)
+    else:
+        raise ValueError(f"Unknown initializer: {init}.")
     step = NUTS(potential=potential, model=model, axis_name=axis_name,
                 **kwargs)
     return start, step

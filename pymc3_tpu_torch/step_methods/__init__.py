@@ -7,7 +7,6 @@ Every stepper is built around a kernel over a batch of chains,
 where ``q: (chains, n)`` is the full flat unconstrained vector of every
 chain, ``state`` a NamedTuple of tensors, ``tctx`` the tuning flag and draw
 index, and ``noise`` the source of the transition's random numbers.
-``EllipticalSlice`` and ``ElemwiseCategorical`` are not ported yet.
 """
 from .arraystep import (
     ArrayStep, ArrayStepShared, BlockedStep, Competence, GeneratorNoise,
@@ -30,11 +29,14 @@ from .metropolis import (
     MultivariateNormalProposal,
 )
 from .slicer import Slice
+from .elliptical_slice import EllipticalSlice
+from .gibbs import ElemwiseCategorical
 
 __all__ = [
     "NUTS", "HamiltonianMC", "Metropolis", "BinaryMetropolis",
     "BinaryGibbsMetropolis", "CategoricalGibbsMetropolis", "DEMetropolis",
-    "DEMetropolisZ", "Slice", "CompoundStep", "Competence", "TuneContext",
+    "DEMetropolisZ", "Slice", "EllipticalSlice", "ElemwiseCategorical",
+    "CompoundStep", "Competence", "TuneContext",
     "GeneratorNoise", "QuadPotentialDiagAdapt", "NormalProposal",
     "UniformProposal", "CauchyProposal", "LaplaceProposal", "PoissonProposal",
     "MultivariateNormalProposal", "ArrayStep", "ArrayStepShared",

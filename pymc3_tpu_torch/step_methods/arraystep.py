@@ -79,6 +79,15 @@ class GeneratorNoise:
         return torch.rand(self._shape(dim), generator=self.generator,
                           dtype=torch_floatX(), device=self.device)
 
+    def gumbel(self, dim):
+        """Standard Gumbel ``(chains, dim)``, ``-log(-log(u))`` with ``u``
+        uniform on [tiny, 1): a categorical draw is the argmax of the
+        log-probabilities plus these."""
+        u = torch.rand(self._shape(dim), generator=self.generator,
+                       dtype=torch_floatX(), device=self.device)
+        return -torch.log(-torch.log(
+            torch.clamp(u, min=torch.finfo(u.dtype).tiny)))
+
     def exponential(self):
         """Unit exponential ``(chains,)``."""
         return torch.empty(self.chains, dtype=torch_floatX(),

@@ -20,7 +20,8 @@ from .base_hmc import BaseHMC
 from .integration import IntegrationState, leapfrog
 from .nuts import NutsKernelState, _dot, _select, _where
 from .quadpotential import (
-    QuadPotentialDiagAdapt, diag_adapt_update, mass_velocity,
+    QuadPotentialDiagAdapt, kernel_mass, kernel_momentum, kernel_update,
+    mass_velocity, quad_potential,
 )
 
 __all__ = ["HamiltonianMC"]
@@ -49,6 +50,7 @@ class HamiltonianMC(BaseHMC):
     def __init__(self, vars=None, path_length=2.0, max_steps=1024,
                  target_accept=0.65, step_scale=0.25, Emax=1000,
                  adapt_step_size=True, potential=None, model=None,
+                 scaling=None, is_cov=False,
                  gamma=0.05, k=0.75, t0=10, axis_name=None, **kwargs):
         model = modelcontext(model)
         kwargs.pop("blocked", None)
@@ -62,6 +64,8 @@ class HamiltonianMC(BaseHMC):
         self.tune = True
         self.axis_name = axis_name
         self.step_size = float(step_scale) / (self.dim ** 0.25)
+        if scaling is not None:
+            potential = quad_potential(scaling, is_cov)
         if potential is None:
             mean = np.concatenate([np.ravel(v.test_value) for v in self.vars])
             potential = QuadPotentialDiagAdapt(self.dim, floatX(mean))
@@ -83,8 +87,8 @@ class HamiltonianMC(BaseHMC):
                     noise):
         tune = tctx.tune
         eps = da_current(state.da, tune)
-        var = state.pot.var
-        p0 = state.pot.inv_stds * noise.normal(self.dim)
+        var = kernel_mass(state.pot)
+        p0 = kernel_momentum(state.pot, noise.normal(self.dim))
         lp_fn = self._value_and_grad_at(q)
         x0 = self._sub(q)
         if self.is_partial:
@@ -117,10 +121,8 @@ class HamiltonianMC(BaseHMC):
                            tune and self.adapt_step_size,
                            target=self.target_accept, gamma=self.gamma,
                            k=self.k, t0=self.t0)
-        pot_new = diag_adapt_update(
-            state.pot, x_new, tune,
-            adaptation_window=self.potential.adaptation_window,
-            pooled=self.axis_name is not None)
+        pot_new = kernel_update(self.potential, state.pot, x_new, tune,
+                                self.axis_name is not None)
 
         new_state = NutsKernelState(q=x_new, logp=logp_new, grad=grad_new,
                                     da=da_new, pot=pot_new,

@@ -45,7 +45,8 @@ from ..step_sizes import DAState, da_init, da_update, da_current
 from .base_hmc import BaseHMC
 from .integration import IntegrationState, leapfrog
 from .quadpotential import (
-    DiagAdaptState, diag_adapt_update, mass_velocity, QuadPotentialDiagAdapt,
+    QuadPotentialDiagAdapt, kernel_mass, kernel_momentum, kernel_update,
+    mass_velocity, quad_potential,
 )
 
 __all__ = ["NUTS", "NutsKernelState", "nuts_draw", "find_reasonable_eps"]
@@ -270,11 +271,11 @@ def find_reasonable_eps(step, q0, noise):
     (at most 30). A stepper over a subset of the flat vector is probed on
     its own coordinates, the others held at ``q0``'s values."""
     pot = step.potential.init_kernel_state(q0.shape[0], q0.device)
-    var = pot.var
+    var = kernel_mass(pot)
     logp_fn = step._value_and_grad_at(q0)
     x0 = step._sub(q0)
     logp0, grad0 = logp_fn(x0)
-    p0 = pot.inv_stds * noise.normal(step.dim)
+    p0 = kernel_momentum(pot, noise.normal(step.dim))
     h0 = 0.5 * _dot(p0, mass_velocity(var, p0)) - logp0
 
     def accept_at(eps):
@@ -305,7 +306,7 @@ class NutsKernelState(NamedTuple):
     logp: torch.Tensor
     grad: torch.Tensor
     da: DAState
-    pot: DiagAdaptState
+    pot: tuple                  # the potential's kernel state
     rescue_cnt: torch.Tensor    # divergences in the current tuning window
     eps_scale: torch.Tensor     # per-lane step-size multiplier (<= 1)
 
@@ -339,6 +340,7 @@ class NUTS(BaseHMC):
     def __init__(self, vars=None, max_treedepth=10, early_max_treedepth=8,
                  target_accept=0.8, step_scale=0.25, Emax=1000,
                  adapt_step_size=True, potential=None, model=None,
+                 scaling=None, is_cov=False,
                  gamma=0.05, k=0.75, t0=10, axis_name=None,
                  rescue_stuck=True, **kwargs):
         model = modelcontext(model)
@@ -355,6 +357,8 @@ class NUTS(BaseHMC):
         self.pooled = axis_name is not None
         self.rescue_stuck = bool(rescue_stuck)
         self.step_size = float(step_scale) / (self.dim ** 0.25)
+        if scaling is not None:
+            potential = quad_potential(scaling, is_cov)
         if potential is None:
             mean = np.concatenate([np.ravel(v.test_value) for v in self.vars])
             potential = QuadPotentialDiagAdapt(self.dim, floatX(mean))
@@ -391,8 +395,8 @@ class NUTS(BaseHMC):
         """One transition of every chain (cf. ``kernel_step``, nuts.py:483)."""
         tune = tctx.tune
         eps = da_current(state.da, tune) * state.eps_scale
-        var = state.pot.var
-        p0 = state.pot.inv_stds * noise.normal(self.dim)
+        var = kernel_mass(state.pot)
+        p0 = kernel_momentum(state.pot, noise.normal(self.dim))
         lp_fn = self._value_and_grad_at(q)
         x0 = self._sub(q)
         if self.is_partial:
@@ -424,10 +428,8 @@ class NUTS(BaseHMC):
         da_new = da_update(state.da, da_accept, tune and self.adapt_step_size,
                            target=self.target_accept, gamma=self.gamma,
                            k=self.k, t0=self.t0)
-        pot_new = diag_adapt_update(
-            state.pot, tree.prop.q, tune,
-            adaptation_window=self.potential.adaptation_window,
-            pooled=self.pooled)
+        pot_new = kernel_update(self.potential, state.pot, tree.prop.q, tune,
+                                self.pooled)
 
         new_q, new_logp, new_grad = tree.prop.q, tree.prop.logp, \
             tree.prop.grad
