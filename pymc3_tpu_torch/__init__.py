@@ -1,16 +1,18 @@
 """pymc3_tpu_torch: the PyTorch/CUDA port of pymc3_tpu.
 
-Same public names as the JAX package for the ported slice: the model DSL,
-the 30 continuous and 15 discrete distributions, the multivariate and
-time-series families, every transform, ``Bound``,
+Same public names as the JAX package for the ported slice: the model DSL
+with ``Data``, ``Minibatch`` and ``total_size``, the 30 continuous and 15
+discrete distributions, the multivariate and time-series families, every transform, ``Bound``,
 ``Mixture``/``NormalMixture``, GP marginal regression, NUTS and
 ``HamiltonianMC`` with diagonal or dense, adaptive (pooled or per chain) or
 fixed mass matrices, the Metropolis family, ``Slice``, ``EllipticalSlice``,
 ``ElemwiseCategorical`` and ``CompoundStep`` with automatic step
 assignment, ``sample()`` and ``iter_sample()``, prior and posterior
-predictive draws, traces and diagnostics. Models build on the card unless the caller
+predictive draws, traces and diagnostics, variational inference (``fit``,
+ADVI, full-rank ADVI, SVGD, ASVGD, normalizing flows), ``SGLD``, and the MAP
+and Hessian tools of ``tuning``. Models build on the card unless the caller
 asks for the CPU (``set_config(device="cpu")`` or ``Model(device="cpu")``).
-Imports torch and numpy only, never jax or pymc3_tpu.
+Imports torch, numpy and scipy only, never jax or pymc3_tpu.
 """
 from .config import floatX, intX, get_config, set_config
 from . import node
@@ -21,7 +23,11 @@ from .math import (
 )
 from .model import (
     Model, modelcontext, Point, Deterministic, Potential, FreeRV, ObservedRV,
-    TransformedRV, ValueGradFunction,
+    TransformedRV, ValueGradFunction, set_data,
+)
+from .data import Data, Minibatch, get_data, GeneratorAdapter, align_minibatches
+from .torchf import (
+    gradient, hessian, hessian_diag, jacobian, inputvars, cont_inputs,
 )
 from .distributions import *  # noqa: F401,F403
 from .distributions import transforms
@@ -33,6 +39,7 @@ from .step_methods import (
     CategoricalGibbsMetropolis, DEMetropolis, DEMetropolisZ, Slice,
     EllipticalSlice, ElemwiseCategorical, CompoundStep,
 )
+from .step_methods.sgmcmc import SGLD
 from .step_methods.metropolis import (
     NormalProposal, UniformProposal, CauchyProposal, LaplaceProposal,
     PoissonProposal, MultivariateNormalProposal,
@@ -46,3 +53,17 @@ from .sampling import (
 )
 from .stats import ess, rhat, mcse, summary
 from . import gp
+from . import tuning
+from .tuning import find_MAP, find_hessian, guess_scaling, trace_cov
+from . import variational
+from .variational import (
+    ADVI, ASVGD, NFVI, SVGD, FullRankADVI, Empirical, FullRank, MeanField,
+    NormalizingFlow, KLqp, fit, sample_approx, Inference, ImplicitGradient,
+    Approximation, Group,
+)
+from .variational.stein import Stein
+from .variational.updates import (
+    sgd, momentum, nesterov_momentum, adagrad, adagrad_window, rmsprop,
+    adadelta, adam, adamax, norm_constraint, total_norm_constraint,
+    apply_momentum, apply_nesterov_momentum,
+)

@@ -159,8 +159,9 @@ class Distribution:
         if isinstance(data, Distribution):
             raise TypeError("An observed variable cannot be a distribution "
                             "instance.")
+        total_size = kwargs.pop("total_size", None)
         dist = cls.dist(*args, **kwargs)
-        return model.Var(name, dist, data=data)
+        return model.Var(name, dist, data=data, total_size=total_size)
 
     @classmethod
     def dist(cls, *args, **kwargs):

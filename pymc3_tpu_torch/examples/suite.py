@@ -6,8 +6,11 @@ without a sampler: the exact posterior of the coal-mining switchpoint model
 (``examples/disaster_model.py``), a binary-indicator regression with its
 posterior by enumeration, a correlated normal for the population sampler,
 a latent Gaussian process for the elliptical slice sampler (its posterior
-in closed form) and a labelling model for the categorical Gibbs scan (its
-label marginals by enumeration).
+in closed form), a labelling model for the categorical Gibbs scan (its
+label marginals by enumeration), the minibatch logistic regression of the
+JAX package's ADVI benchmark (``scripts/bench_advi_minibatch.py``), and a
+conjugate normal for SVGD and the MAP start (its posterior in closed
+form).
 
 The suite's own file imports the JAX package, so the port keeps what it
 needs here. The mixture model there writes its ordering ``Potential``
@@ -335,3 +338,61 @@ def chain_moments(pm, arrays):
         out[v] = {"mean": flat.mean(axis=0).tolist(), "sd": sd.tolist(),
                   "mcse": (sd / np.sqrt(np.maximum(ess, 1.0))).tolist()}
     return out
+
+
+def advi_logistic_data(N=50_000, d=100):
+    """``scripts/bench_advi_minibatch.py``'s data: ``RandomState(0)``
+    design ``X (N, d)``, weights ``w_true`` (sd 0.5) and Bernoulli labels
+    ``y``, float32."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(N, d).astype(np.float32)
+    w_true = rng.randn(d).astype(np.float32) * 0.5
+    logits = X @ w_true
+    y = (rng.uniform(size=N) < 1.0 / (1.0 + np.exp(-logits))).astype(
+        np.float32)
+    return X, y, w_true
+
+
+def advi_logistic_model(pm, X, y, batch):
+    """The benchmark's model: ``w ~ N(0, 1)`` (d), ``b ~ N(0, 1)``,
+    Bernoulli on ``invlogit(X_mb w + b)`` over minibatches of ``batch``
+    rows (window sampling, X and y views paired by their seed) scaled to
+    ``total_size = N``."""
+    X_mb, y_mb = pm.Minibatch(X, batch), pm.Minibatch(y, batch)
+    with pm.Model() as model:
+        w = pm.Normal("w", 0.0, 1.0, shape=X.shape[1])
+        b = pm.Normal("b", 0.0, 1.0)
+        p = pm.math.invlogit(pm.math.dot(X_mb, w) + b)
+        pm.Bernoulli("obs", p=p, observed=y_mb, total_size=X.shape[0])
+    return model
+
+
+CONJ_PRIOR_SD = 2.0
+CONJ_COV = np.array([[1.0, 0.6], [0.6, 2.0]])
+
+
+def conjugate_data(n=40, seed=8):
+    """``n`` draws of a bivariate normal with covariance ``CONJ_COV``."""
+    rng = np.random.RandomState(seed)
+    L = np.linalg.cholesky(CONJ_COV)
+    return (np.array([1.0, -0.5]) + rng.randn(n, 2) @ L.T).astype(np.float32)
+
+
+def conjugate_model(pm):
+    """``mu ~ N(0, 2² I)`` (2) and ``y_i ~ MvNormal(mu, CONJ_COV)``: a
+    posterior that is normal with a correlation, known in closed form
+    (:func:`conjugate_posterior`)."""
+    y = conjugate_data()
+    with pm.Model() as model:
+        mu = pm.Normal("mu", 0.0, CONJ_PRIOR_SD, shape=2)
+        pm.MvNormal("y", mu=mu, cov=CONJ_COV, observed=y)
+    return model
+
+
+def conjugate_posterior():
+    """The posterior mean and covariance of ``mu`` in float64."""
+    y = conjugate_data().astype(np.float64)
+    prec = np.eye(2) / CONJ_PRIOR_SD ** 2 + len(y) * np.linalg.inv(CONJ_COV)
+    cov = np.linalg.inv(prec)
+    return cov @ np.linalg.inv(CONJ_COV) @ y.sum(axis=0), cov
+

@@ -25,14 +25,18 @@ from .distributions.distribution import (
     BatchedPoint, _as_tensor, make_generator,
 )
 from .memoize import WithMemoization
-from .node import Node, NamedNode, ConstantNode, as_node, _ev
+from .node import Node, NamedNode, ConstantNode, apply, as_node, _ev
 from .torchf import batched_value, batched_value_and_grad
 from .util import get_transformed_name, get_var_name
 from .vartypes import continuous_types, discrete_types
 
 __all__ = ["Model", "modelcontext", "Point", "Deterministic", "Potential",
            "FreeRV", "ObservedRV", "TransformedRV", "DeterministicRV",
-           "ValueGradFunction"]
+           "ValueGradFunction", "set_data"]
+
+#: The environment key under which a minibatch draw reaches the model's
+#: ``Minibatch`` views (``data.RNG_ENV_KEY``).
+RNG_ENV_KEY = "__rng__"
 
 
 class ContextMeta(type):
@@ -79,15 +83,48 @@ def modelcontext(model: Optional["Model"]) -> "Model":
     return model
 
 
+def _get_scaling(total_size, shape, ndim):
+    """The factor that scales a minibatch's logp up to ``total_size``
+    (cf. ``model.py:102``): an int scales the leading axis, a list scales
+    the axes it names (``None`` skips one, ``Ellipsis`` right-aligns the
+    rest)."""
+    if total_size is None:
+        return 1.0
+    if isinstance(total_size, int):
+        denom = (shape[0] if shape else 1) if ndim >= 1 else 1
+        return float(total_size) / max(int(denom), 1)
+    if isinstance(total_size, (list, tuple)):
+        if not all(isinstance(i, int) or i is Ellipsis or i is None
+                   for i in total_size):
+            raise TypeError(f"Unrecognized `total_size` type: {total_size}")
+        if Ellipsis in total_size:
+            sep = total_size.index(Ellipsis)
+            begin, end = total_size[:sep], total_size[sep + 1:]
+            if len(begin) + len(end) > ndim:
+                raise ValueError("Length of total_size > ndim")
+        else:
+            begin, end = list(total_size), []
+        coef = 1.0
+        for i, t in enumerate(begin):
+            if t is not None:
+                coef *= float(t) / max(int(shape[i]), 1)
+        for i, t in enumerate(reversed(end)):
+            if t is not None:
+                coef *= float(t) / max(int(shape[ndim - 1 - i]), 1)
+        return coef
+    raise TypeError(f"Unrecognized `total_size` type: {total_size}")
+
+
 class FreeRV(NamedNode):
     """Unobserved random variable in *unconstrained* space
     (cf. ``model.py:1420``). For transformed distributions this is the
     ``name_{transform}__`` variable the samplers see; its shape is the
     transform's ``forward_shape`` of the distribution's (one less on the
-    last axis for the simplex transforms)."""
+    last axis for the simplex transforms). ``total_size`` scales its logp
+    term as for a minibatch."""
 
     def __init__(self, name, distribution, model, transform=None,
-                 orig_name=None):
+                 orig_name=None, total_size=None):
         self.name = name
         self.distribution = distribution
         self.model = model
@@ -101,6 +138,8 @@ class FreeRV(NamedNode):
         self.unconstrained_shape = shape
         self._test_value = floatX(np.broadcast_to(testval, shape))
         self._default = torch.as_tensor(self._test_value, device=model.device)
+        self.scaling = _get_scaling(total_size, tuple(distribution.shape),
+                                    len(distribution.shape))
 
     @property
     def dtype(self):
@@ -109,15 +148,18 @@ class FreeRV(NamedNode):
     def _eval_default(self, env, memo):
         return self._default
 
-    def logp_env(self, env, memo):
-        """Summed logp term incl. transform jacobian."""
+    def logp_env(self, env, memo, jacobian=True):
+        """Summed logp term, with the transform's jacobian unless
+        ``jacobian`` is false, times ``scaling``."""
         z = _ev(self, env, memo)
         if self.transform is not None:
             x = self.transform.backward(z, env, memo)
-            jac = self.transform.jacobian_det(z, env, memo)
-            lp = self.distribution.logp(x, env, memo)
-            return torch.sum(lp) + torch.sum(jac)
-        return torch.sum(self.distribution.logp(z, env, memo))
+            lp = torch.sum(self.distribution.logp(x, env, memo))
+            if jacobian:
+                lp = lp + torch.sum(self.transform.jacobian_det(z, env, memo))
+        else:
+            lp = torch.sum(self.distribution.logp(z, env, memo))
+        return lp if self.scaling == 1.0 else self.scaling * lp
 
 
 class TransformedRV(NamedNode):
@@ -144,13 +186,19 @@ class TransformedRV(NamedNode):
 
 
 class ObservedRV(NamedNode):
-    """Observed variable (cf. ``model.py:1534``); the data is a constant on
-    the model's device."""
+    """Observed variable (cf. ``model.py:1534``). Constant data lives on the
+    model's device; data given as a node (``Data``, ``Minibatch``) is
+    evaluated at every logp, so it reads the container's current value or
+    the minibatch the environment selects. ``total_size`` scales the term
+    from the data's rows to the full data set's."""
 
-    def __init__(self, name, data, distribution, model):
+    def __init__(self, name, data, distribution, model, total_size=None):
         self.name = name
         self.distribution = distribution
         self.model = model
+        self.data_node = None
+        if isinstance(data, Node) and not isinstance(data, ConstantNode):
+            self.data_node = data
         data = np.asarray(data.test_value if isinstance(data, Node) else data)
         if data.dtype.kind == "f":
             data = floatX(data)
@@ -159,16 +207,29 @@ class ObservedRV(NamedNode):
         self._data = torch.as_tensor(data, device=model.device)
         if not distribution.shape and data.ndim > 0:
             distribution.shape = tuple(data.shape)
+        self.scaling = _get_scaling(total_size, data.shape, data.ndim)
 
     @property
     def dtype(self):
         return self.data.dtype
 
     def _eval_default(self, env, memo):
+        if self.data_node is not None:
+            return _ev(self.data_node, env, memo)
         return self._data
 
-    def logp_env(self, env, memo):
-        return torch.sum(self.distribution.logp(self._data, env, memo))
+    def logp_env(self, env, memo, jacobian=True):
+        lp = torch.sum(self.distribution.logp(self._eval_default(env, memo),
+                                              env, memo))
+        return lp if self.scaling == 1.0 else self.scaling * lp
+
+    def refresh_shape(self):
+        """Follow a ``Data`` container's current shape, for forward draws
+        after ``set_data`` (cf. ``model.py:960``)."""
+        if self.data_node is not None and hasattr(self.data_node,
+                                                  "set_value"):
+            self.distribution.shape = tuple(np.shape(
+                self.data_node.test_value))
 
 
 class DeterministicRV(NamedNode):
@@ -251,20 +312,20 @@ class Model(WithMemoization, metaclass=ContextMeta):
         return key in self.named_vars or self.name_for(key) in self.named_vars
 
     # -- registration -------------------------------------------------------
-    def Var(self, name, dist, data=None):
+    def Var(self, name, dist, data=None, total_size=None):
         """Create and register a variable (cf. ``model.py:975``)."""
         name = self.name_for(name)
         if name in self.named_vars:
             raise ValueError(f"Variable name {name} already exists.")
         if data is not None:
-            var = ObservedRV(name, data, dist, self)
+            var = ObservedRV(name, data, dist, self, total_size=total_size)
             self.add_named_variable(var)
             self.observed_RVs.append(var)
             self._factor_order.append(var)
             return var
         transform = getattr(dist, "transform", None)
         if transform is None:
-            var = FreeRV(name, dist, self)
+            var = FreeRV(name, dist, self, total_size=total_size)
             self.add_named_variable(var)
             self.free_RVs.append(var)
             self._factor_order.append(var)
@@ -272,7 +333,8 @@ class Model(WithMemoization, metaclass=ContextMeta):
         zname = get_transformed_name(name, transform)
         if zname in self.named_vars:
             raise ValueError(f"Variable name {zname} already exists.")
-        zvar = FreeRV(zname, dist, self, transform=transform, orig_name=name)
+        zvar = FreeRV(zname, dist, self, transform=transform, orig_name=name,
+                      total_size=total_size)
         self.add_named_variable(zvar)
         self.free_RVs.append(zvar)
         self._factor_order.append(zvar)
@@ -359,16 +421,33 @@ class Model(WithMemoization, metaclass=ContextMeta):
                                                           {})
         return env
 
-    def logp_from_env(self, env, memo=None):
-        """Total logp given an env of free-RV values."""
+    def logp_from_env(self, env, memo=None, jacobian=True):
+        """Total logp given an env of free-RV values; without the
+        transforms' jacobians when ``jacobian`` is false."""
         memo = {} if memo is None else memo
-        terms = [factor.logp_env(env, memo) for factor in self._factor_order]
+        terms = [factor.logp_env(env, memo, jacobian)
+                 for factor in self._factor_order]
         terms += [torch.sum(_ev(pot, env, memo)) for pot in self.potentials]
         return sum(terms[1:], terms[0])
 
-    def logp_point(self, q, ordering=None):
-        """Scalar logp of one flat point ``q: (n,)`` (cf. model.py:574-599)."""
-        return self.logp_from_env(self._env_from_q(q, ordering))
+    def logp_point(self, q, ordering=None, jacobian=True, draw=None):
+        """Scalar logp of one flat point ``q: (n,)`` (cf. model.py:574-599).
+        ``draw`` is one minibatch draw (``data.minibatch_noise``), handed to
+        the model's ``Minibatch`` views through the environment."""
+        env = self._env_from_q(q, ordering)
+        if draw is not None:
+            env[RNG_ENV_KEY] = draw
+        return self.logp_from_env(env, jacobian=jacobian)
+
+    def logp_point_fn(self, jacobian=True):
+        """``(q: (n,), draw=None) -> logp``, written for one point: the
+        analog of the JAX package's ``make_logp_fn(with_rng=True)``
+        (``model.py:601``). Callers batch it with ``torch.func.vmap``."""
+        ordering = self.ordering
+
+        def logp(q, draw=None):
+            return self.logp_point(q, ordering, jacobian, draw)
+        return logp
 
     def logp_dlogp_function(self):
         """cf. ``model.py:885`` — returns a :class:`ValueGradFunction`."""
@@ -397,6 +476,53 @@ class Model(WithMemoization, metaclass=ContextMeta):
             return sum(terms, torch.zeros((), dtype=q.dtype, device=q.device))
         return batched_value(datalogp_point)
 
+    # -- symbolic logp nodes (cf. model.py:657-711) ----------------------------
+    def _logp_node(self, fn_from_env, name):
+        """An env -> scalar contraction as a node whose inputs are the free
+        variables, so ``gradient(model.logpt)`` differentiates through it."""
+        rvs = list(self.free_RVs)
+
+        def run(*vals):
+            env = {rv.name: v for rv, v in zip(rvs, vals)}
+            return fn_from_env(self._decode_transformed(env))
+
+        out = apply(run, *rvs)
+        out.name = name
+        return out
+
+    @property
+    def logpt(self):
+        """The joint logp node, jacobians included (``model.py:676``)."""
+        return self._logp_node(self.logp_from_env, "__logp")
+
+    @property
+    def logp_nojact(self):
+        """The joint logp node without jacobians (``model.py:682``)."""
+        return self._logp_node(
+            lambda env: self.logp_from_env(env, jacobian=False),
+            "__logp_nojac")
+
+    def _terms(self, env, factors, potentials):
+        memo = {}
+        terms = [f.logp_env(env, memo) for f in factors]
+        terms += [torch.sum(_ev(pot, env, memo)) for pot in potentials]
+        return sum(terms[1:], terms[0]) if terms else \
+            torch.zeros((), device=self.device)
+
+    @property
+    def varlogpt(self):
+        """The free variables' logp node (``model.py:689``)."""
+        return self._logp_node(
+            lambda env: self._terms(env, self.free_RVs, []), "__varlogp")
+
+    @property
+    def datalogpt(self):
+        """The observed terms' and potentials' logp node
+        (``model.py:700``)."""
+        return self._logp_node(
+            lambda env: self._terms(env, self.observed_RVs, self.potentials),
+            "__datalogp")
+
     # -- host-side conveniences ---------------------------------------------
     def _point_to_env(self, point):
         env = {k: torch.as_tensor(np.asarray(v), device=self.device)
@@ -407,6 +533,21 @@ class Model(WithMemoization, metaclass=ContextMeta):
         """Host-side total logp at a Point (transformed-space names)."""
         point = point if point is not None else self.test_point
         return float(self.logp_from_env(self._point_to_env(point)))
+
+    def logp_nojac(self, point=None):
+        """Host-side logp without the transforms' jacobians."""
+        point = point if point is not None else self.test_point
+        return float(self.logp_from_env(self._point_to_env(point),
+                                        jacobian=False))
+
+    def set_data(self, name, values):
+        """Replace a ``Data`` container's value (cf. ``model.py:973``)."""
+        node = self[name]
+        if not hasattr(node, "set_value") or not hasattr(node, "version"):
+            raise TypeError(
+                f"The variable `{name}` must be defined as `pymc3.Data` "
+                "inside the model to allow updating.")
+        node.set_value(values)
 
     def check_test_point(self, test_point=None):
         """Per-factor logp at the test point (cf. ``model.py:1199``)."""
@@ -486,6 +627,8 @@ class Model(WithMemoization, metaclass=ContextMeta):
         (cf. ``model.py:863``). Entries of ``point`` whose leading axis is
         ``samples`` long are per-sample values; the others are shared."""
         gen = self._generator(gen)
+        for obs in self.observed_RVs:
+            obs.refresh_shape()
         vals = {k: _as_tensor(v, self.device)
                 for k, v in (point or {}).items()}
         batched = {k for k, v in vals.items()
@@ -511,6 +654,8 @@ class Model(WithMemoization, metaclass=ContextMeta):
         ``{name: (len(idx), *shape)}``, or ``(len(idx), size, *shape)`` for
         observed variables when ``size`` is given."""
         gen = self._generator(gen)
+        for obs in self.observed_RVs:
+            obs.refresh_shape()
         idx = np.asarray(idx)
         n = int(idx.shape[0])
         bp = BatchedPoint({}, (), n)
@@ -580,6 +725,14 @@ def Potential(name, var, model=None):
     model.potentials.append(node)
     model.named_vars.setdefault(model.name_for(name), node)
     return node
+
+
+def set_data(new_data: Dict, model=None):
+    """Replace the values of ``Data`` containers by name
+    (cf. ``model.py:1031``)."""
+    model = modelcontext(model)
+    for name, values in new_data.items():
+        model.set_data(name, values)
 
 
 class ValueGradFunction:

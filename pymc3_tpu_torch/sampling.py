@@ -21,6 +21,7 @@ import sys
 import time
 import warnings
 from collections import defaultdict
+from types import SimpleNamespace
 from typing import Dict, List
 
 import numpy as np
@@ -39,7 +40,8 @@ from .step_methods import STEP_METHODS, CompoundStep, DEMetropolis, NUTS
 from .step_methods.arraystep import GeneratorNoise, TuneContext
 from .step_methods.hmc.nuts import find_reasonable_eps
 from .step_methods.hmc.quadpotential import (
-    QuadPotentialDiagAdapt, QuadPotentialFullAdapt,
+    QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
+    QuadPotentialFullAdapt,
 )
 from .util import get_var_name, update_start_vals
 from .vartypes import discrete_types
@@ -120,13 +122,23 @@ _STEPPER_NAMES = ("nuts", "hmc", "metropolis", "slice", "DEMetropolis",
                   "DEMetropolisZ", "binary_metropolis",
                   "binary_gibbs_metropolis", "categorical_gibbs_metropolis")
 
+# keywords of the JAX package's sample() that later slices of the port bring
+_LATER = {
+    "resume_from": "the port's bench slice (ROADMAP item 6)",
+    "devices": "the multi-GPU slice (ROADMAP item 13)",
+    "return_inferencedata": "the backends slice (ROADMAP item 14)",
+    "idata_kwargs": "the backends slice (ROADMAP item 14)",
+}
+
 
 def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
            trace=None, chain_idx=0, chains=None, cores=None, tune=500,
            progressbar=True,
            model=None, random_seed=None, discard_tuned_samples=True,
-           compute_convergence_checks=True, target_accept=None,
-           axis_name=None, record_stats=None, **kwargs):
+           compute_convergence_checks=True, callback=None,
+           return_inferencedata=None, idata_kwargs=None, mp_ctx=None,
+           pickle_backend="pickle", target_accept=None, axis_name=None,
+           devices=None, record_stats=None, block_size=None, **kwargs):
     """Draw samples from the posterior (cf. ``sampling.py:128``).
 
     With no ``step``, a model of continuous variables only gets NUTS with
@@ -134,16 +146,31 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
     that :func:`assign_step_methods` picks, compounded. ``step`` may be one
     stepper or a list; the variables it leaves out are assigned as above.
 
-    ``chains`` is the batch dimension (default 4); ``cores`` is accepted
-    for API parity and ignored. ``trace`` may list the variables to record;
-    ``record_stats`` lists the sampler statistics to keep ("diverging" is
-    always kept). ``axis_name`` (any value) pools step-size and mass-matrix
-    adaptation over all chains. Step-method arguments go by stepper name,
-    ``nuts={"max_treedepth": 8}``, or together as ``step_kwargs={...}``.
+    ``chains`` is the batch dimension (default 4); ``cores``, ``mp_ctx`` and
+    ``pickle_backend`` are accepted for API parity and ignored. ``trace``
+    may list the variables to record; ``record_stats`` lists the sampler
+    statistics to keep ("diverging" is always kept). ``axis_name`` (any
+    value) pools step-size and mass-matrix adaptation over all chains.
+    Step-method arguments go by stepper name, ``nuts={"max_treedepth":
+    8}``, or together as ``step_kwargs={...}``.
+
+    The draws run in blocks of ``block_size`` (by default as many as fit a
+    fixed budget of device memory): each block's kept draws are copied to
+    the host at its end, and then ``callback(trace=None, draw=...)`` runs
+    once, with ``draw.draw_idx`` the draws done and ``draw.is_last``. A
+    ``KeyboardInterrupt``, from the callback or the user, ends the run with
+    the draws of the blocks done so far.
     """
     model = modelcontext(model)
     if not model.free_RVs:
         raise ValueError("The model does not contain any free variables.")
+    asked = {"resume_from": kwargs.pop("resume_from", None),
+             "devices": devices, "return_inferencedata": return_inferencedata,
+             "idata_kwargs": idata_kwargs}
+    for name, value in asked.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"sample({name}=...) comes with {_LATER[name]}")
     if chains is None:
         chains = max(4, cores or 0)
     step_kwargs = {name: dict(kwargs.pop(name)) for name in _STEPPER_NAMES
@@ -213,8 +240,17 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
     keep_from = tune if discard_tuned_samples else 0
     t_start = time.time()
     result = _device_sample(model, step, q0, draws, tune, random_seed,
-                            progressbar, keep_from, trace_vars, record_stats)
+                            progressbar, keep_from, trace_vars, record_stats,
+                            block_size, callback)
     t_sampling = time.time() - t_start
+    if result["interrupted"]:
+        if result["n_kept"] == 0:
+            raise KeyboardInterrupt(
+                "Sampling interrupted before any post-warmup draws "
+                "completed.")
+        _log.warning(f"Sampling interrupted: returning a partial trace with "
+                     f"{result['n_kept']} of {draws + tune - keep_from} "
+                     "draws per chain.")
 
     mtrace = MultiTrace(_flush_to_traces(model, step, result, chain_idx,
                                          trace_vars))
@@ -222,7 +258,7 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
     mtrace.report._n_tune = tune
     mtrace.report._n_draws = draws
     mtrace.report._t_sampling = t_sampling
-    _attach_divergence_warnings(mtrace)
+    _attach_sample_stats_warnings(mtrace, step, tune, model)
     if compute_convergence_checks:
         if draws < 100:
             warnings.warn("The number of samples is too small to check "
@@ -299,14 +335,18 @@ def _resolve_trace_vars(model, trace):
 
 
 def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
-                   keep_from, trace_vars, record_stats):
-    """Run warmup and draws over all chains at once.
+                   keep_from, trace_vars, record_stats, block_size=None,
+                   callback=None):
+    """Run warmup and draws over all chains at once, in blocks of
+    ``block_size`` draws (tuning included) that end with one copy to the
+    host and one call of ``callback``.
 
     A compound threads ``q`` through its members' kernels; a population
     stepper (``population_based``) steps the ``(chains, n)`` population
     through ``population_kernel_step``. Returns ``values`` {name: (chains,
     n_kept, ...)} and ``stats``, one {name: (chains, n_kept)} per stepper
-    that generates statistics, on the host, and the final kernel state.
+    that generates statistics, on the host, the final kernel state, and
+    whether a ``KeyboardInterrupt`` cut the run short.
     """
     device = model.device
     chains = q0.shape[0]
@@ -342,7 +382,10 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
     n_keep = total - keep_from
     width = sum(max(1, int(np.prod(np.shape(v.test_value))))
                 for v in trace_vars) + sum(len(n) for n in stat_names)
-    block = max(1, min(n_keep, _BLOCK_BUDGET // max(1, chains * width)))
+    if block_size is None:
+        block = max(1, min(n_keep, _BLOCK_BUDGET // max(1, chains * width)))
+    else:
+        block = max(1, int(block_size))
     host_vals = defaultdict(list)
     host_stats = [defaultdict(list) for _ in stat_names]
     buf_vals = defaultdict(list)
@@ -358,34 +401,51 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
         buf_vals.clear()
 
     t0 = time.time()
-    held = 0
-    for idx in range(total):
-        tctx = TuneContext(idx < tune, idx, tune)
-        q, state, stats = kernel_step(q, state, tctx, noise)
-        if idx < keep_from:
-            continue
-        for name, val in decode_batch(q).items():
-            buf_vals[name].append(val)
-        per_stepper = stats if isinstance(stats, list) else [stats]
-        for names, buf, st in zip(stat_names, buf_stats, per_stepper):
-            for name in names:
-                buf[name].append(st[name])
-        held += 1
-        if held == block or idx == total - 1:
+    interrupted = False
+    try:
+        for idx in range(total):
+            tctx = TuneContext(idx < tune, idx, tune)
+            q, state, stats = kernel_step(q, state, tctx, noise)
+            if idx >= keep_from:
+                per_stepper = stats if isinstance(stats, list) else [stats]
+                for name, val in decode_batch(q).items():
+                    buf_vals[name].append(val)
+                for names, buf, st in zip(stat_names, buf_stats,
+                                          per_stepper):
+                    for name in names:
+                        buf[name].append(st[name])
+            if (idx + 1) % block and idx != total - 1:
+                continue
             flush()
-            held = 0
             if progressbar:
                 sys.stderr.write(f"\rSampling {chains} chains: {idx + 1}/"
                                  f"{total} draws ({time.time() - t0:.1f} s)")
+            if callback is not None:
+                callback(trace=None, draw=SimpleNamespace(
+                    chain=None, is_last=idx == total - 1, draw_idx=idx + 1,
+                    tuning=idx < tune, stats=None, point=None))
+    except KeyboardInterrupt:
+        interrupted = True
+        flush()
     if progressbar:
         sys.stderr.write("\n")
 
     def cat(chunks):
         return np.concatenate(chunks, axis=1)
-    return {"values": {k: cat(v) for k, v in host_vals.items()},
-            "stats": [{k: cat(v) for k, v in host.items()}
-                      for host in host_stats],
-            "final_state": state, "n_kept": n_keep, "chains": chains}
+    values = {k: cat(v) for k, v in host_vals.items()}
+    stats_out = [{k: cat(v) for k, v in host.items()} for host in host_stats]
+    n_kept = n_keep
+    if interrupted:
+        # an interrupt inside a draw's bookkeeping can leave one series a
+        # row longer than another: keep the draws every series has
+        n_kept = min([a.shape[1] for a in values.values()]
+                     + [a.shape[1] for st in stats_out for a in st.values()],
+                     default=0)
+        values = {k: v[:, :n_kept] for k, v in values.items()}
+        stats_out = [{k: v[:, :n_kept] for k, v in st.items()}
+                     for st in stats_out]
+    return {"values": values, "stats": stats_out, "final_state": state,
+            "n_kept": n_kept, "chains": chains, "interrupted": interrupted}
 
 
 def _flush_to_traces(model, step, result, chain_idx, trace_vars):
@@ -471,31 +531,68 @@ def _iter_sample(draws, step, start=None, trace=None, chain=0, tune=None,
         strace.close()
 
 
-def _attach_divergence_warnings(mtrace):
+def _attach_sample_stats_warnings(mtrace, step, tune, model=None):
+    """The report's warnings of each chain (cf. ``sampling.py:790``): a
+    ``BAD_ENERGY`` where a draw's ``model_logp`` is not finite, naming the
+    logp terms that are not finite at that draw; ``DIVERGENCES``; and a
+    ``TREEDEPTH`` where a draw reached a stepper's ``max_treedepth``."""
     report = mtrace.report
-    if "diverging" not in mtrace.stat_names:
-        return
-    div = mtrace.get_sampler_stats("diverging", combine=False, squeeze=False)
-    for chain, d in zip(mtrace.chains, div):
-        n = int(np.sum(d))
-        if n:
-            report._add_warnings([SamplerWarning(
-                WarningType.DIVERGENCES,
-                f"Chain {chain} had {n} diverging samples after tuning.",
-                "warn", None, None, None)], chain)
+    names = mtrace.stat_names
+    caps = [m.max_treedepth for m in _members(step)
+            if hasattr(m, "max_treedepth")]
+    for chain in mtrace.chains:
+        def stat(name):
+            return np.asarray(mtrace.get_sampler_stats(name, chains=[chain]))
+        found = []
+        if model is not None and "model_logp" in names:
+            bad = ~np.isfinite(stat("model_logp").astype(np.float64))
+            bad = bad.reshape(bad.shape[0], -1).any(axis=1)
+            if bad.any():
+                idx = int(np.argmax(bad))
+                per_rv = model.check_test_point(mtrace.point(idx, chain=chain))
+                offenders = ", ".join(k for k, v in per_rv.items()
+                                      if not np.isfinite(v)) or "unattributed"
+                found.append(SamplerWarning(
+                    WarningType.BAD_ENERGY,
+                    f"Chain {chain} hit a non-finite model logp at draw "
+                    f"{idx} (offending logp terms: {offenders}).",
+                    "warn", idx, None, None))
+        if "diverging" in names:
+            n = int(np.sum(stat("diverging")))
+            if n:
+                found.append(SamplerWarning(
+                    WarningType.DIVERGENCES,
+                    f"Chain {chain} had {n} diverging samples after tuning.",
+                    "warn", None, None, None))
+        if "depth" in names and caps:
+            depth = stat("depth")
+            for cap in caps:
+                if (depth >= cap).any():
+                    found.append(SamplerWarning(
+                        WarningType.TREEDEPTH,
+                        f"Chain {chain} reached the maximum tree depth. "
+                        "Increase max_treedepth, increase target_accept or "
+                        "reparameterize.", "warn", None, None, None))
+        if found:
+            report._add_warnings(found, chain)
 
 
 def init_nuts(init="auto", chains=1, n_init=500000, model=None,
-              random_seed=None, axis_name=None, **kwargs):
+              random_seed=None, axis_name=None, progressbar=True, **kwargs):
     """NUTS with its mass-matrix initialization (cf. ``sampling.py:968``).
 
     ``init`` is one of ``auto`` (= ``jitter+adapt_diag``), ``adapt_diag``,
-    ``jitter+adapt_diag``, ``adapt_full``, ``jitter+adapt_full`` and
-    ``nuts``. The jitter comes from numpy's global generator seeded with
+    ``jitter+adapt_diag``, ``advi+adapt_diag``, ``advi+adapt_diag_grad``,
+    ``advi``, ``advi_map``, ``map``, ``adapt_full``, ``jitter+adapt_full``
+    and ``nuts``. The jitter comes from numpy's global generator seeded with
     ``random_seed``, so the start points equal the JAX package's for the
-    same seed. The ``advi*`` and ``map`` strategies need variational
-    inference and ``find_MAP``, which the port does not have yet; ``n_init``
-    is accepted for them.
+    same seed. The ``advi`` strategies fit ADVI for at most ``n_init`` steps
+    (stopped early by two ``CheckParametersConvergence`` callbacks, absolute
+    and relative, at tolerance 1e-2), start the chains at draws of the fit
+    and take its variances as the mass matrix; ``advi_map`` starts them at
+    ``find_MAP``'s point instead; ``map`` starts them there with the inverse
+    Hessian as a dense mass matrix (an adaptive diagonal one where the
+    Hessian cannot be inverted).
     """
     model = modelcontext(model)
     vars = kwargs.pop("vars", model.vars)
@@ -509,14 +606,9 @@ def init_nuts(init="auto", chains=1, n_init=500000, model=None,
     init = init.lower()
     if init == "auto":
         init = "jitter+adapt_diag"
-    if init in ("advi+adapt_diag", "advi+adapt_diag_grad", "advi",
-                "advi_map", "map"):
-        raise NotImplementedError(
-            f"init={init!r} needs variational inference or find_MAP, which "
-            "come with the port's VI-and-data slice; use adapt_diag, "
-            "jitter+adapt_diag, adapt_full, jitter+adapt_full or nuts")
     if random_seed is not None:
-        np.random.seed(int(np.atleast_1d(random_seed)[0]))
+        random_seed = int(np.atleast_1d(random_seed)[0])
+        np.random.seed(random_seed)
 
     q0 = model.dict_to_array(model.test_point).astype(floatX())
     n = q0.shape[0]
@@ -536,6 +628,35 @@ def init_nuts(init="auto", chains=1, n_init=500000, model=None,
         start = jitter_starts()
         potential = QuadPotentialDiagAdapt(n, starts_mean(start), np.ones(n),
                                            10)
+    elif init in ("advi+adapt_diag", "advi+adapt_diag_grad", "advi",
+                  "advi_map"):
+        from .tuning import find_MAP
+        from .variational import fit
+        from .variational.callbacks import CheckParametersConvergence
+        cb = [CheckParametersConvergence(tolerance=1e-2, diff="absolute"),
+              CheckParametersConvergence(tolerance=1e-2, diff="relative")]
+        approx = fit(random_seed=random_seed, n=n_init, method="advi",
+                     model=model, callbacks=cb, progressbar=progressbar)
+        approx_trace = approx.sample(draws=chains, random_seed=random_seed)
+        start = [{k: np.asarray(approx_trace.point(i)[k])
+                  for k in model.ordering.by_name} for i in range(chains)]
+        var = approx.std ** 2
+        if init == "advi_map":
+            start = [find_MAP(model=model)] * chains
+        if init in ("advi", "advi_map"):
+            potential = QuadPotentialDiag(var)
+        else:
+            potential = QuadPotentialDiagAdapt(n, approx.mean, var, 50)
+    elif init == "map":
+        from .tuning import find_MAP, find_hessian
+        start_map = find_MAP(model=model)
+        try:
+            cov = np.linalg.inv(find_hessian(start_map, model=model))
+            potential = QuadPotentialFull(cov)
+        except (np.linalg.LinAlgError, RuntimeError, NotImplementedError):
+            potential = QuadPotentialDiagAdapt(
+                n, model.dict_to_array(start_map), np.ones(n), 10)
+        start = [start_map] * chains
     elif init == "adapt_full":
         start = [model.test_point] * chains
         potential = QuadPotentialFullAdapt(n, q0)

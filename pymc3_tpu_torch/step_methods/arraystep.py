@@ -109,6 +109,12 @@ class GeneratorNoise:
         """One permutation of ``range(n)`` per chain, ``(chains, n)``."""
         return torch.argsort(self.uniform(n), dim=1)
 
+    def minibatch(self, nodes):
+        """One minibatch draw per chain for the views ``nodes``
+        (``data.minibatch_noise``)."""
+        from ..data import minibatch_noise
+        return minibatch_noise(nodes, self.generator, self.chains)
+
     def depth(self, depth, n_take):
         """Uniforms of one NUTS doubling: direction ``(chains,)``, merge
         ``(chains,)``, and one per leaf for the proposal ``(n_take,

@@ -2,11 +2,13 @@
 from .hmc import HamiltonianMC
 from .nuts import NUTS
 from .quadpotential import (
-    QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialFull,
+    QuadPotentialDiag, QuadPotentialDiagAdapt, QuadPotentialDiagAdaptGrad,
+    QuadPotentialFull,
     QuadPotentialFullAdapt, QuadPotentialFullInv, quad_potential,
 )
 
 __all__ = ["NUTS", "HamiltonianMC", "QuadPotentialDiag",
-           "QuadPotentialDiagAdapt", "QuadPotentialFull",
+           "QuadPotentialDiagAdapt", "QuadPotentialDiagAdaptGrad",
+           "QuadPotentialFull",
            "QuadPotentialFullInv", "QuadPotentialFullAdapt",
            "quad_potential"]

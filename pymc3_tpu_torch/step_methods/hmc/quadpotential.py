@@ -20,9 +20,10 @@ definite without a host sync: ``cholesky_ex`` reports it in ``info``, and
 analog of the reference catching ``LinAlgError``).
 
 The fixed potentials (``QuadPotentialDiag``, ``QuadPotentialFull``,
-``QuadPotentialFullInv``) and ``QuadPotentialFullAdapt`` keep the JAX
-package's host-side methods (``velocity``, ``energy``, ``random``, and the
-dense ``update``), which work on numpy arrays.
+``QuadPotentialFullInv``) and the adaptive ones keep the JAX package's
+host-side methods of one chain (``velocity``, ``energy``, ``random``,
+``update``, and for the adaptive diagonal ``raise_ok`` and ``reset``), which
+work on numpy arrays.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from ...config import floatX, torch_floatX
 
 __all__ = [
     "QuadPotential", "QuadPotentialDiag", "QuadPotentialDiagAdapt",
-    "QuadPotentialFull", "QuadPotentialFullInv", "QuadPotentialFullAdapt",
+    "QuadPotentialDiagAdaptGrad", "QuadPotentialFull", "QuadPotentialFullInv", "QuadPotentialFullAdapt",
     "quad_potential", "PositiveDefiniteError", "isquadpotential",
     "WelfordState", "welford_add", "welford_merge_pooled",
     "DiagAdaptState", "diag_adapt_init", "diag_adapt_update",
@@ -456,11 +457,84 @@ class QuadPotentialDiagAdapt(QuadPotential):
         else:
             self._initial_diag = np.asarray(initial_diag, dtype=self.dtype)
             self._initial_weight = float(initial_weight)
+        self.reset()
 
     def init_kernel_state(self, chains, device) -> DiagAdaptState:
         return diag_adapt_init(_t(self._initial_mean, device),
                                _t(self._initial_diag, device),
                                self._initial_weight, chains)
+
+    # -- the host-side API of one chain (cf. quadpotential.py:469-509) -------
+    def reset(self):
+        self._state = self.init_kernel_state(1, "cpu")
+
+    def _var(self):
+        return self._state.var[0].numpy()
+
+    def _velocity(self, x):
+        return self._var() * np.asarray(x, self.dtype)
+
+    def velocity(self, x, out=None):
+        v = self._velocity(x)
+        if out is not None:
+            np.copyto(out, v)
+            return None
+        return v
+
+    def energy(self, x, velocity=None):
+        if velocity is None:
+            velocity = self.velocity(x)
+        return 0.5 * float(np.dot(np.asarray(x, self.dtype), velocity))
+
+    def random(self):
+        return (np.random.normal(size=self.n)
+                * self._state.inv_stds[0].numpy()).astype(self.dtype)
+
+    def update(self, sample, grad, tune):
+        if not tune:
+            return
+        self._state = diag_adapt_update(
+            self._state, _t(sample, "cpu")[None], True,
+            self.adaptation_window)
+
+    def raise_ok(self, vmap=None):
+        """Raise a ``ValueError`` naming the variable of every zero or
+        non-finite entry of the mass matrix (cf. ``quadpotential.py:490``);
+        ``vmap`` is the ordering's list of ``VarMap``."""
+        var = self._var()
+        for bad, what, adj in ((var == 0, "zeros", "zero"),
+                               (~np.isfinite(var), "non-finite values",
+                                "non-finite")):
+            if bad.any():
+                msg = [f"Mass matrix contains {what} on the diagonal. "]
+                msg += [f"The derivative of RV `{_name_for_index(vmap, i)}`"
+                        f".ravel()[{i}] is {adj}." for i in np.where(bad)[0]]
+                raise ValueError("\n".join(msg))
+
+
+def _name_for_index(vmap, i):
+    """The variable whose slice of the flat vector holds entry ``i``."""
+    for vm in vmap or ():
+        if vm.slc.start <= i < vm.slc.stop:
+            return vm.var
+    return "?"
+
+
+class QuadPotentialDiagAdaptGrad(QuadPotentialDiagAdapt):
+    """Diagonal adaptation that also tracks the squared gradients
+    (cf. ``quadpotential.py:521``). As in the JAX package the mass matrix
+    comes from the samples; the gradient estimate is kept beside it."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._grad_state = welford_zeros(1, self.n, "cpu")
+
+    def update(self, sample, grad, tune):
+        if not tune:
+            return
+        self._grad_state = welford_add(self._grad_state,
+                                       _t(grad, "cpu")[None] ** 2)
+        super().update(sample, grad, tune)
 
 
 class QuadPotentialFull(_HostPotentialMixin, QuadPotential):

@@ -326,10 +326,18 @@ def test_init_nuts_matches_jax(init):
 
 
 def test_init_nuts_refuses_the_vi_strategies_by_name():
+    """The VI strategies, refused until the port had VI, now give their
+    potentials; a strategy the JAX package does not know is refused by
+    name."""
+    from pymc3_tpu_torch.step_methods.hmc import quadpotential as tq
     mt = _model(pt)
-    for init in ("advi", "advi+adapt_diag", "advi_map", "map"):
-        with pytest.raises(NotImplementedError, match="VI-and-data"):
-            pt.init_nuts(init=init, chains=2, model=mt)
+    for init, kind in (("advi", tq.QuadPotentialDiag),
+                       ("advi+adapt_diag", tq.QuadPotentialDiagAdapt),
+                       ("advi_map", tq.QuadPotentialDiag),
+                       ("map", tq.QuadPotentialFull)):
+        _, step = pt.init_nuts(init=init, chains=2, model=mt, n_init=300,
+                               random_seed=1, progressbar=False)
+        assert type(step.potential) is kind, init
     with pytest.raises(ValueError, match="Unknown initializer"):
         pt.init_nuts(init="bogus", chains=2, model=mt)
 

@@ -81,3 +81,90 @@ def test_same_seed_same_draws():
     a = pt.sample(model=gp_model(pt, n=20), **kw)
     b = pt.sample(model=gp_model(pt, n=20), **kw)
     np.testing.assert_array_equal(a["ls"], b["ls"])
+
+
+# -- the report's warnings and sample()'s keywords ---------------------------
+def _normal_model(pm):
+    with pm.Model() as m:
+        pm.Normal("mu", 0.0, 1.0)
+        pm.HalfNormal("sigma", 1.0)
+    return m
+
+
+def test_treedepth_warning_per_chain_at_the_cap():
+    """A depth cap of 1 is reached by every draw: each chain warns."""
+    from pymc3_tpu_torch.backends.report import WarningType
+    tr = pt.sample(draws=30, tune=10, chains=2, model=_normal_model(pt),
+                   random_seed=2, progressbar=False,
+                   compute_convergence_checks=False,
+                   nuts={"max_treedepth": 1})
+    for chain in tr.chains:
+        kinds = [w.kind for w in tr.report._chain_warnings.get(chain, [])]
+        assert WarningType.TREEDEPTH in kinds, kinds
+
+
+def test_bad_energy_warning_names_the_offending_term():
+    """``tests/test_inferencedata.py:50-70`` on the port's trace."""
+    from pymc3_tpu_torch.backends.base import MultiTrace
+    from pymc3_tpu_torch.backends.ndarray import NDArray
+    from pymc3_tpu_torch.backends.report import SamplerReport, WarningType
+    from pymc3_tpu_torch.sampling import _attach_sample_stats_warnings
+    m = _normal_model(pt)
+    strace = NDArray(model=m)
+    strace.setup(3, 0, [{"model_logp": np.float64, "diverging": bool,
+                         "depth": np.int64}])
+    pts = [m.test_point, m.test_point,
+           {"mu": np.array(np.nan, np.float32),
+            "sigma_log__": np.array(0.0, np.float32)}]
+    for pt_ in pts:
+        strace.record(pt_, [{"model_logp": m.logp(pt_), "diverging": False,
+                             "depth": 1}])
+    mtrace = MultiTrace([strace])
+    mtrace._report = SamplerReport()
+    step = pt.NUTS(model=m)
+    _attach_sample_stats_warnings(mtrace, step, 0, m)
+    bad = [w for w in mtrace.report._chain_warnings.get(0, [])
+           if w.kind == WarningType.BAD_ENERGY]
+    assert bad and "mu" in bad[0].message and "sigma" not in bad[0].message
+    assert bad[0].step == 2
+
+
+def test_sample_accepts_the_jax_packages_keywords():
+    calls = []
+    tr = pt.sample(draws=12, tune=8, chains=2, model=_normal_model(pt),
+                   random_seed=1, progressbar=False, block_size=5,
+                   mp_ctx="spawn", pickle_backend="dill",
+                   callback=lambda trace, draw: calls.append(draw),
+                   compute_convergence_checks=False)
+    assert len(tr) == 12
+    assert [d.draw_idx for d in calls] == [5, 10, 15, 20]
+    assert calls[-1].is_last and not calls[0].is_last
+    assert calls[0].tuning and not calls[-1].tuning
+
+
+def test_callback_can_cancel_with_a_partial_trace():
+    """``tests/test_sampling_args.py:160-185``: a KeyboardInterrupt from
+    the callback ends the run at a block's end."""
+    def cancel(trace, draw):
+        if draw.draw_idx >= 5:
+            raise KeyboardInterrupt()
+    m = _normal_model(pt)
+    tr = pt.sample(draws=20, tune=0, chains=1, model=m, step=pt.Metropolis(
+        model=m), progressbar=False, random_seed=1, block_size=5,
+        callback=cancel, compute_convergence_checks=False)
+    assert len(tr) == 5
+    with pytest.raises(KeyboardInterrupt):
+        pt.sample(draws=20, tune=10, chains=1, model=m,
+                  step=pt.Metropolis(model=m), progressbar=False,
+                  random_seed=1, block_size=5, callback=cancel,
+                  compute_convergence_checks=False)
+
+
+@pytest.mark.parametrize("name,value,slice_", [
+    ("resume_from", object(), "bench"), ("devices", [0], "multi-GPU"),
+    ("return_inferencedata", True, "backends"),
+    ("idata_kwargs", {}, "backends")])
+def test_later_keywords_name_their_slice(name, value, slice_):
+    with pytest.raises(NotImplementedError, match=slice_):
+        pt.sample(draws=5, tune=5, model=_normal_model(pt), progressbar=False,
+                  **{name: value})

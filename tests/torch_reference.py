@@ -1,16 +1,22 @@
-"""Reference posterior moments of the LKJ, stochastic-volatility and GARCH
-examples, sampled by the JAX package on the CPU.
+"""Reference values of the JAX package on the CPU for ``chip_smoke.py``'s
+gates: posterior moments of the LKJ, stochastic-volatility and GARCH
+examples, ADVI fits of the minibatch logistic regression and of the GP,
+and the MAP and Hessian of radon.
 
 Not a test: it writes ``pymc3_tpu_torch/examples/reference_moments.json``
-(mean, sd and MCSE per element, in ``BASELINE_CPU.json``'s shape), which
-``chip_smoke.py`` reads through ``moment_check`` to gate the port's
-posteriors on the card. Run from the repository root:
+(for the sampled examples mean, sd and MCSE per element, in
+``BASELINE_CPU.json``'s shape), which ``chip_smoke.py`` reads to gate the
+port on the card. Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_reference.py [config ...]
 
-With names (``lkj``, ``stochastic_volatility``, ``garch``) it runs those
-configurations only and keeps the others already in the file; the file is
-written after each configuration.
+With names (``lkj``, ``stochastic_volatility``, ``garch``, ``advi_logistic``,
+``advi_gp``, ``map_radon``) it runs those configurations only and keeps the
+others already in the file; the file is written after each configuration.
+
+The ADVI fits run at two seeds each: the port's fit on the card draws other
+random numbers (Philox against threefry), so its gate is the spread of the
+two JAX fits, not their value alone.
 
 For stochastic volatility it also writes
 ``pymc3_tpu_torch/examples/sv_starts.npy``: 256 posterior draws of the
@@ -68,6 +74,98 @@ def _starts(model, trace, chains, draws, per_chain=16):
                      for c in range(chains) for i in idx]).astype(np.float32)
 
 
+# (N, d, batch, steps) of the minibatch-ADVI fits: the JAX package's
+# benchmark (scripts/bench_advi_minibatch.py) and its wide configuration
+ADVI_LOGISTIC = {"d100": (50_000, 100, 500, 10_000),
+                 "d512": (50_000, 512, 8192, 2_000)}
+# the GP fits: Adam in two stages of (steps, rate), the second with a new
+# optimizer, and the Monte-Carlo samples of a step. With one stage at rate
+# 0.01 and one sample, two seeds' fits differed by 1.5x in an sd; fifty
+# samples a step (one batch of the covariance kernel on the card) let the
+# stages be short
+ADVI_GP = {"stages": {"advi": [[1000, 0.01], [1000, 0.001]],
+                      "fullrank_advi": [[1500, 0.01], [1000, 0.001]]},
+           "obj_n_mc": 50}
+SEEDS = (1, 2)
+
+
+def _fit_record(approx, wall):
+    return {"mean": np.asarray(approx.mean, np.float64).tolist(),
+            "std": np.asarray(approx.std, np.float64).tolist(),
+            "last100_loss": float(np.mean(approx.hist[-100:])),
+            "wall_s": wall}
+
+
+def advi_logistic(pm):
+    """ADVI with the default optimizer (adagrad_window) from the test point,
+    once per seed and configuration, as the benchmark's timed fit runs."""
+    from pymc3_tpu_torch.examples.suite import (advi_logistic_data,
+                                                 advi_logistic_model)
+    out = {}
+    for name, (N, d, batch, steps) in ADVI_LOGISTIC.items():
+        X, y, w_true = advi_logistic_data(N, d)
+        model = advi_logistic_model(pm, X, y, batch)
+        fits = []
+        for seed in SEEDS:
+            with model:
+                inference = pm.ADVI()
+            t0 = time.time()
+            approx = inference.fit(n=steps, random_seed=seed,
+                                   progressbar=False)
+            fits.append(_fit_record(approx, time.time() - t0))
+            w = model.array_to_dict(np.asarray(approx.mean))["w"]
+            fits[-1]["coef_rmse"] = float(np.sqrt(np.mean((w - w_true) ** 2)))
+        out[name] = {"N": N, "d": d, "batch": batch, "steps": steps,
+                     "fits": fits}
+    return out
+
+
+def advi_gp(pm):
+    """ADVI and full-rank ADVI on the suite's GP (n = 200), Adam in two
+    stages; the second stage's seed is the first's plus 10."""
+    from pymc3_tpu_torch.examples.suite import gp_regression
+    out = dict(ADVI_GP)
+    for method in ("advi", "fullrank_advi"):
+        fits = []
+        for seed in SEEDS:
+            inference = (pm.ADVI if method == "advi" else pm.FullRankADVI)(
+                model=gp_regression(pm)[0])
+            t0 = time.time()
+            for k, (steps, rate) in enumerate(ADVI_GP["stages"][method]):
+                approx = inference.fit(
+                    n=steps, random_seed=seed + 10 * k, progressbar=False,
+                    obj_n_mc=ADVI_GP["obj_n_mc"],
+                    obj_optimizer=pm.adam(learning_rate=rate))
+            fits.append(_fit_record(approx, time.time() - t0))
+        out[method] = fits
+    return out
+
+
+def map_radon(pm):
+    """``find_MAP`` on radon from the test point, and ``find_hessian`` at
+    that point (its diagonal and log-determinant: the matrix itself is
+    175 x 175)."""
+    from pymc3_tpu_torch.examples.radon import build_model
+    model = build_model(pm)
+    t0 = time.time()
+    with model:
+        point, res = pm.find_MAP(progressbar=False, return_raw=True)
+    wall = time.time() - t0
+    H = np.asarray(pm.find_hessian(point, model=model), np.float64)
+    sign, logdet = np.linalg.slogdet(H)
+    return {"q": np.asarray(model.dict_to_array(point), np.float64).tolist(),
+            "neg_logp": float(res.fun), "iterations": int(res.nit),
+            "scalars": {k: float(point[k]) for k in
+                        ("mu_a", "sigma_a", "mu_b", "sigma_b", "eps")},
+            "hessian_diag": np.diag(H).tolist(),
+            "hessian_logdet": float(logdet), "hessian_sign": float(sign),
+            "wall_s": wall}
+
+
+FITS = {"advi_logistic": advi_logistic, "advi_gp": advi_gp,
+        "map_radon": map_radon}
+
+
 def main():
     sys.path.insert(0, ROOT)
     import pymc3_tpu as pm
@@ -78,12 +176,17 @@ def main():
     builders = {"lkj": LKJ_correlation.build_model,
                 "stochastic_volatility": stochastic_volatility.build_model,
                 "garch": garch_example.build_model}
-    names = sys.argv[1:] or list(RUNS)
+    names = sys.argv[1:] or list(RUNS) + list(FITS)
     configs = {}
     if os.path.exists(OUT):
         with open(OUT) as f:
             configs = json.load(f)["configs"]
     for config in names:
+        if config in FITS:
+            configs[config] = FITS[config](pm)
+            print(config, "done", flush=True)
+            _write(configs)
+            continue
         chains, tune, draws, nuts = RUNS[config]
         model = builders[config]()
         t0 = time.time()
@@ -102,11 +205,15 @@ def main():
                                   if k != "moments"}), flush=True)
         if config == "stochastic_volatility":
             np.save(STARTS, _starts(model, trace, chains, draws))
-        with open(OUT, "w") as f:
-            json.dump({"backend": "cpu (stock XLA:CPU jaxlib), the JAX "
-                       "package", "made_by": COMMAND,
-                       "configs": configs}, f, indent=1)
-            f.write("\n")
+        _write(configs)
+
+
+def _write(configs):
+    with open(OUT, "w") as f:
+        json.dump({"backend": "cpu (stock XLA:CPU jaxlib), the JAX "
+                   "package", "made_by": COMMAND,
+                   "configs": configs}, f, indent=1)
+        f.write("\n")
 
 
 if __name__ == "__main__":
