@@ -17,7 +17,11 @@ a non-zero exit and no result line:
    both at the shapes the GP paths use: device time per launch (many
    launches between one pair of events, queued behind a sleeping stream so
    that they run back to back), the host's issue time per call, the plain
-   version's device time, and the bound from the bytes moved;
+   version's device time, and the bound from the bytes moved; then the
+   shapes of phases 21-22, FITC's (64, 20, 2000, 1) and (64, 20, 20, 1)
+   matern52 both ways, SMC's (4096, 200, 200, 1), (4096, 20, 2000, 1) and
+   (4096, 20, 20, 1) forward, and a batch of 70,000 that the wrappers cut
+   into two launches, each checked the same way;
 4. GP marginal regression (``pymc3_tpu_torch/examples/suite.py``, n = 200,
    300 tune + 500 draws, 4 chains; tune cut from 500) sampled by NUTS
    through both kernels; moment check against ``BASELINE_CPU.json`` and
@@ -29,10 +33,11 @@ a non-zero exit and no result line:
    symmetry, the two calls' variances against each other, the same calls
    through the plain version, and the fit at the training inputs;
 6. the radon model of ``bench.py`` at 2048 chains with pooled adaptation,
-   150 tune + 120 draws (tune cut from 1000 and draws from 500, to keep
-   the whole run well inside its limit as phases were added; split R-hat - 1 grows as 1 / draws whatever the chain count,
-   and at 200 draws it was 1.0019; ``PERF.md``); moment check of ``mu_a``
-   and R-hat < 1.01;
+   150 tune + 60 draws (tune cut from 1000 and draws from 500, then 120
+   and 90, to keep the whole run inside its limit as phases were added;
+   split R-hat - 1 grows as 1 / draws whatever the chain count: 1.0019 at
+   200 draws, 1.0027 at 120, 1.0038 at 90, so about 1.0057 at 60;
+   ``PERF.md``); moment check of ``mu_a`` and R-hat < 1.01;
 7. BEST (47 + 42 rows, StudentT likelihoods) at 256 chains, pooled, 150
    tune + 150 draws; moment check of ``difference_of_means`` and R-hat <
    1.01; then the posterior predictive of both groups at all 38,400 draws
@@ -40,13 +45,15 @@ a non-zero exit and no result line:
    against the posterior median of ``group1_mean`` within four Monte-Carlo
    standard errors;
 8. the 3-component mixture (1000 rows, Dirichlet weights, ordered means,
-   Gamma precisions) at 512 chains, pooled, 150 tune + 120 draws; moment
+   Gamma precisions) at 512 chains, pooled, 150 tune + 70 draws (120 until
+   the SMC phases came: R-hat 1.0043 there and 1.0051 at 90, so about
+   1.0066 at 70); moment
    check of ``mu`` and R-hat < 1.01; the posterior predictive of ``x_obs``
-   at all 61,440 draws (mean and sd against the data's) and 100,000 prior
+   at all 35,840 draws (mean and sd against the data's) and 100,000 prior
    predictive draws (weights on the simplex, means of ``mu`` and ``tau``
    against their priors);
 9. the coal-mining switchpoint model (``examples/disaster_model.py``, 111
-   years) at 256 chains, 300 tune + 450 draws, with no ``step`` argument:
+   years) at 256 chains, 300 tune + 400 draws, with no ``step`` argument:
    ``sample()`` must compound a NUTS over the two rates with a Metropolis
    over the discrete switchpoint and record both steppers' statistics;
    posterior means and sds of all three variables against the model's exact
@@ -98,10 +105,27 @@ a non-zero exit and no result line:
 19. SVGD with 256 particles on a conjugate normal against its closed form;
    ``find_MAP`` and ``find_hessian`` on radon against the JAX package's;
    ``sample(init="map")`` on the conjugate normal against its closed form;
-20. a JSON line describing every kernel, then the result line
+20. SMC on the JAX package's benchmark target (``scripts/bench_smc.py``:
+   two bumps on a uniform square, 25 steps) at 65,536 and 1,048,576
+   particles: the evidence against its closed form, the mode balance and
+   each mode's moments, particle updates/s and host reads per stage;
+21. ``sample_smc`` on the GP (n = 200) at 4,096 particles, one forward
+   launch at (4096, 200, 200, 1) per mutation step, against
+   ``BASELINE_CPU.json`` and the JAX package's SMC evidence; then SMC-ABC
+   with a torch simulator against its pseudo-posterior;
+22. FITC at the sparse notebook's width (2,000 inputs, 20 inducing points)
+   sampled by ``sample_smc`` at 4,096 particles with six seeds, the
+   forward kernel at (4096, 20, 2000, 1) and (4096, 20, 20, 1) each step,
+   against the JAX package's NUTS run of the same model, within the
+   spread of the six runs; then the FITC, latent, Student-T
+   and Kronecker GPs' logp+grad at 64 points on the card against the CPU
+   (FITC through both kernels at (64, 20, 2000, 1) and (64, 20, 20, 1);
+   ``MarginalKron`` also against the dense ``Marginal``), and 10,000 prior
+   draws of a latent f against K;
+23. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-19 each print a JSON line of their own (each with the card's name
+Phases 9-22 each print a JSON line of their own (each with the card's name
 and power limit, and its ms per logp+grad or logp-only call or per VI
 step). Every model is built with no device argument and must come out on
 the card: that is the port's default.
@@ -117,9 +141,9 @@ sampling). With ``--against DIR``, a checkout of another commit, it also
 times that commit's forward kernel in the same call, in turns (other, this,
 this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
 (DIR, this, this, DIR) and prints each wall. ``--only NAMES`` runs phases
-1-3 and then the named ones of phases 6-19 (radon, best, mixture, disaster,
+1-3 and then the named ones of phases 6-22 (radon, best, mixture, disaster,
 binary, population, lkj, sv, garch, es, labels, advi_minibatch, advi_gp,
-svgd_map).
+svgd_map, smc_bimodal, smc_gp, gp_sparse).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -150,13 +174,23 @@ PEAK_F32_FLOPS = 67e12
 SOURCE = "pymc3_tpu_torch/csrc/gp_cov.cu"
 LATER_PHASES = ("radon", "best", "mixture", "disaster", "binary",
                 "population", "lkj", "sv", "garch", "es", "labels",
-                "advi_minibatch", "advi_gp", "svgd_map")
+                "advi_minibatch", "advi_gp", "svgd_map", "smc_bimodal",
+                "smc_gp", "gp_sparse")
 MAIN_SHAPE = (4, 200, 200, 1)
-# the GP's sample(), predict's two widths, and ADVI's fifty Monte-Carlo
-# samples a step (phase 18)
+# the GP's sample(), predict's two widths, ADVI's fifty Monte-Carlo samples
+# a step (phase 18), SMC's 4,096 particles on the GP (phase 21), and FITC's
+# cross-covariance and inducing covariance (matern52) over 64 chains and
+# over 4,096 particles (phase 22)
 VI_SHAPE = (50, 200, 200, 1)
+FITC_SHAPE = (64, 20, 2000, 1)
+SMC_SHAPE = (4096, 200, 200, 1)
+FITC_SHAPES = (FITC_SHAPE, (64, 20, 20, 1), (4096, 20, 2000, 1),
+               (4096, 20, 20, 1))
 TIMED_SHAPES = (MAIN_SHAPE, (1, 4096, 4096, 4), (1, 200, 16384, 1),
-                (1, 200, 4096, 1), VI_SHAPE)
+                (1, 200, 4096, 1), VI_SHAPE, SMC_SHAPE) + FITC_SHAPES
+TIMED_KIND = {shape: "matern52" for shape in FITC_SHAPES}
+# a batch above the 65,535 blocks of gridDim.z: the wrappers cut it
+CHUNKED_SHAPE = (70_000, 8, 8, 1)
 
 
 def fail(msg):
@@ -318,18 +352,19 @@ def _time_kernels(gp_cov, card, other=None):
     rows = {"forward": {}, "backward": {}}
     for shape in TIMED_SHAPES:
         B, n, m, d = shape
+        kind = TIMED_KIND.get(shape, "expquad")
         X, Xs = _inputs(*shape, seed=7)
         g = _cotangent(B, n, m, 7)
         # the plain backward holds a (B, n, m, d) difference tensor: fewer
         # launches where that is hundreds of MB
-        plain_n = 20 if n * m > 1_000_000 else 100
+        plain_n = 20 if n * m > 1_000_000 or B * n * m > 10_000_000 else 100
         calls = {
-            "forward": (lambda: gp_cov._launch("expquad", X, Xs),
+            "forward": (lambda: gp_cov._launch(kind, X, Xs),
                         lambda: gp_cov.stationary_cov_reference(
-                            X, Xs, "expquad")),
-            "backward": (lambda: gp_cov._launch_backward("expquad", g, X, Xs),
+                            X, Xs, kind)),
+            "backward": (lambda: gp_cov._launch_backward(kind, g, X, Xs),
                          lambda: gp_cov.stationary_cov_backward_reference(
-                             g, X, Xs, "expquad")),
+                             g, X, Xs, kind)),
         }
         for direction, (kernel, plain) in calls.items():
             bound, by = _bound_ms(direction, shape)
@@ -346,7 +381,7 @@ def _time_kernels(gp_cov, card, other=None):
                     row[f"{key}_issue_ms"] = [turns[a][1], turns[b][1]]
             rows[direction][shape] = row
             share = row["bound_ms"] / row["device_ms"]
-            print(f"timing expquad {direction} B,n,m,d={shape}: "
+            print(f"timing {kind} {direction} B,n,m,d={shape}: "
                   + json.dumps(row) + f" share_of_bound {share:.3f} "
                   f"({card})", flush=True)
     return rows
@@ -373,6 +408,35 @@ def phase_kernel(gp_cov, card, other=None):
         max_err["backward"] = max(max_err["backward"], bwd)
         print(f"kernels ok: {kind} B,n,m,d={shape} forward max|err| "
               f"{fwd:.2e}, backward max|err| {bwd:.2e}", flush=True)
+
+    # the shapes of phases 21-22 (SMC's particles run the forward only):
+    # FITC's Kuf and Kuu at 64 points both ways and at 4,096 particles
+    # forward (Kuu there takes the tiled kernel); and a batch above 65,535,
+    # cut into two launches that count as one call
+    for i, (kind, shape, backward) in enumerate((
+            ("matern52", FITC_SHAPES[0], True),
+            ("matern52", FITC_SHAPES[1], True),
+            ("expquad", SMC_SHAPE, False),
+            ("matern52", FITC_SHAPES[2], False),
+            ("matern52", FITC_SHAPES[3], False),
+            ("expquad", CHUNKED_SHAPE, True))):
+        calls = gp_cov.LAUNCHES, gp_cov.BACKWARD_LAUNCHES
+        fwd = _check_forward(gp_cov, kind, shape, seed=60 + i)
+        max_err["forward"] = max(max_err["forward"], fwd)
+        bwd = (_check_backward(gp_cov, kind, shape, seed=60 + i)
+               if backward else None)
+        if bwd is not None:
+            max_err["backward"] = max(max_err["backward"], bwd)
+        counted = (gp_cov.LAUNCHES - calls[0],
+                   gp_cov.BACKWARD_LAUNCHES - calls[1])
+        # forward: the check and the autograd check; backward: the launch
+        # and the autograd's backward
+        if counted != ((2, 2) if backward else (1, 0)):
+            fail(f"{kind} {shape}: {counted} calls counted, expected one "
+                 "per call whatever its chunks")
+        print(f"kernels ok: {kind} B,n,m,d={shape} forward max|err| "
+              f"{fwd:.2e}" + (f", backward max|err| {bwd:.2e}"
+                              if bwd is not None else ""), flush=True)
 
     # a stride-0 cotangent: K.sum().backward() hands the op an expanded one
     X, Xs = _apart(2, 77, 130, 2, seed=50)
@@ -628,7 +692,7 @@ def _posterior_mean_point(model, trace):
             for rv in model.free_RVs}
 
 
-def phase_radon(pm, draws=120, tune=150, chains=2048):
+def phase_radon(pm, draws=60, tune=150, chains=2048):
     from pymc3_tpu_torch.examples.radon import build_model
     model = build_model(pm)
     _on_card(model, "radon")
@@ -693,7 +757,7 @@ def phase_best(pm, draws=150, tune=150, chains=256):
         fail("best predictive median disagrees with the posterior")
 
 
-def phase_mixture(pm, draws=120, tune=150, chains=512,
+def phase_mixture(pm, draws=70, tune=150, chains=512,
                   prior_samples=100_000):
     from pymc3_tpu_torch.examples.suite import mixture_model
     model, names = mixture_model(pm)
@@ -767,7 +831,7 @@ def _exact_ref(moments):
             for name, m in moments.items()}
 
 
-def phase_disaster(pm, card, draws=450, tune=300, chains=256):
+def phase_disaster(pm, card, draws=400, tune=300, chains=256):
     """The slice's main path at full width: NUTS + Metropolis, assigned and
     compounded by ``sample()`` itself, against the exact posterior.
 
@@ -777,7 +841,8 @@ def phase_disaster(pm, card, draws=450, tune=300, chains=256):
     draws holds about 60 effective ones, and split R-hat is about
     sqrt(1 + 1 / ESS of half a chain) however many chains there are: 1.016
     (1.0208 on the card); at 450 draws, cut from 600 for the run's budget,
-    about 1.022. (Tuned once, in 150 tuning draws, the walk
+    about 1.022 (1.0313 on the card), and at 400, cut again when the SMC
+    phases came, about 1.025 by the formula. (Tuned once, in 150 tuning draws, the walk
     failed the gate on the card: R-hat 1.0955, the switchpoint's sd 48%
     off.)"""
     from pymc3_tpu_torch.examples import disaster_model
@@ -957,7 +1022,8 @@ def phase_lkj(pm, card, draws=150, tune=100, chains=1024):
     per draw, so 200 draws give a half chain about 150, and split R-hat about
     sqrt(1 + 1/150) = 1.0033 (on the card 300 + 300 drew 1.0035-1.0039 and
     200 + 150 drew 1.0068-1.0075; cut to 100 + 200 and then to 100 + 150
-    for the run's budget)."""
+    (1.0072) for the run's budget; 100 + 130 drew 1.0084, too near the
+    limit)."""
     from pymc3_tpu_torch.examples import LKJ_correlation as lkj
     from pymc3_tpu_torch.examples.suite import chain_moments, moment_check
     from pymc3_tpu_torch.step_methods.hmc.quadpotential import (
@@ -1195,10 +1261,10 @@ def phase_labels(pm, card, draws=170, tune=30, chains=1024):
 
     R-hat < 1.02 for ``z``: each label is redrawn from its full conditional
     every draw and holds 0.4 effective draws per draw (1024 chains, 400
-    draws on the card: R-hat 1.0040; 200 draws: 1.0092), so a half chain of
-    85 draws (170 kept for the run's budget) holds about 34 and split R-hat
-    is about sqrt(1 + 1/34) = 1.015, the largest of six labels a little
-    above."""
+    draws on the card: R-hat 1.0040; 200 draws: 1.0092; 170: 1.0108; 150:
+    1.0127, too near the limit), so a half chain of 85 draws (170 kept for
+    the run's budget) holds about 34 and split R-hat is about
+    sqrt(1 + 1/34) = 1.015, the largest of six labels a little above."""
     from pymc3_tpu_torch.examples.suite import (label_exact_marginals,
                                                  label_model)
     model = label_model(pm)
@@ -1540,6 +1606,502 @@ def phase_svgd_map(pm, card, particles=256, svgd_steps=500, chains=64,
                       "init_map": gate, "card": card}), flush=True)
 
 
+class _HostReads:
+    """Counts the device-to-host reads of a block (``Tensor.item``,
+    ``__bool__``, ``__float__``, ``tolist``) while it runs."""
+
+    NAMES = ("item", "__bool__", "__float__", "tolist")
+
+    def __enter__(self):
+        self.count = 0
+        self._orig = {n: getattr(torch.Tensor, n) for n in self.NAMES}
+        for name, orig in self._orig.items():
+            def spy(t, *a, _orig=orig, **k):
+                self.count += 1
+                return _orig(t, *a, **k)
+            setattr(torch.Tensor, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(torch.Tensor, name, orig)
+
+
+class _LaunchShapes:
+    """Records the (B, n, m, d) of every forward and backward kernel call
+    while it is entered."""
+
+    def __init__(self, gp_cov):
+        self.gp_cov = gp_cov
+
+    def __enter__(self):
+        gp_cov = self.gp_cov
+        self.forward, self.backward = [], []
+        self._orig = gp_cov._launch, gp_cov._launch_backward
+        launch, launch_b = self._orig
+
+        def spy(kind, X, Xs):
+            self.forward.append((X.shape[0], X.shape[1], Xs.shape[1],
+                                 X.shape[2]))
+            return launch(kind, X, Xs)
+
+        def spy_b(kind, g, X, Xs):
+            self.backward.append((X.shape[0], X.shape[1], Xs.shape[1],
+                                  X.shape[2]))
+            return launch_b(kind, g, X, Xs)
+        gp_cov._launch, gp_cov._launch_backward = spy, spy_b
+        return self
+
+    def __exit__(self, *exc):
+        self.gp_cov._launch, self.gp_cov._launch_backward = self._orig
+
+
+class _SMCCounts:
+    """Counts the stages (calls of ``SMC.update_weights_beta``), the
+    mutation steps (calls of ``_mutation_step``) and the host reads
+    (:class:`_HostReads`) of the ``sample_smc`` calls made while it is
+    entered."""
+
+    def __enter__(self):
+        from pymc3_tpu_torch.smc import smc as smc_mod
+        self.stages = self.steps = 0
+        self._mod = smc_mod
+        self._orig = smc_mod._mutation_step, smc_mod.SMC.update_weights_beta
+        step, update = self._orig
+
+        def step_spy(*a, **k):
+            self.steps += 1
+            return step(*a, **k)
+
+        def update_spy(smc):
+            self.stages += 1
+            return update(smc)
+        smc_mod._mutation_step = step_spy
+        smc_mod.SMC.update_weights_beta = update_spy
+        self._reads = _HostReads().__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._reads.__exit__(*exc)
+        self.reads = self._reads.count
+        self._mod._mutation_step, self._mod.SMC.update_weights_beta = \
+            self._orig
+
+
+def phase_smc_bimodal(pm, card, particle_counts=(65_536, 1_048_576),
+                      n_steps=25):
+    """The JAX package's SMC benchmark (``scripts/bench_smc.py``):
+    ``Uniform(-8, 8, shape=2)`` under two unnormalised Gaussian bumps at
+    (3, 3) and (-3, -3), sd 0.5, ``n_steps`` 25, at 65,536 and at 1,048,576
+    particles, through ``pm.sample_smc``. Prints particle updates/s
+    (particles x mutation steps / wall, the steps summed over the stages),
+    the stages and the host reads per stage (three: β with the evidence
+    increment, the proposal's flag, the mean acceptance; the prior draws
+    and the trace's one copy make none).
+
+    Gates, with N the particles and S the stages:
+    - the log evidence against the closed form log(pi / 512) = -5.0938:
+      each stage's incremental weight at ESS = N/2 has a relative variance
+      of 1, so Var(log Z) is about S / N_eff; with N_eff = N / 4 for the
+      duplicates resampling leaves that 25 independent-Metropolis steps
+      do not fully separate, the limit is 5 sqrt(4 S / N) (0.078 at 65,536
+      and 4 stages, 0.0195 at 1,048,576; the JAX package's runs on the TPU
+      missed by 0.002 and 0.001, ``BENCH_SUITE_r05.json``);
+    - the benchmark's own moment gate: each coordinate's mean within 0.3
+      of 0 and sd within 0.3 of sqrt(9.25) (a 5% skew of the modes moves
+      the mean by 0.3), so the mode balance within 5%;
+    - each mode's mean within 5 standard errors of 3 (or -3) and its sd
+      within 5 relative standard errors of 0.5, the errors taken at an
+      effective sample of a hundredth of the mode's particles (0.5 /
+      sqrt(N_mode / 100) and 1 / sqrt(2 N_mode / 100));
+    - exactly three host reads per stage."""
+    from pymc3_tpu_torch.examples.suite import (SMC_BIMODAL_LOG_EVIDENCE,
+                                                 smc_bimodal_model)
+    out = {"phase": "smc_bimodal", "n_steps": n_steps, "card": card,
+           "runs": []}
+    # one untimed run first, as the benchmark compiles before it times: the
+    # first use of each library kernel (searchsorted, the Cholesky) loads it
+    pm.sample_smc(draws=4096, n_steps=2, model=smc_bimodal_model(pm),
+                  random_seed=1)
+    for n in particle_counts:
+        model = smc_bimodal_model(pm)
+        _on_card(model, "smc_bimodal")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with _SMCCounts() as counts:
+            trace = pm.sample_smc(draws=n, n_steps=n_steps, model=model,
+                                  random_seed=2)
+        wall = time.time() - t0
+        stages, reads = counts.stages, counts.reads
+        x = np.asarray(trace["x"], np.float64)
+        pos = x[:, 0] > 0
+        lml = trace.report.log_marginal_likelihood
+        tol = 5.0 * np.sqrt(4.0 * stages / n)
+        row = {"particles": n, "stages": stages,
+               "mutation_steps": counts.steps, "wall_s": wall,
+               "particle_updates_per_s": n * counts.steps / wall,
+               "host_reads_per_stage": reads / stages,
+               "log_marginal_likelihood": lml,
+               "evidence_error": lml - SMC_BIMODAL_LOG_EVIDENCE,
+               "evidence_tol": tol, "mode_balance": float(pos.mean()),
+               "mean": x.mean(0).tolist(), "sd": x.std(0).tolist(),
+               "modes": {}}
+        ok = abs(lml - SMC_BIMODAL_LOG_EVIDENCE) < tol and \
+            reads == 3 * stages and \
+            np.all(np.abs(x.mean(0)) < 0.3) and \
+            np.all(np.abs(x.std(0) - np.sqrt(9.25)) < 0.3)
+        for sign, mask in ((1, pos), (-1, ~pos)):
+            xm = x[mask]
+            eff = len(xm) / 100.0
+            z_mean = float(np.max(np.abs(xm.mean(0) - 3.0 * sign)
+                                  / (0.5 / np.sqrt(eff))))
+            z_sd = float(np.max(np.abs(xm.std(0) / 0.5 - 1.0)
+                                * np.sqrt(2.0 * eff)))
+            row["modes"]["+" if sign > 0 else "-"] = {
+                "particles": int(len(xm)), "mean": xm.mean(0).tolist(),
+                "sd": xm.std(0).tolist(), "z_mean": z_mean, "z_sd": z_sd}
+            ok = ok and z_mean < 5.0 and z_sd < 5.0
+        out["runs"].append(row)
+        print(f"smc_bimodal {n} particles: " + json.dumps(row), flush=True)
+        if not ok:
+            fail(f"smc_bimodal at {n} particles disagrees with the target")
+        del trace, model
+    print(json.dumps(out), flush=True)
+
+
+def _smc_reference_gate(got, ref, names, z_max=4.0, sd_rtol=0.2):
+    """SMC moments against a reference with SMC's own Monte-Carlo error:
+    |mean - reference mean| over sqrt(s^2 + mcse^2) below ``z_max``, where
+    s (``got["smc_error"]``) is the error of the SMC mean, measured as the
+    spread of the means of several SMC runs at the same particle count,
+    and ``mcse`` the reference's own; sds within ``sd_rtol``."""
+    worst_z = worst_sd = 0.0
+    for v in names:
+        s = got["smc_error"][v]
+        z = abs(got["mean"][v] - ref[v]["mean"]) / np.sqrt(
+            s ** 2 + ref[v]["mcse"] ** 2)
+        worst_z = max(worst_z, float(z))
+        worst_sd = max(worst_sd, abs(got["sd"][v] / ref[v]["sd"] - 1.0))
+    return {"pass": bool(worst_z < z_max and worst_sd < sd_rtol),
+            "max_z": round(worst_z, 2), "max_sd_rel": round(worst_sd, 3)}
+
+
+def phase_smc_gp(pm, gp_cov, card, particles=4096, abc_particles=4096):
+    """``pm.sample_smc`` on the GP of ``examples/suite.py`` (n = 200,
+    ExpQuad) at 4,096 particles: the prior and likelihood of all particles
+    are one ``vmap``, so each mutation step, and the first evaluation, is
+    one forward launch at (4096, 200, 200, 1); the launches must equal the
+    steps plus one, every one at that shape.
+
+    Gates:
+    - ``ls``, ``eta`` and ``sigma`` against ``BASELINE_CPU.json``'s GP: each
+      mean within 4 of sqrt(s^2 + mcse^2), where s is the sd of the means
+      of the JAX package's four SMC runs at 4,096 particles (SMC's own
+      Monte-Carlo error, ``tests/torch_reference.py smc_gp``) and mcse the
+      baseline's; each sd within 20% (``moment_check``'s limit);
+    - the log evidence within 4 sds of the mean of those four JAX runs,
+      the sd taken over the runs with the error of their mean added
+      (sqrt(1 + 1/4) of it).
+
+    Then SMC-ABC on the model of ``tests/test_smc.py:67`` with a torch
+    simulator (``a + b * zeros(200)``) at 4,096 particles: the distance is
+    (a - mean(y))^2 + var(y), so the pseudo-posterior of ``a`` is normal,
+    precision 1 / 0.5^2 + 1 / 5^2, mean mean(y) 4 / 4.04, and ``b`` keeps
+    its HalfNormal(2) prior (mean 1.596, sd 1.206). Means within 5 standard
+    errors at an effective sample of a hundredth of the particles, sds
+    within 5 relative ones; the host's simulator path must not run."""
+    from pymc3_tpu_torch.examples.suite import (abc_data, abc_model,
+                                                 abc_torch_simulator,
+                                                 gp_regression)
+    from pymc3_tpu_torch.smc import smc as smc_mod
+    ref = _reference_fits("smc_gp")
+    base = _baseline()["gp"]["moments"]
+    names = ["ls", "eta", "sigma"]
+    model = gp_regression(pm)[0]
+    _on_card(model, "smc_gp")
+    gp_cov.LAUNCHES = 0
+    with _LaunchShapes(gp_cov) as launched, _SMCCounts() as counts:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trace = pm.sample_smc(draws=particles, model=model, random_seed=5)
+        wall = time.time() - t0
+    launches, shapes, steps = gp_cov.LAUNCHES, launched.forward, counts.steps
+    got = {"mean": {v: float(np.mean(trace[v], dtype=np.float64))
+                    for v in names},
+           "sd": {v: float(np.std(np.asarray(trace[v], np.float64)))
+                  for v in names},
+           "smc_error": {v: ref["mean"][v]["sd"] for v in names}}
+    ref_base = {v: {"mean": base[v]["mean"][0], "sd": base[v]["sd"][0],
+                    "mcse": base[v]["mcse"][0]} for v in names}
+    gate = _smc_reference_gate(got, ref_base, names)
+    lml = trace.report.log_marginal_likelihood
+    lml_ref = ref["log_marginal_likelihood"]
+    lml_z = abs(lml - lml_ref["mean"]) / (lml_ref["sd"] * np.sqrt(1.25))
+    out = {"phase": "smc_gp", "particles": particles, "wall_s": wall,
+           "stages": counts.stages, "mutation_steps": steps,
+           "host_reads": counts.reads, "forward_launches": launches,
+           "launch_shapes": sorted(set(shapes)),
+           "log_marginal_likelihood": lml, "jax_evidence": lml_ref,
+           "evidence_z": lml_z, "mean": got["mean"], "sd": got["sd"],
+           "gate": gate, "card": card}
+    print(json.dumps(out), flush=True)
+    if launches != steps + 1 or set(shapes) != {SMC_SHAPE}:
+        fail(f"smc_gp: {launches} forward launches at {set(shapes)} for "
+             f"{steps} mutation steps, expected one each at {SMC_SHAPE} "
+             "and one for the first evaluation")
+    if not gate["pass"]:
+        fail("smc_gp posterior moments disagree with BASELINE_CPU.json")
+    if not lml_z < 4.0:
+        fail(f"smc_gp evidence {lml:.4f} is {lml_z:.2f} sds from the JAX "
+             "runs'")
+
+    data = abc_data().astype(np.float64)
+    host_calls = smc_mod.HOST_SIMULATOR_CALLS
+    model = abc_model(pm, abc_torch_simulator)
+    _on_card(model, "smc_abc")
+    t0 = time.time()
+    trace = pm.sample_smc(draws=abc_particles, kernel="abc", epsilon=0.5,
+                          model=model, random_seed=4)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    eff = abc_particles / 100.0
+    prec = 1 / 0.5 ** 2 + 1 / 5.0 ** 2
+    want = {"a": (data.mean() * 4.0 / prec, 1.0 / np.sqrt(prec)),
+            "b": (2.0 * np.sqrt(2.0 / np.pi), 2.0 * np.sqrt(1 - 2 / np.pi))}
+    abc_out = {"phase": "smc_abc", "particles": abc_particles,
+               "wall_s": wall, "card": card}
+    ok = smc_mod.HOST_SIMULATOR_CALLS == host_calls
+    for v, (m, sd) in want.items():
+        x = np.asarray(trace[v], np.float64)
+        z_mean = abs(x.mean() - m) / (sd / np.sqrt(eff))
+        z_sd = abs(x.std() / sd - 1.0) * np.sqrt(2.0 * eff)
+        abc_out[v] = {"mean": x.mean(), "sd": x.std(), "want": [m, sd],
+                      "z_mean": z_mean, "z_sd": z_sd}
+        ok = ok and z_mean < 5.0 and z_sd < 5.0
+    print(json.dumps(abc_out), flush=True)
+    if not ok:
+        fail("smc_abc disagrees with its pseudo-posterior, or the host's "
+             "simulator path ran")
+    return launches
+
+
+def _logp_grad_on(pm, gp_cov, build, points, device, exact=False):
+    """logp and gradient of the model ``build`` makes on ``device`` at the
+    rows of ``points`` as float64 numpy, the host ms of one call on the
+    card, and the kernel launches of the first call. ``exact`` builds the
+    model in float64 (on the CPU) with float32's jitter: the float32 runs'
+    truth."""
+    from pymc3_tpu_torch.gp import util as gp_util
+    prev = pm.get_config().device, pm.get_config().floatX
+    jitter = gp_util._default_jitter
+    pm.set_config(device=device, floatX="float64" if exact else prev[1])
+    if exact:
+        gp_util._default_jitter = lambda: 5e-4
+    try:
+        model = build()
+        q = torch.as_tensor(points, device=model.device,
+                            dtype=torch.float64 if exact else None)
+        vag = model.logp_dlogp_function()
+        with _LaunchShapes(gp_cov) as shapes:
+            logp, grad = vag(q)
+    finally:
+        pm.set_config(device=prev[0], floatX=prev[1])
+        gp_util._default_jitter = jitter
+    ms = _synced_ms(lambda: vag(q), calls=10) if device == "cuda" else None
+    return (logp.double().cpu().numpy(), grad.double().cpu().numpy(), ms,
+            shapes)
+
+
+def phase_gp_sparse(pm, gp_cov, card, particles=4096, chains=64,
+                    seeds=(6, 7, 8, 9, 10, 11)):
+    """FITC at the published width of PyMC3's sparse-approximation notebook
+    (``examples/suite.py::sparse_fitc_model``: 2,000 inputs, Matern52, 20
+    inducing points by k-means), sampled by ``sample_smc`` at 4,096
+    particles, once for each of six seeds. NUTS does not fit the script's
+    time: the posterior's ridge between ``ls`` and ``eta`` needs trees of
+    depth 5-7 even with a dense mass matrix (the deepest of 8 lanes at 6
+    on the CPU), about 0.5 s an iteration at 64 chains, and with the depth
+    capped at 4 split R-hat was 1.13-1.19 after 100 + 100. Each SMC step
+    evaluates the likelihood of all particles in one ``vmap``: one forward
+    launch at (4096, 20, 20, 1) for ``Kuu`` and one at (4096, 20, 2000, 1)
+    for ``Kuf``, both asserted.
+
+    Gate: ``ls``, ``eta`` and ``sigma`` against the JAX package's NUTS on
+    the same model written with the covariances computed from the random
+    hyperparameters (``tests/torch_reference.py sparse_fitc``; the JAX
+    package's own ``MarginalSparse`` freezes them). The mean of the six
+    runs' means within z_max times sqrt(s^2 / 6 + mcse_ref^2), s the sd of
+    the six means (SMC's own Monte-Carlo error, measured), and z_max the
+    99.95% point of Student's t with 5 degrees of freedom (6.87), since s
+    is estimated from six runs; the sd of all the runs' particles within
+    20% (``moment_check``'s limit).
+
+    Then, on the card against the same functions on the CPU, logp and
+    gradient at 64 points (the test point moved by seeded noise) of the
+    FITC model, through both kernels at (64, 20, 20, 1) and
+    (64, 20, 2000, 1) (asserted), of the latent-GP notebook's model (n =
+    200, Matern52, StudentT likelihood), of the same with a ``TP`` prior,
+    and of ``MarginalKron`` on a 50 x 30 grid. Both float32 results are
+    held against the float64 truth (the same model built in float64 on the
+    CPU, float32's jitter kept): the card's largest error, relative to the
+    largest logp and to the largest gradient entry, within 4 times the
+    CPU's plus 1e-6. The error is float32 rounding amplified by the
+    factors' condition numbers (about 1e6 for the latent GP's 200 x 200
+    covariance at its jitter, where a gradient through the Cholesky carries
+    it in full), and the card and the CPU round differently, so neither
+    can hold the other to float32 tolerance.
+    ``MarginalKron`` with no jitter also against the dense ``Marginal`` on
+    the 1,500-point grid, on the card (rtol 1e-4 on logp: the
+    eigendecompositions of 50 x 50 and 30 x 30 factors against one 1,500 x
+    1,500 Cholesky). Finally 10,000 prior draws of a ``Latent`` f at the
+    notebook's 200 inputs (ls = 1, eta = 3): every entry of their second
+    moment within 6 standard errors of K, sqrt((K_ii K_jj + K_ij^2) / N)
+    (6: over the 20,100 distinct entries P(|z| > 6) = 2e-9 each)."""
+    from scipy import stats
+
+    from pymc3_tpu_torch.examples import suite
+    from pymc3_tpu_torch.gp import util as gp_util
+    model, names, _ = suite.sparse_fitc_model(pm)
+    _on_card(model, "gp_sparse")
+    gp_cov.LAUNCHES = gp_cov.BACKWARD_LAUNCHES = 0
+    runs = []
+    with _LaunchShapes(gp_cov) as shapes, _SMCCounts() as counts:
+        for seed in seeds:
+            t0 = time.time()
+            trace = pm.sample_smc(draws=particles, model=model,
+                                  random_seed=seed)
+            runs.append({"wall_s": time.time() - t0,
+                         "log_marginal_likelihood":
+                             trace.report.log_marginal_likelihood,
+                         **{v: np.asarray(trace[v], np.float64)
+                            for v in names}})
+    launches = {"forward": gp_cov.LAUNCHES,
+                "backward": gp_cov.BACKWARD_LAUNCHES}
+    k = len(seeds)
+    means = {v: np.array([r[v].mean() for r in runs]) for v in names}
+    pooled = {v: np.concatenate([r[v] for r in runs]) for v in names}
+    spread = {v: float(means[v].std(ddof=1)) for v in names}
+    got = {"mean": {v: float(pooled[v].mean()) for v in names},
+           "sd": {v: float(pooled[v].std()) for v in names},
+           "smc_error": {v: spread[v] / np.sqrt(k) for v in names}}
+    ref = {v: {key: m[key][0] for key in ("mean", "sd", "mcse")}
+           for v, m in _reference("sparse_fitc").items()}
+    z_max = float(stats.t.ppf(0.9995, k - 1))
+    gate = _smc_reference_gate(got, ref, names, z_max=z_max)
+    uu, uf = (particles, 20, 20, 1), (particles, 20, 2000, 1)
+    evidence = [r["log_marginal_likelihood"] for r in runs]
+    out = {"phase": "gp_sparse", "particles": particles, "seeds": list(seeds),
+           "wall_s": [r["wall_s"] for r in runs], "stages": counts.stages,
+           "mutation_steps": counts.steps, "host_reads": counts.reads,
+           "launches": launches,
+           "launch_shapes": sorted(set(shapes.forward)),
+           "log_marginal_likelihood": evidence,
+           "run_means": {v: means[v].tolist() for v in names},
+           "spread_of_means": spread,
+           # the error one run's mean would have at an effective sample of
+           # a hundredth of its particles, for comparison with the spread
+           "sd_over_sqrt_n_over_100": {
+               v: float(np.mean([r[v].std() for r in runs])
+                        / np.sqrt(particles / 100.0)) for v in names},
+           "mean": got["mean"], "sd": got["sd"], "reference": ref,
+           "gate": gate, "z_max": z_max, "card": card}
+    print(json.dumps(out), flush=True)
+    if sorted(shapes.forward) != sorted([uu, uf] * (counts.steps + k)) or \
+            launches != {"forward": 2 * (counts.steps + k), "backward": 0}:
+        fail(f"gp_sparse: launches {launches} at {set(shapes.forward)} for "
+             f"{counts.steps} steps of {k} runs, expected {uu} and {uf} "
+             "once a step and once for each run's first evaluation")
+    if not gate["pass"]:
+        fail("gp_sparse FITC posterior disagrees with the JAX reference "
+             "run")
+    del trace, model, runs, pooled
+
+    rng = np.random.RandomState(17)
+    checks = {}
+    builders = {
+        "fitc": lambda: suite.sparse_fitc_model(pm)[0],
+        "latent": lambda: suite.latent_model(pm),
+        "tp": lambda: suite.latent_model(pm, "tp"),
+        "marginal_kron": lambda: suite.kron_model(pm)}
+    fitc_launches = None
+    for label, build in builders.items():
+        pm.set_config(device="cpu")
+        try:
+            probe = build()
+        finally:
+            pm.set_config(device="cuda")
+        q0 = probe.dict_to_array(probe.test_point)
+        q = (q0[None] + 0.2 * rng.randn(chains, q0.size)).astype(np.float32)
+        lc, gc, ms, shapes = _logp_grad_on(pm, gp_cov, build, q, "cuda")
+        lh, gh, _, _ = _logp_grad_on(pm, gp_cov, build, q, "cpu")
+        lt, gt, _, _ = _logp_grad_on(pm, gp_cov, build, q, "cpu",
+                                     exact=True)
+        lscale = max(1.0, float(np.abs(lt).max()))
+        gscale = max(1.0, float(np.abs(gt).max()))
+        err = {where: [float(np.max(np.abs(lv - lt))) / lscale,
+                       float(np.max(np.abs(gv - gt))) / gscale]
+               for where, lv, gv in (("card", lc, gc), ("cpu", lh, gh))}
+        checks[label] = {"logp_grad_ms": ms,
+                         "rel_err_logp_grad": err,
+                         "forward_shapes": shapes.forward,
+                         "backward_shapes": shapes.backward}
+        if not (np.all(np.isfinite(lc)) and all(
+                c <= 4.0 * h + 1e-6 for c, h in zip(err["card"],
+                                                    err["cpu"]))):
+            fail(f"gp_sparse {label}: the card's logp+grad is further from "
+                 f"the float64 truth than 4x the CPU's ({err})")
+        if label == "fitc":
+            want = sorted([(chains, 20, 20, 1), FITC_SHAPE])
+            if sorted(shapes.forward) != want or \
+                    sorted(shapes.backward) != want:
+                fail(f"gp_sparse: FITC logp+grad launched {shapes.forward} "
+                     f"and {shapes.backward}, expected {want} each way")
+            fitc_launches = {"forward": len(shapes.forward),
+                             "backward": len(shapes.backward)}
+        if label == "marginal_kron":
+            jitter = gp_util._default_jitter
+            gp_util._default_jitter = lambda: 0.0
+            try:
+                lk = _logp_grad_on(pm, gp_cov, build, q[:8], "cuda")[0]
+                ld, _, ms_d, _ = _logp_grad_on(
+                    pm, gp_cov, lambda: suite.kron_model(pm, dense=True),
+                    q[:8], "cuda")
+            finally:
+                gp_util._default_jitter = jitter
+            rel = float(np.max(np.abs(lk - ld) / np.abs(ld)))
+            checks[label].update(dense_rel=rel, dense_logp_grad_ms=ms_d)
+            if not rel < 1e-4:
+                fail(f"gp_sparse: MarginalKron off the dense Marginal by "
+                     f"{rel:.2e} relative")
+        print(f"gp_sparse {label}: " + json.dumps(checks[label]), flush=True)
+
+    X, _ = suite.latent_data()
+    n = 10_000
+    with pm.Model() as model:
+        gp = pm.gp.Latent(cov_func=3.0 ** 2 * pm.gp.cov.Matern52(1, 1.0))
+        gp.prior("f", X=X)
+    _on_card(model, "latent prior")
+    t0 = time.time()
+    draws_f = pm.sample_prior_predictive(samples=n, model=model,
+                                         var_names=["f"],
+                                         random_seed=3)["f"]
+    pwall = time.time() - t0
+    K = pm.node.evaluate(gp_util.stabilize(gp.cov_func(X)), {})
+    K = K.double().cpu().numpy()
+    f = draws_f.astype(np.float64)
+    S = f.T @ f / n
+    se = np.sqrt((np.outer(np.diag(K), np.diag(K)) + K ** 2) / n)
+    z = float(np.max(np.abs(S - K) / se))
+    checks["prior_draws"] = {"draws": list(f.shape), "wall_s": pwall,
+                             "max_z": z}
+    print("gp_sparse prior draws: " + json.dumps(checks["prior_draws"]),
+          flush=True)
+    if f.shape != (n, len(X)) or not z < 6.0:
+        fail(f"gp_sparse: prior draws of f off K (max z {z:.2f})")
+    print(json.dumps({"phase": "gp_sparse_checks", **checks, "card": card}),
+          flush=True)
+    return {"smc": launches, "logp_grad": fitc_launches}
+
 def _gp_wall(other):
     """Phase 4 alone in four fresh processes: other, this, this, other."""
     code = ("import sys, torch; sys.path[:0] = ['.', 'scripts']; "
@@ -1566,7 +2128,7 @@ def main():
     parser.add_argument("--gp-wall", metavar="DIR",
                         help="phase 4 alone: DIR, this, this, DIR")
     parser.add_argument("--only", metavar="NAMES",
-                        help="phases 1-3, then only these of phases 6-19 "
+                        help="phases 1-3, then only these of phases 6-22 "
                         "(comma-separated: " + ",".join(LATER_PHASES) + ")")
     args = parser.parse_args()
 
@@ -1604,7 +2166,10 @@ def main():
         "labels": lambda: phase_labels(pm, card),
         "advi_minibatch": lambda: phase_advi_minibatch(pm, card),
         "advi_gp": lambda: phase_advi_gp(pm, gp_cov, card),
-        "svgd_map": lambda: phase_svgd_map(pm, card)}
+        "svgd_map": lambda: phase_svgd_map(pm, card),
+        "smc_bimodal": lambda: phase_smc_bimodal(pm, card),
+        "smc_gp": lambda: phase_smc_gp(pm, gp_cov, card),
+        "gp_sparse": lambda: phase_gp_sparse(pm, gp_cov, card)}
     if args.only:
         for name in args.only.split(","):
             t0 = time.time()
@@ -1621,11 +2186,16 @@ def main():
         t0 = time.time()
         out = runners[name]()
         walls[name] = round(time.time() - t0, 1)
+        print(f"{name}: {walls[name]} s", flush=True)
         if name == "es":
             es_launches = out
         if name == "advi_gp":
             vi_launches = out
-    print(f"phases 1-19: {time.time() - t_start:.1f} s; each of 6-19 "
+        if name == "smc_gp":
+            smc_launches = out
+        if name == "gp_sparse":
+            fitc_launches = out
+    print(f"phases 1-22: {time.time() - t_start:.1f} s; each of 6-22 "
           f"{json.dumps(walls)}", flush=True)
 
     replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",
@@ -1634,8 +2204,6 @@ def main():
     for direction, name in (("forward", "stationary_cov"),
                             ("backward", "stationary_cov_backward")):
         row = timings[direction][MAIN_SHAPE]
-        wide = timings[direction][(1, 4096, 4096, 4)]
-        vi = timings[direction][VI_SHAPE]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces[direction],
@@ -1644,15 +2212,23 @@ def main():
             else 0,
             "launches_es": es_launches if direction == "forward" else 0,
             "launches_advi_gp": vi_launches[direction],
+            "launches_smc_gp": smc_launches if direction == "forward"
+            else 0,
+            "launches_gp_sparse_smc": fitc_launches["smc"][direction],
+            "launches_gp_sparse_logp_grad": fitc_launches["logp_grad"][
+                direction],
             "max_abs_err": max_err[direction],
             "ms": row["device_ms"], "device_ms": row["device_ms"],
             "issue_ms": row["issue_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None,
-            "at_1x4096x4096x4": {k: wide[k] for k in (
-                "device_ms", "issue_ms", "plain_ms", "bound_ms", "bound_by")},
-            "at_50x200x200x1": {k: vi[k] for k in (
-                "device_ms", "issue_ms", "plain_ms", "bound_ms", "bound_by")},
+            # the other timed shapes, e.g. "at_64x20x2000x1_matern52"
+            **{"at_" + "x".join(map(str, shape)) + (
+                f"_{TIMED_KIND[shape]}" if shape in TIMED_KIND else ""): {
+                    k: timings[direction][shape][k] for k in (
+                        "device_ms", "issue_ms", "plain_ms", "bound_ms",
+                        "bound_by")}
+               for shape in TIMED_SHAPES if shape != MAIN_SHAPE},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

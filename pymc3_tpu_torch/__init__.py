@@ -3,7 +3,9 @@
 Same public names as the JAX package for the ported slice: the model DSL
 with ``Data``, ``Minibatch`` and ``total_size``, the 30 continuous and 15
 discrete distributions, the multivariate and time-series families, every transform, ``Bound``,
-``Mixture``/``NormalMixture``, GP marginal regression, NUTS and
+``Mixture``/``NormalMixture``, ``Simulator``, the Gaussian processes
+(marginal, latent, Student-T, sparse and Kronecker), sequential Monte Carlo
+(``sample_smc``, SMC-ABC), NUTS and
 ``HamiltonianMC`` with diagonal or dense, adaptive (pooled or per chain) or
 fixed mass matrices, the Metropolis family, ``Slice``, ``EllipticalSlice``,
 ``ElemwiseCategorical`` and ``CompoundStep`` with automatic step
@@ -53,6 +55,8 @@ from .sampling import (
 )
 from .stats import ess, rhat, mcse, summary
 from . import gp
+from . import smc
+from .smc import sample_smc
 from . import tuning
 from .tuning import find_MAP, find_hessian, guess_scaling, trace_cov
 from . import variational

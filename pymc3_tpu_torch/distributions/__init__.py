@@ -27,6 +27,7 @@ from .timeseries import (
 )
 from .mixture import Mixture, NormalMixture
 from .bound import Bound
+from .simulator import Simulator
 
 __all__ = [
     "Uniform", "Flat", "HalfFlat", "Normal", "TruncatedNormal", "HalfNormal",
@@ -43,7 +44,8 @@ __all__ = [
     "MatrixNormal", "KroneckerNormal", "AR1", "AR", "GaussianRandomWalk",
     "GARCH11", "EulerMaruyama", "MvGaussianRandomWalk",
     "MvStudentTRandomWalk", "Mixture", "NormalMixture",
-    "Bound", "Distribution", "Continuous", "Discrete", "NoDistribution",
+    "Bound", "Simulator", "Distribution", "Continuous", "Discrete",
+    "NoDistribution",
     "DensityDist", "TransformedDistribution", "draw_values",
     "generate_samples", "transforms",
 ]

@@ -10,7 +10,10 @@ in closed form), a labelling model for the categorical Gibbs scan (its
 label marginals by enumeration), the minibatch logistic regression of the
 JAX package's ADVI benchmark (``scripts/bench_advi_minibatch.py``), and a
 conjugate normal for SVGD and the MAP start (its posterior in closed
-form).
+form), the JAX package's SMC benchmark (``scripts/bench_smc.py``: a bimodal
+target with a closed-form evidence) and SMC-ABC model
+(``tests/test_smc.py``), and the sparse, latent, Student-T and Kronecker
+GPs at the widths of PyMC3's GP notebooks.
 
 The suite's own file imports the JAX package, so the port keeps what it
 needs here. The mixture model there writes its ordering ``Potential``
@@ -396,3 +399,160 @@ def conjugate_posterior():
     cov = np.linalg.inv(prec)
     return cov @ np.linalg.inv(CONJ_COV) @ y.sum(axis=0), cov
 
+
+
+def smc_bimodal_model(pm):
+    """``scripts/bench_smc.py``'s target: ``Uniform(-8, 8, shape=2)`` and a
+    ``Potential`` of two equal, unnormalised Gaussian bumps at (3, 3) and
+    (-3, -3) with sd 0.5. Its evidence is log(pi / 512)
+    (:data:`SMC_BIMODAL_LOG_EVIDENCE`), each coordinate's mean 0 and sd
+    sqrt(9.25)."""
+    def bimodal_logp(x):
+        l1 = -0.5 * torch.sum(((x - 3.0) / 0.5) ** 2)
+        l2 = -0.5 * torch.sum(((x + 3.0) / 0.5) ** 2)
+        return torch.logaddexp(np.log(0.5) + l1, np.log(0.5) + l2)
+    with pm.Model() as model:
+        x = pm.Uniform("x", -8.0, 8.0, shape=2)
+        pm.Potential("bimodal", pm.node.apply(bimodal_logp, x))
+    return model
+
+
+#: The bimodal target's log evidence: the bumps integrate to 2 pi 0.5^2 / 2
+#: each, times the uniform density 1 / 256.
+SMC_BIMODAL_LOG_EVIDENCE = float(np.log(np.pi / 512.0))
+
+
+def abc_data():
+    """``tests/test_smc.py::test_smc_abc``'s data: 200 draws of
+    Normal(1.2, 1) from ``np.random.seed(3)``."""
+    return np.random.RandomState(3).normal(loc=1.2, scale=1.0,
+                                           size=200).astype(np.float32)
+
+
+def abc_torch_simulator(a, b):
+    """``tests/test_smc.py``'s simulator in torch: ``a + b * zeros(200)``
+    on the parameters' device (it runs batched under ``vmap``)."""
+    return a + b * torch.zeros(200, dtype=a.dtype, device=a.device)
+
+
+def abc_model(pm, simulator):
+    """SMC-ABC's model of ``tests/test_smc.py``: ``a ~ Normal(0, 5)``,
+    ``b ~ HalfNormal(2)`` and a ``Simulator`` of ``simulator(a, b)``
+    observed at :func:`abc_data`."""
+    with pm.Model() as model:
+        a = pm.Normal("a", mu=0, sigma=5)
+        b = pm.HalfNormal("b", sigma=2)
+        pm.Simulator("s", simulator, a, b, observed=abc_data())
+    return model
+
+
+def _matern52(x, ls, eta):
+    """eta^2 Matern52 of 1-d inputs, in float64 (numpy)."""
+    t = np.sqrt(5.0) * np.abs(x[:, None] - x[None, :]) / ls
+    return eta ** 2 * (1.0 + t + t * t / 3.0) * np.exp(-t)
+
+
+def sparse_data(n=2000, n_inducing=20, seed=1):
+    """The data of PyMC3's sparse-approximation notebook at its width:
+    ``n`` sorted inputs on [0, 10], f drawn from eta^2 Matern52(ls) with
+    ls = 1 and eta = 3, plus noise of sd 1 (``RandomState(seed)``), and
+    ``n_inducing`` inducing points by ``kmeans_inducing_points`` (scipy's
+    k-means, seeded from the same state). Returns ``X (n, 1)``, ``y`` and
+    ``Xu (n_inducing, 1)``, float32."""
+    from ..gp.util import kmeans_inducing_points
+    rng = np.random.RandomState(seed)
+    x = 10.0 * np.sort(rng.rand(n))
+    K = _matern52(x, 1.0, 3.0) + 1e-8 * np.eye(n)
+    f = np.linalg.cholesky(K) @ rng.randn(n)
+    y = f + 1.0 * rng.randn(n)
+    state = np.random.get_state()
+    np.random.seed(seed)
+    Xu = kmeans_inducing_points(n_inducing, x[:, None])
+    np.random.set_state(state)
+    return (x[:, None].astype(np.float32), y.astype(np.float32),
+            np.sort(Xu, axis=0).astype(np.float32))
+
+
+def sparse_fitc_model(pm, approx="FITC"):
+    """The notebook's model: ``ls ~ Gamma(2, 1)``, ``eta ~ HalfCauchy(5)``,
+    ``sigma ~ HalfCauchy(5)``, ``MarginalSparse`` of eta^2 Matern52(ls)
+    with :func:`sparse_data`'s inducing points. Returns the model, the
+    gated names and the GP."""
+    X, y, Xu = sparse_data()
+    with pm.Model() as model:
+        ls = pm.Gamma("ls", alpha=2, beta=1)
+        eta = pm.HalfCauchy("eta", beta=5)
+        cov = eta ** 2 * pm.gp.cov.Matern52(1, ls)
+        gp = pm.gp.MarginalSparse(cov_func=cov, approx=approx)
+        sigma = pm.HalfCauchy("sigma", beta=5)
+        gp.marginal_likelihood("y", X=X, Xu=Xu, y=y, noise=sigma)
+    return model, ["ls", "eta", "sigma"], gp
+
+
+def latent_data(n=200, seed=2):
+    """PyMC3's latent-GP notebook at its width: ``n`` inputs on [0, 10], f
+    from 3^2 Matern52(1), observed through StudentT(nu = 3) noise of scale
+    0.5."""
+    rng = np.random.RandomState(seed)
+    x = np.linspace(0.0, 10.0, n)
+    f = np.linalg.cholesky(_matern52(x, 1.0, 3.0) + 1e-8 * np.eye(n)) @ \
+        rng.randn(n)
+    y = f + 0.5 * rng.standard_t(3.0, n)
+    return x[:, None].astype(np.float32), y.astype(np.float32)
+
+
+def latent_model(pm, process="latent"):
+    """The notebook's model: ``ls ~ Gamma(2, 1)``, ``eta ~
+    HalfCauchy(5)``, f from a ``Latent`` (or, with ``process="tp"``, a
+    ``TP`` with nu = 3) GP of eta^2 Matern52(ls), and a StudentT
+    likelihood with ``sigma ~ HalfCauchy(5)``, ``nu ~ Gamma(2, 0.1)``."""
+    X, y = latent_data()
+    with pm.Model() as model:
+        ls = pm.Gamma("ls", alpha=2, beta=1)
+        eta = pm.HalfCauchy("eta", beta=5)
+        cov = eta ** 2 * pm.gp.cov.Matern52(1, ls)
+        gp = (pm.gp.Latent(cov_func=cov) if process == "latent"
+              else pm.gp.TP(cov_func=cov, nu=3.0))
+        f = gp.prior("f", X=X)
+        sigma = pm.HalfCauchy("sigma", beta=5)
+        nu = pm.Gamma("nu", alpha=2, beta=0.1)
+        pm.StudentT("y", mu=f, lam=1.0 / sigma, nu=nu, observed=y)
+    return model
+
+
+KRON_GRID = (50, 30)
+
+
+def kron_data(seed=4):
+    """A 50 x 30 grid on [0, 10] x [0, 6] and noisy observations (sd 0.3)
+    of a smooth surface, rows in the Kronecker order."""
+    rng = np.random.RandomState(seed)
+    x1 = np.linspace(0.0, 10.0, KRON_GRID[0])
+    x2 = np.linspace(0.0, 6.0, KRON_GRID[1])
+    f = np.sin(x1)[:, None] * np.cos(0.8 * x2)[None, :]
+    y = f.reshape(-1) + 0.3 * rng.randn(f.size)
+    return (x1[:, None].astype(np.float32), x2[:, None].astype(np.float32),
+            y.astype(np.float32))
+
+
+def kron_model(pm, dense=False):
+    """``MarginalKron`` over the grid with ExpQuad(ls1) x Matern52(ls2);
+    with ``dense=True`` the same likelihood as a ``Marginal`` on the
+    cartesian grid, the product of the two kernels over its two columns.
+    ``ls1, ls2 ~ Gamma(2, 1)``, ``sigma ~ HalfNormal(1)``."""
+    x1, x2, y = kron_data()
+    with pm.Model() as model:
+        ls1 = pm.Gamma("ls1", alpha=2, beta=1)
+        ls2 = pm.Gamma("ls2", alpha=2, beta=1)
+        sigma = pm.HalfNormal("sigma", sigma=1)
+        if dense:
+            X = pm.math.cartesian(x1[:, 0], x2[:, 0]).astype(np.float32)
+            cov = pm.gp.cov.ExpQuad(2, ls1, active_dims=[0]) * \
+                pm.gp.cov.Matern52(2, ls2, active_dims=[1])
+            pm.gp.Marginal(cov_func=cov).marginal_likelihood(
+                "y", X=X, y=y, noise=sigma)
+        else:
+            covs = [pm.gp.cov.ExpQuad(1, ls1), pm.gp.cov.Matern52(1, ls2)]
+            pm.gp.MarginalKron(cov_funcs=covs).marginal_likelihood(
+                "y", Xs=[x1, x2], y=y, sigma=sigma)
+    return model

@@ -2,6 +2,7 @@
 from . import cov
 from . import mean
 from . import util
-from .gp import Marginal
+from .gp import Latent, Marginal, TP, MarginalSparse, LatentKron, MarginalKron
 
-__all__ = ["cov", "mean", "util", "Marginal"]
+__all__ = ["cov", "mean", "util", "Latent", "Marginal", "TP",
+           "MarginalSparse", "LatentKron", "MarginalKron"]

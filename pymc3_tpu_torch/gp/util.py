@@ -7,7 +7,8 @@ import torch
 from ..config import floatX, torch_floatX
 from ..node import Node, apply as node_apply
 
-__all__ = ["stabilize", "cholesky", "infer_shape", "conditioned_vars"]
+__all__ = ["stabilize", "cholesky", "infer_shape", "conditioned_vars",
+           "solve_lower", "solve_upper", "kmeans_inducing_points"]
 
 JITTER_DEFAULT = 1e-6
 
@@ -42,6 +43,41 @@ def cholesky(K):
     checked version the likelihood uses)."""
     return node_apply(lambda K_: torch.linalg.cholesky_ex(
         K_.to(torch_floatX()), check_errors=False)[0], K)
+
+
+def _solve_triangular(L, b, upper):
+    b = b.to(torch_floatX())
+    vec = b.ndim == L.ndim - 1
+    out = torch.linalg.solve_triangular(L, b[..., None] if vec else b,
+                                        upper=upper)
+    return out[..., 0] if vec else out
+
+
+def solve_lower(L, b):
+    """x with L x = b, for a lower-triangular L (cf. ``gp/util.py``)."""
+    return node_apply(lambda L_, b_: _solve_triangular(L_, b_, False), L, b)
+
+
+def solve_upper(L, b):
+    """x with Lᵀ x = b, for the lower-triangular L (the JAX package's
+    ``solve_upper`` takes the lower factor and solves with its
+    transpose)."""
+    return node_apply(
+        lambda L_, b_: _solve_triangular(L_.transpose(-1, -2), b_, True),
+        L, b)
+
+
+def kmeans_inducing_points(num_inducing, X):
+    """Inducing-point locations by k-means on the host (scipy), on inputs
+    scaled by their standard deviation (cf. ``gp/util.py:39``)."""
+    from scipy.cluster.vq import kmeans
+    if isinstance(X, Node):
+        X = X.test_value
+    X = np.asarray(X, dtype=np.float64)
+    scaling = np.std(X, 0)
+    scaling[scaling == 0] = 1.0
+    Xu, _ = kmeans(X / scaling, int(num_inducing))
+    return Xu * scaling
 
 
 def conditioned_vars(varnames):

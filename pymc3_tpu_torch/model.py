@@ -461,20 +461,37 @@ class Model(WithMemoization, metaclass=ContextMeta):
         ordering = self.ordering
         return batched_value(lambda q: self.logp_point(q, ordering))
 
-    def datalogpt_fn(self):
-        """Batched logp of the observed terms and the potentials alone,
-        ``q: (chains, n) -> (chains,)``: the likelihood an elliptical slice
-        sampler needs (cf. ``datalogpt_fn``, ``model.py:642``)."""
-        ordering = self.ordering
+    def varlogpt_point(self, q, ordering=None):
+        """logp of the free variables alone, transforms' jacobians included,
+        at one flat point: the prior term of SMC (cf. ``varlogpt_fn``,
+        ``model.py:631``)."""
+        env = self._env_from_q(q, ordering)
+        memo = {}
+        return sum((rv.logp_env(env, memo) for rv in self.free_RVs),
+                   torch.zeros((), dtype=q.dtype, device=q.device))
 
-        def datalogp_point(q):
-            env = self._env_from_q(q, ordering)
-            memo = {}
-            terms = [obs.logp_env(env, memo) for obs in self.observed_RVs]
-            terms += [torch.sum(_ev(pot, env, memo))
-                      for pot in self.potentials]
-            return sum(terms, torch.zeros((), dtype=q.dtype, device=q.device))
-        return batched_value(datalogp_point)
+    def datalogpt_point(self, q, ordering=None):
+        """logp of the observed terms and the potentials alone at one flat
+        point: the likelihood term of SMC and of an elliptical slice
+        sampler."""
+        env = self._env_from_q(q, ordering)
+        memo = {}
+        terms = [obs.logp_env(env, memo) for obs in self.observed_RVs]
+        terms += [torch.sum(_ev(pot, env, memo)) for pot in self.potentials]
+        return sum(terms, torch.zeros((), dtype=q.dtype, device=q.device))
+
+    def varlogpt_fn(self):
+        """Batched :meth:`varlogpt_point`, ``q: (chains, n) -> (chains,)``
+        (cf. ``varlogpt_fn``, ``model.py:631``, which is for one point and
+        is vmapped by its callers)."""
+        ordering = self.ordering
+        return batched_value(lambda q: self.varlogpt_point(q, ordering))
+
+    def datalogpt_fn(self):
+        """Batched :meth:`datalogpt_point`, ``q: (chains, n) -> (chains,)``
+        (cf. ``datalogpt_fn``, ``model.py:642``)."""
+        ordering = self.ordering
+        return batched_value(lambda q: self.datalogpt_point(q, ordering))
 
     # -- symbolic logp nodes (cf. model.py:657-711) ----------------------------
     def _logp_node(self, fn_from_env, name):
@@ -621,11 +638,13 @@ class Model(WithMemoization, metaclass=ContextMeta):
         fn = rv.transform.forward if forward else rv.transform.backward
         point.add(dst, point.vmap(lambda env: [fn(env[src], env, {})])[0])
 
-    def sample_forward(self, samples, point=None, gen=None):
+    def sample_forward(self, samples, point=None, gen=None, observed=True):
         """Prior (predictive) draws ``{name: (samples, *shape)}`` of every
         variable in declaration order, then the deterministics
         (cf. ``model.py:863``). Entries of ``point`` whose leading axis is
-        ``samples`` long are per-sample values; the others are shared."""
+        ``samples`` long are per-sample values; the others are shared. With
+        ``observed=False`` the observed variables are not drawn (a
+        deterministic that reads one reads its data)."""
         gen = self._generator(gen)
         for obs in self.observed_RVs:
             obs.refresh_shape()
@@ -636,7 +655,8 @@ class Model(WithMemoization, metaclass=ContextMeta):
         bp = BatchedPoint(vals, batched, samples)
         for factor in self._factor_order:
             orig = getattr(factor, "orig_name", factor.name)
-            if orig in bp or factor.name in bp:
+            if orig in bp or factor.name in bp or (
+                    not observed and isinstance(factor, ObservedRV)):
                 continue
             bp.add(orig, self._batched_random(factor.distribution, bp,
                                               (samples,), gen))

@@ -16,6 +16,12 @@ the chain dimension of a ``torch.func.vmap`` over the model's logp (with or
 without ``torch.func.grad`` inside) into the kernels' batch argument, so a
 batch of chains is ONE forward launch and ONE backward call on plain
 tensors. The op is once-differentiable: a second derivative raises.
+
+Both kernels put the batch on ``gridDim.z``, which the card caps at 65,535.
+A larger batch (SMC over a GP evaluates every particle in one call) is cut
+here, on the host, into chunks of at most 65,535 entries, one launch each
+into slices of one output; the kernels themselves are unchanged. The
+counters count calls, not chunks.
 """
 from __future__ import annotations
 
@@ -38,8 +44,11 @@ STATIONARY_KINDS = ("expquad", "matern52", "matern32", "matern12",
 _EPS = 1e-12
 
 _KIND_INDEX = {kind: i for i, kind in enumerate(STATIONARY_KINDS)}
+#: The most batch entries one launch takes: the kernels' ``gridDim.z``.
+MAX_GRID_Z = 65_535
 
-#: Forward kernel launches since import (or since a caller reset it).
+#: Forward kernel calls since import (or since a caller reset it); a call
+#: whose batch is cut into chunks (see :func:`_launch`) counts once.
 LAUNCHES = 0
 #: Calls of the backward kernel (each is its two launches: the tile pass and
 #: the pass that adds the tiles' partial sums).
@@ -203,14 +212,24 @@ def _call(fn, device, *args):
         raise RuntimeError(f"gp_cov kernel launch failed: CUDA error {rc}")
 
 
+def _chunks(B):
+    """Batch ranges of at most ``MAX_GRID_Z`` entries: both kernels put the
+    batch on ``gridDim.z``, which the card caps at 65,535."""
+    return [(b, min(b + MAX_GRID_Z, B)) for b in range(0, B, MAX_GRID_Z)]
+
+
 def _launch(kind, X, Xs):
-    """One forward launch on plain float32 CUDA tensors ``X (B, n, d)``,
-    ``Xs (B, m, d)``; returns ``K (B, n, m)``."""
+    """One forward call on plain float32 CUDA tensors ``X (B, n, d)``,
+    ``Xs (B, m, d)``; returns ``K (B, n, m)``. A batch above 65,535 is cut
+    into chunks of at most that many, one launch each, written into one
+    output; the call counts once in ``LAUNCHES`` whatever its chunks."""
     global LAUNCHES
     B, n, m, d, X, Xs = _checked(kind, X, Xs)
     out = torch.empty((B, n, m), dtype=torch.float32, device=X.device)
-    _call(_lib.gp_cov_forward_f32, X.device, X.data_ptr(), Xs.data_ptr(),
-          out.data_ptr(), B, n, m, d, _KIND_INDEX[kind])
+    for b0, b1 in _chunks(B):
+        _call(_lib.gp_cov_forward_f32, X.device, X[b0:b1].data_ptr(),
+              Xs[b0:b1].data_ptr(), out[b0:b1].data_ptr(), b1 - b0, n, m, d,
+              _KIND_INDEX[kind])
     LAUNCHES += 1
     return out
 
@@ -219,7 +238,9 @@ def _launch_backward(kind, g, X, Xs):
     """One call of the backward kernel on plain float32 CUDA tensors:
     cotangent ``g (B, n, m)`` with any strides (an expanded, stride-0 one is
     read in place), ``X (B, n, d)``, ``Xs (B, m, d)``; returns
-    ``dX (B, n, d)``, ``dXs (B, m, d)``."""
+    ``dX (B, n, d)``, ``dXs (B, m, d)``. A batch above 65,535 is cut into
+    chunks as in :func:`_launch`, which share one scratch buffer; the call
+    counts once in ``BACKWARD_LAUNCHES``."""
     global BACKWARD_LAUNCHES
     B, n, m, d, X, Xs = _checked(kind, X, Xs)
     if g.dtype is not torch.float32 or g.device != X.device:
@@ -230,11 +251,16 @@ def _launch_backward(kind, g, X, Xs):
                          f"{(B, n, m)}")
     dX = torch.empty((B, n, d), dtype=torch.float32, device=X.device)
     dXs = torch.empty((B, m, d), dtype=torch.float32, device=X.device)
-    floats = _lib.gp_cov_backward_scratch_f32(B, n, m, d)
+    chunks = _chunks(B)
+    floats = max(_lib.gp_cov_backward_scratch_f32(size, n, m, d)
+                 for size in {b1 - b0 for b0, b1 in chunks})
     scratch = torch.empty((floats,), dtype=torch.float32, device=X.device)
-    _call(_lib.gp_cov_backward_f32, X.device, g.data_ptr(), *g.stride(),
-          X.data_ptr(), Xs.data_ptr(), dX.data_ptr(), dXs.data_ptr(),
-          scratch.data_ptr(), floats, B, n, m, d, _KIND_INDEX[kind])
+    for b0, b1 in chunks:
+        gb = g[b0:b1]
+        _call(_lib.gp_cov_backward_f32, X.device, gb.data_ptr(), *gb.stride(),
+              X[b0:b1].data_ptr(), Xs[b0:b1].data_ptr(), dX[b0:b1].data_ptr(),
+              dXs[b0:b1].data_ptr(), scratch.data_ptr(), floats, b1 - b0, n,
+              m, d, _KIND_INDEX[kind])
     BACKWARD_LAUNCHES += 1
     return dX, dXs
 

@@ -1,7 +1,9 @@
 """Reference values of the JAX package on the CPU for ``chip_smoke.py``'s
 gates: posterior moments of the LKJ, stochastic-volatility and GARCH
 examples, ADVI fits of the minibatch logistic regression and of the GP,
-and the MAP and Hessian of radon.
+the MAP and Hessian of radon, SMC on the GP at 4,096 particles, and the
+posterior of the sparse (FITC) GP of PyMC3's sparse-approximation
+notebook.
 
 Not a test: it writes ``pymc3_tpu_torch/examples/reference_moments.json``
 (for the sampled examples mean, sd and MCSE per element, in
@@ -11,8 +13,18 @@ port on the card. Run from the repository root:
     JAX_PLATFORMS=cpu python tests/torch_reference.py [config ...]
 
 With names (``lkj``, ``stochastic_volatility``, ``garch``, ``advi_logistic``,
-``advi_gp``, ``map_radon``) it runs those configurations only and keeps the
-others already in the file; the file is written after each configuration.
+``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``) it runs those
+configurations only and keeps the others already in the file; the file is
+written after each configuration.
+
+``smc_gp`` runs the JAX package's ``sample_smc`` on the suite's GP (n = 200)
+at 4,096 particles with four seeds (a few minutes each): SMC's Monte-Carlo
+error is not the i.i.d. one, so the port's gate is the spread of the four
+runs' evidence and moments. ``sparse_fitc`` samples the FITC model with
+NUTS, written as a ``Potential`` whose covariances are computed from the
+random ``ls`` and ``eta``: the JAX package's own ``MarginalSparse``
+evaluates them at their test values whatever the sampler proposes, so it
+samples another model.
 
 The ADVI fits run at two seeds each: the port's fit on the card draws other
 random numbers (Philox against threefry), so its gate is the spread of the
@@ -47,6 +59,9 @@ RUNS = {
     "lkj": (16, 1000, 2500, {"target_accept": 0.9}),
     "stochastic_volatility": (16, 1000, 2500, {"target_accept": 0.9}),
     "garch": (16, 1000, 2500, {}),
+    # FITC's ridge between ls and eta makes NUTS build trees of depth 5-7:
+    # this run took 85 minutes on an 8-core CPU
+    "sparse_fitc": (16, 1000, 2500, {}),
 }
 
 
@@ -62,7 +77,8 @@ def _arrays(config, trace):
         return {"mu": _per_chain(trace, "mu"),
                 "cov": np.einsum("cdij,cdkj->cdik", L, L)}
     names = {"stochastic_volatility": ["sigma", "nu"],
-             "garch": ["alpha1", "beta1", "omega"]}[config]
+             "garch": ["alpha1", "beta1", "omega"],
+             "sparse_fitc": ["ls", "eta", "sigma"]}[config]
     return {n: _per_chain(trace, n) for n in names}
 
 
@@ -162,8 +178,108 @@ def map_radon(pm):
             "wall_s": wall}
 
 
+# SMC on the GP: particles and seeds
+SMC_GP = {"draws": 4096, "seeds": (1, 2, 3, 4)}
+
+
+def _gp_prior_population(n, seed):
+    """``n`` draws of the suite GP's priors (``ls ~ Gamma(2, 2)``, ``eta ~
+    HalfNormal(2)``, ``sigma ~ HalfNormal(1)``) as unconstrained points.
+    The JAX package's ``sample_forward`` would draw the observed
+    200-dimensional MvNormal too (16 draws took 30 s on an 8-core CPU), so
+    the initial population, the priors alone, is drawn with numpy and
+    handed in as ``start``."""
+    rng = np.random.RandomState(1000 + seed)
+    ls = rng.gamma(2.0, 0.5, n)
+    eta = np.abs(rng.normal(0.0, 2.0, n))
+    sigma = np.abs(rng.normal(0.0, 1.0, n))
+    return [{"ls_log__": np.log(a), "eta_log__": np.log(b),
+             "sigma_log__": np.log(c)} for a, b, c in zip(ls, eta, sigma)]
+
+
+def smc_gp(pm):
+    """``sample_smc`` on the suite's GP at 4,096 particles, once per seed,
+    from a prior population drawn with numpy: each run's evidence, stages
+    and moments of ``ls``, ``eta`` and ``sigma``, and over the runs the
+    mean and sd of each."""
+    from pymc3_tpu_torch.examples.suite import gp_regression
+    runs = []
+    for seed in SMC_GP["seeds"]:
+        t0 = time.time()
+        trace = pm.sample_smc(
+            draws=SMC_GP["draws"], model=gp_regression(pm)[0],
+            random_seed=seed,
+            start=_gp_prior_population(SMC_GP["draws"], seed))
+        runs.append({
+            "seed": seed, "wall_s": time.time() - t0,
+            "log_marginal_likelihood": float(
+                trace.report.log_marginal_likelihood),
+            "mean": {v: float(np.mean(trace[v], dtype=np.float64))
+                     for v in ("ls", "eta", "sigma")},
+            "sd": {v: float(np.std(np.asarray(trace[v], np.float64)))
+                   for v in ("ls", "eta", "sigma")}})
+        print("smc_gp seed", seed, json.dumps(runs[-1]), flush=True)
+
+    def spread(values):
+        return {"mean": float(np.mean(values)),
+                "sd": float(np.std(values, ddof=1))}
+    return {"draws": SMC_GP["draws"], "runs": runs,
+            "log_marginal_likelihood": spread(
+                [r["log_marginal_likelihood"] for r in runs]),
+            "mean": {v: spread([r["mean"][v] for r in runs])
+                     for v in ("ls", "eta", "sigma")},
+            "sd": {v: spread([r["sd"][v] for r in runs])
+                   for v in ("ls", "eta", "sigma")}}
+
+
+def _fitc_potential(X, y, Xu, jitter=5e-4):
+    """The FITC log marginal likelihood of ``gp.py:317-360`` with eta^2
+    Matern52(ls) covariances computed from the arguments (float32, the
+    port's kernel formula t = sqrt(5 d^2 + 1e-12)). The jitter is the JAX
+    package's 5e-4; the port's grows above it only past eta = 14.5, beyond
+    the 99.9% quantile of this posterior."""
+    import jax.numpy as jnp
+    import jax.scipy.linalg as jsl
+    x, u = jnp.asarray(X[:, 0]), jnp.asarray(Xu[:, 0])
+    yv = jnp.asarray(y)
+
+    def k(a, b, ls, eta):
+        t = jnp.sqrt(5.0 * ((a[:, None] - b[None, :]) / ls) ** 2 + 1e-12)
+        return eta ** 2 * (1.0 + t + t * t / 3.0) * jnp.exp(-t)
+
+    def logp(ls, eta, sigma):
+        Kuu, Kuf = k(u, u, ls, eta), k(u, x, ls, eta)
+        Luu = jnp.linalg.cholesky(Kuu + jitter * jnp.eye(u.shape[0]))
+        A = jsl.solve_triangular(Luu, Kuf, lower=True)
+        Lamd = jnp.clip(eta ** 2 - jnp.sum(A * A, 0), 0, jnp.inf) \
+            + sigma ** 2
+        L_B = jnp.linalg.cholesky(jnp.eye(u.shape[0]) + (A / Lamd) @ A.T)
+        r_l = yv / Lamd
+        c = jsl.solve_triangular(L_B, A @ r_l, lower=True)
+        logdet = 0.5 * jnp.sum(jnp.log(Lamd)) + jnp.sum(jnp.log(
+            jnp.diag(L_B)))
+        quad = 0.5 * (jnp.dot(yv, r_l) - jnp.dot(c, c))
+        return -(0.5 * x.shape[0] * jnp.log(2 * jnp.pi) + logdet + quad)
+    return logp
+
+
+def sparse_fitc_model(pm):
+    """The sparse notebook's model (``examples/suite.py``
+    ``sparse_fitc_model``) with its likelihood as a ``Potential`` over the
+    random hyperparameters."""
+    from pymc3_tpu_torch.examples.suite import sparse_data
+    X, y, Xu = sparse_data()
+    with pm.Model() as model:
+        ls = pm.Gamma("ls", alpha=2, beta=1)
+        eta = pm.HalfCauchy("eta", beta=5)
+        sigma = pm.HalfCauchy("sigma", beta=5)
+        pm.Potential("y", pm.node.apply(_fitc_potential(X, y, Xu), ls, eta,
+                                        sigma))
+    return model
+
+
 FITS = {"advi_logistic": advi_logistic, "advi_gp": advi_gp,
-        "map_radon": map_radon}
+        "map_radon": map_radon, "smc_gp": smc_gp}
 
 
 def main():
@@ -175,7 +291,8 @@ def main():
 
     builders = {"lkj": LKJ_correlation.build_model,
                 "stochastic_volatility": stochastic_volatility.build_model,
-                "garch": garch_example.build_model}
+                "garch": garch_example.build_model,
+                "sparse_fitc": lambda: sparse_fitc_model(pm)}
     names = sys.argv[1:] or list(RUNS) + list(FITS)
     configs = {}
     if os.path.exists(OUT):
