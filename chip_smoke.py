@@ -23,7 +23,7 @@ a non-zero exit and no result line:
    (4096, 20, 20, 1) forward, and a batch of 70,000 that the wrappers cut
    into two launches, each checked the same way;
 4. GP marginal regression (``pymc3_tpu_torch/examples/suite.py``, n = 200,
-   300 tune + 500 draws, 4 chains; tune cut from 500) sampled by NUTS
+   200 tune + 500 draws, 4 chains; tune cut from 500, then 300) sampled by NUTS
    through both kernels; moment check against ``BASELINE_CPU.json`` and
    R-hat < 1.02 (the phase's docstring says why);
 5. GP prediction on the sampled model at the posterior mean:
@@ -35,6 +35,8 @@ a non-zero exit and no result line:
 6. the radon model of ``bench.py`` at 2048 chains with pooled adaptation,
    150 tune + 60 draws (tune cut from 1000 and draws from 500, then 120
    and 90, to keep the whole run inside its limit as phases were added;
+   at 110 tune, 9 draws after the first adaptation window closes, R-hat
+   was 1.0251;
    split R-hat - 1 grows as 1 / draws whatever the chain count: 1.0019 at
    200 draws, 1.0027 at 120, 1.0038 at 90, so about 1.0057 at 60;
    ``PERF.md``); moment check of ``mu_a`` and R-hat < 1.01;
@@ -82,11 +84,12 @@ a non-zero exit and no result line:
    depth cap 8, 30 tune + 40 draws: ``sigma`` and ``nu`` against the
    reference, R-hat of ``nu`` < 1.15;
 14. GARCH(1,1) (``examples/garch_example.py``) at 256 chains, depth cap 5,
-   100 tune + 200 draws: the three parameters against the reference, R-hat
-   < 1.25 (two of them trade off and mix slowly);
+   100 tune + 100 draws (cut from 200): the three parameters against the
+   reference, R-hat < 1.25 (two of them trade off and mix slowly);
 15. a latent GP of 100 inputs (``examples/suite.py::es_model``: its prior
    covariance is one launch of the forward kernel) under
-   ``EllipticalSlice`` at 256 chains, 1000 tune + 1300 draws, against the
+   ``EllipticalSlice`` at 256 chains, 300 tune (cut from 1000) + 1300
+   draws, against the
    exact Gaussian posterior; R-hat < 1.25;
 16. six labels of known component means with Dirichlet weights under
    ``[ElemwiseCategorical, NUTS]`` at 1024 chains, 30 tune + 170 draws,
@@ -122,10 +125,24 @@ a non-zero exit and no result line:
    (FITC through both kernels at (64, 20, 2000, 1) and (64, 20, 20, 1);
    ``MarginalKron`` also against the dense ``Marginal``), and 10,000 prior
    draws of a latent f against K;
-23. a JSON line describing every kernel, then the result line
+23. the bench suite's freefall ODE sampled by NUTS through the adaptive
+   DOPRI5 solve (64 chains from jittered test points, tune 150 + draws
+   150) against ``BASELINE_CPU.json``, R-hat < 1.01; logp+grad at
+   2, 16 and 256 chains through the solve's CUDA graphs, and at 64 chains
+   eagerly (the same numbers); the posterior predictive of ``Y``; the SIR
+   model's logp+grad at 64 points against the CPU;
+24. the pooled and unpooled radon GLMs (``GLM.from_formula``, 256 chains
+   from jittered test points, each adapting its own mass matrix, the
+   unpooled one a dense one; tune 100 and 150 + draws 150) against the JAX
+   package's runs, R-hat < 1.01; ``loo`` and ``waic`` of
+   both on the card (the pointwise log likelihood against the CPU's, the
+   unpooled model ranked first, d_loo within the reference runs' noise);
+   ``rhat_device``/``ess_device`` against float64 numpy, timed beside the
+   host's;
+25. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-22 each print a JSON line of their own (each with the card's name
+Phases 9-24 each print a JSON line of their own (each with the card's name
 and power limit, and its ms per logp+grad or logp-only call or per VI
 step). Every model is built with no device argument and must come out on
 the card: that is the port's default.
@@ -141,9 +158,9 @@ sampling). With ``--against DIR``, a checkout of another commit, it also
 times that commit's forward kernel in the same call, in turns (other, this,
 this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
 (DIR, this, this, DIR) and prints each wall. ``--only NAMES`` runs phases
-1-3 and then the named ones of phases 6-22 (radon, best, mixture, disaster,
+1-3 and then the named ones of phases 6-24 (radon, best, mixture, disaster,
 binary, population, lkj, sv, garch, es, labels, advi_minibatch, advi_gp,
-svgd_map, smc_bimodal, smc_gp, gp_sparse).
+svgd_map, smc_bimodal, smc_gp, gp_sparse, ode, glm).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -175,7 +192,7 @@ SOURCE = "pymc3_tpu_torch/csrc/gp_cov.cu"
 LATER_PHASES = ("radon", "best", "mixture", "disaster", "binary",
                 "population", "lkj", "sv", "garch", "es", "labels",
                 "advi_minibatch", "advi_gp", "svgd_map", "smc_bimodal",
-                "smc_gp", "gp_sparse")
+                "smc_gp", "gp_sparse", "ode", "glm")
 MAIN_SHAPE = (4, 200, 200, 1)
 # the GP's sample(), predict's two widths, ADVI's fifty Monte-Carlo samples
 # a step (phase 18), SMC's 4,096 particles on the GP (phase 21), and FITC's
@@ -555,7 +572,7 @@ def _depths(trace):
     return float(d.mean()), float(d.max(axis=0).mean())
 
 
-def phase_gp(pm, gp_cov, draws=500, tune=300, chains=4):
+def phase_gp(pm, gp_cov, draws=500, tune=200, chains=4):
     """Returns the launch counts of ``sample()`` and what the prediction
     phase needs: the model, its ``Marginal`` and the trace.
 
@@ -565,8 +582,10 @@ def phase_gp(pm, gp_cov, draws=500, tune=300, chains=4):
     chains, so R-hat is expected at 1.004-1.010 and 1.01 sits on the
     expectation itself; it scattered as far again (1.0021, 1.0025, 1.0057,
     1.0146 at 500 draws). The limit is the expected excess at the least
-    ESS plus that much scatter. Tune is 300 (it was 500) to keep the
-    script inside its time limit on a slow host."""
+    ESS plus that much scatter. Tune is 200 (cut from 500, then 300) to
+    keep the script inside its time limit on a slow host: the
+    first diagonal window closes at 101 tuning draws (R-hat 1.0030 on the
+    card at 200)."""
     from pymc3_tpu_torch.examples.suite import gp_regression
     model, names, gp = gp_regression(pm)
     _on_card(model, "gp")
@@ -983,13 +1002,13 @@ def _reference(config):
         return json.load(f)["configs"][config]["moments"]
 
 
-def _logp_grad_ms(model, chains):
+def _logp_grad_ms(model, chains, calls=50):
     """Host ms per synced logp+grad call at the test point, ``chains``
     rows."""
     q = torch.as_tensor(np.stack([model.dict_to_array(model.test_point)]
                                  * chains), device=model.device)
     vag = model.logp_dlogp_function()
-    return _synced_ms(lambda: vag(q))
+    return _synced_ms(lambda: vag(q), calls=calls)
 
 
 def _spy_final_state(step):
@@ -1175,7 +1194,7 @@ def phase_sv(pm, card, draws=40, tune=30, chains=256):
              f"{z:.2f}, sd {100 * sd_rel:.1f}% off)")
 
 
-def phase_garch(pm, card, draws=200, tune=100, chains=256):
+def phase_garch(pm, card, draws=100, tune=100, chains=256):
     """``examples/garch_example.py``: 100 returns, three ``Uniform``
     priors, ``GARCH11`` (its volatility one Toeplitz product with powers of
     beta, not a loop), NUTS pooled over 256 chains at the example's
@@ -1189,7 +1208,8 @@ def phase_garch(pm, card, draws=200, tune=100, chains=256):
     other), so a half chain of 100 draws holds about 2 and split R-hat is
     about sqrt(1 + 1/2) = 1.22; the port's chains do better (1.0398 on the
     card with 300 draws, 1.0719 without the depth cap); ``alpha1`` (0.16
-    per draw) is near 1.03."""
+    per draw) is near 1.03. Draws are 100 (cut from 200) for the run's
+    budget: R-hat 1.0698 on the card at 150 draws, so about 1.10 at 100."""
     from pymc3_tpu_torch.examples import garch_example
     out, _ = _nuts_phase(pm, card, "garch", garch_example.build_model(),
                          ["alpha1", "beta1", "omega"], draws, tune, chains,
@@ -1197,7 +1217,7 @@ def phase_garch(pm, card, draws=200, tune=100, chains=256):
     print(json.dumps(out), flush=True)
 
 
-def phase_es(pm, gp_cov, card, draws=1300, tune=1000, chains=256):
+def phase_es(pm, gp_cov, card, draws=1300, tune=300, chains=256):
     """A latent ``f ~ MvNormal(0, K)`` at 100 inputs on [0, 1] and ``y ~
     Normal(f, 0.3)`` (``examples/suite.py::es_model``), ``K`` built on the
     card by the port's ``ExpQuad(1, ls=0.2)``: one launch of the covariance
@@ -1213,7 +1233,10 @@ def phase_es(pm, gp_cov, card, draws=1300, tune=1000, chains=256):
     R-hat < 1.25: the slowest coordinate holds 0.0033 effective draws per
     draw (1024 chains, 2000 draws on the card: R-hat 1.0973; 1300 draws:
     1.1357), so a half chain of 650 draws holds about 2 and split R-hat is
-    about sqrt(1 + 1/2) = 1.22 by the formula, nearer 1.14 on the card."""
+    about sqrt(1 + 1/2) = 1.22 by the formula, nearer 1.14 on the card.
+    Tune is 300 (cut from 1000): the sampler has nothing to tune, and
+    the chains start at the prior mean; at 500 the card read R-hat 1.1331,
+    the means within 1.42 standard errors."""
     from pymc3_tpu_torch.examples.suite import es_exact_posterior, es_model
     gp_cov.LAUNCHES = 0
     model, K = es_model(pm)
@@ -2102,6 +2125,409 @@ def phase_gp_sparse(pm, gp_cov, card, particles=4096, chains=64,
           flush=True)
     return {"smc": launches, "logp_grad": fitc_launches}
 
+def _ode_counts():
+    from pymc3_tpu_torch.ode import ode as ode_mod
+    return ode_mod.ITERATIONS, ode_mod.SOLVES
+
+
+def _reset_ode_counts():
+    from pymc3_tpu_torch.ode import ode as ode_mod
+    ode_mod.ITERATIONS = ode_mod.SOLVES = 0
+
+
+def _card_vs_cpu(pm, gp_cov, build, q, label):
+    """logp and gradient of ``build()`` at the rows of ``q`` on the card,
+    on the CPU in float32 and on the CPU in float64 (the truth): the
+    card's largest error, relative to the largest logp and the largest
+    gradient entry, must be within 4 times the CPU's plus 1e-6 (phase
+    22's yardstick: the two float32 runs round differently, so neither can
+    hold the other to float32 tolerance). Returns the card's ms per
+    call and both errors."""
+    lc, gc, ms, _ = _logp_grad_on(pm, gp_cov, build, q, "cuda")
+    lh, gh, _, _ = _logp_grad_on(pm, gp_cov, build, q, "cpu")
+    lt, gt, _, _ = _logp_grad_on(pm, gp_cov, build, q, "cpu", exact=True)
+    lscale = max(1.0, float(np.abs(lt).max()))
+    gscale = max(1.0, float(np.abs(gt).max()))
+    err = {where: [float(np.max(np.abs(lv - lt))) / lscale,
+                   float(np.max(np.abs(gv - gt))) / gscale]
+           for where, lv, gv in (("card", lc, gc), ("cpu", lh, gh))}
+    if not (np.all(np.isfinite(lc)) and np.all(np.isfinite(gc)) and all(
+            c <= 4.0 * h + 1e-6 for c, h in zip(err["card"], err["cpu"]))):
+        fail(f"{label}: the card's logp+grad is further from the float64 "
+             f"truth than 4x the CPU's ({err})")
+    return {"logp_grad_ms": ms, "rel_err_logp_grad": err}
+
+
+def _ode_graphs_check(model, ode, chains=64):
+    """logp+grad of ``model`` at ``chains`` points near the test point
+    through the CUDA graphs of the solve and eagerly: the same numbers, a
+    forward and a backward graph of ``chains`` lanes captured (a capture
+    that fails raises), and each path's host ms per synced call."""
+    from pymc3_tpu_torch.ode import graphs
+    rng = np.random.RandomState(23)
+    q0 = model.dict_to_array(model.test_point)
+    q = torch.as_tensor((q0[None] + 0.1 * rng.randn(chains, q0.size))
+                        .astype(np.float32), device=model.device)
+    vag = model.logp_dlogp_function()
+    res, ms = {}, {}
+    for enabled in (False, True):
+        graphs.ENABLED = enabled
+        ms[enabled] = _synced_ms(lambda: vag(q), calls=10, warmup=2)
+        res[enabled] = [x.cpu().numpy() for x in vag(q)]
+    used = all(any(key[1][0] == chains for key in cache)
+               for cache in (ode._graphs.forward, ode._graphs.backward))
+    same = all(np.array_equal(a, b) for a, b in zip(res[False], res[True]))
+    out = {"eager_ms": ms[False], "graphs_ms": ms[True], "captured": used,
+           "same_numbers": same}
+    print("ode graphs: " + json.dumps(out), flush=True)
+    if not (used and same):
+        fail("ode: the solve's CUDA graphs were not captured or do not give "
+             "the eager path's numbers")
+    return out
+
+
+def phase_ode(pm, gp_cov, card, draws=150, tune=150, chains=64, window=40):
+    """The bench suite's freefall ODE (``examples/suite.py::ode_model``: 1
+    state, 2 parameters, 20 outputs from t0 = times[0]) sampled by NUTS on
+    the card through the adaptive DOPRI5 solve, tune 150 + draws 150 (the
+    reference ran 2 chains of 1000 + 500: chains run batched, so this
+    phase takes 64 chains and cuts tune and draws). The chains start at
+    jittered test points (``init="jitter+adapt_diag"``'s) and adapt a
+    diagonal mass matrix pooled over the chains,
+    ``QuadPotentialDiagAdapt(adaptation_window=40)``: the estimate is
+    promoted at 25 draws (64 x 25 pooled draws clear 1,024), 40, 80 and
+    120, so the draws run on the variances of draws 81-150. With the
+    default window of 101 the last estimate took in draws 26-150, the
+    burn-in with them: mean depth 2.63 and every draw's deepest lane at 3
+    on the card, against 1.87 and 2.36-2.41 with a window of 40 on the
+    CPU (two seeds, R-hat 1.0048-1.0086), a fifth less wall.
+
+    Gate: ``sigma`` and ``gamma`` against ``BASELINE_CPU.json`` ``ode``
+    (the JAX package at the reference's config: gamma 0.40036 +- 0.00687)
+    by ``moment_check``, split R-hat < 1.01. Printed: the calibrated
+    ``max_steps``, host ms per synced logp+grad at 2, 16 and 256 chains
+    with the loop iterations per solve, the same at 64 chains through the
+    solve's CUDA graphs and eagerly (the same numbers, asserted), and the
+    iterations per solve of the whole run. Then the posterior predictive of
+    ``Y`` at every draw: shape, finiteness, and each time's predictive mean
+    within 4 sigma of the observation, the residuals' sd within 50% of the
+    posterior mean of sigma. Then the SIR model of PyMC3's ODE notebook
+    (``examples/suite.py::sir_model``: 2 states, 2 parameters, 19 times)
+    at 64 points: logp+grad on the card against the CPU in float32 and
+    float64 (:func:`_card_vs_cpu`)."""
+    from pymc3_tpu_torch.examples import suite
+    ode = suite.freefall_ode(pm)
+    model, names = suite.ode_model(pm, ode)
+    _on_card(model, "ode")
+    out = {"phase": "ode", "chains": chains, "tune": tune, "draws": draws,
+           "max_steps": ode.max_steps, "card": card}
+    timed = {}
+    for n in (2, 16, 256):
+        _reset_ode_counts()
+        ms = _logp_grad_ms(model, n, calls=20)
+        it, solves = _ode_counts()
+        timed[n] = {"logp_grad_ms": ms, "iterations_per_solve":
+                    it / max(solves, 1)}
+    out["logp_grad"] = timed
+    print("ode logp+grad: " + json.dumps(timed) + f", max_steps "
+          f"{ode.max_steps}", flush=True)
+    out["graphs"] = _ode_graphs_check(model, ode)
+    ref = _baseline()["ode"]["moments"]
+    from pymc3_tpu_torch.step_methods.hmc import QuadPotentialDiagAdapt
+    _reset_ode_counts()
+    t0 = time.time()
+    start, _ = pm.init_nuts(init="jitter+adapt_diag", chains=chains,
+                            model=model, random_seed=2)
+    q = np.stack([model.dict_to_array(p) for p in start])
+    step = pm.NUTS(potential=QuadPotentialDiagAdapt(
+        q.shape[1], q.mean(axis=0), np.ones(q.shape[1]), 10,
+        adaptation_window=window), model=model, axis_name="chains_local")
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      step=step, start=start, progressbar=False,
+                      random_seed=2, axis_name="chains_local",
+                      compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    it, solves = _ode_counts()
+    out["sample"] = _gate(pm, trace, names, ref, wall,
+                          f"ode chains={chains} tune={tune} draws={draws}")
+    out["sample"].update(solves=solves, iterations_per_solve=it / solves)
+    print(f"ode sample: {solves} solves, {it / solves:.2f} loop iterations "
+          f"a solve against max_steps {ode.max_steps}", flush=True)
+
+    t0 = time.time()
+    ppc = pm.sample_posterior_predictive(trace, model=model,
+                                         random_seed=3)["Y"]
+    pwall = time.time() - t0
+    y = suite.ode_model_data()
+    sig = float(np.mean(trace["sigma"]))
+    resid = y - ppc.reshape(ppc.shape[0], -1).mean(axis=0)
+    out["predictive"] = {"draws": list(ppc.shape), "wall_s": pwall,
+                         "max_abs_resid": float(np.abs(resid).max()),
+                         "resid_sd": float(resid.std()), "sigma": sig}
+    print("ode predictive: " + json.dumps(out["predictive"]), flush=True)
+    if ppc.shape != (chains * draws, 20, 1) or not np.isfinite(ppc).all():
+        fail(f"ode predictive draws of shape {ppc.shape}, or not finite")
+    if not (np.abs(resid).max() < 4 * sig
+            and 0.5 * sig < resid.std() < 1.5 * sig):
+        fail("ode predictive means disagree with the data")
+    del trace
+
+    rng = np.random.RandomState(19)
+    pm.set_config(device="cpu")
+    try:
+        probe = suite.sir_model(pm)
+    finally:
+        pm.set_config(device="cuda")
+    q0 = probe.dict_to_array(probe.test_point)
+    q = (q0[None] + 0.2 * rng.randn(64, q0.size)).astype(np.float32)
+    _reset_ode_counts()
+    out["sir"] = _card_vs_cpu(pm, gp_cov, lambda: suite.sir_model(pm), q,
+                              "ode SIR")
+    print("ode SIR logp+grad at 64 points: " + json.dumps(out["sir"]),
+          flush=True)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _rhat_np(x):
+    """Split R-hat in float64 numpy, the plain formula of
+    ``stats/device.py``."""
+    half = x.shape[1] // 2
+    x = np.concatenate([x[:, :half], x[:, half:2 * half]])
+    n = x.shape[1]
+    within = x.var(axis=1, ddof=1).mean(axis=0)
+    between = n * x.mean(axis=1).var(axis=0, ddof=1)
+    return np.sqrt(((n - 1) / n * within + between / n) / within)
+
+
+def _ess_np(x):
+    """Bulk ESS in float64 numpy, the plain formula of
+    ``stats/device.py``: Geyer's pairs of lags, kept while positive, made
+    monotone by a running minimum."""
+    half = x.shape[1] // 2
+    x = np.concatenate([x[:, :half], x[:, half:2 * half]])
+    m, n, _ = x.shape
+    mpad = 2 ** int(np.ceil(np.log2(2 * n)))
+    c = x - x.mean(axis=1, keepdims=True)
+    f = np.fft.rfft(c, mpad, axis=1)
+    acov = np.fft.irfft(f * np.conj(f), mpad, axis=1)[:, :n] / n
+    mean_var = acov[:, 0].mean(axis=0) * n / (n - 1)
+    var_plus = mean_var * (n - 1) / n + x.mean(axis=1).var(axis=0, ddof=1)
+    rho = 1 - (mean_var - acov.mean(axis=0)) / var_plus
+    rho[0] = 1.0
+    pair = rho[:2 * (n // 2)].reshape(n // 2, 2, -1).sum(axis=1)
+    keep = np.cumprod(pair > 0, axis=0).astype(bool)
+    pair = np.where(keep, np.minimum.accumulate(
+        np.where(keep, pair, np.inf), axis=0), 0.0)
+    return m * n / np.maximum(-1 + 2 * pair.sum(axis=0), 1.0)
+
+
+def _split_loo(pm, trace, model, chains):
+    """LOO of the first and of the second half of the chains: their
+    difference measures the Monte-Carlo error of the whole run's LOO."""
+    halves = []
+    for part in (trace.chains[:chains // 2], trace.chains[chains // 2:]):
+        sub = _ChainView(trace, part)
+        halves.append(float(pm.loo(sub, model).loo))
+    return halves
+
+
+class _ChainView:
+    """Some chains of a trace, with what ``loo`` reads of a MultiTrace."""
+
+    def __init__(self, trace, chains):
+        self._trace, self.chains = trace, list(chains)
+        self.nchains = len(self.chains)
+        self.varnames = trace.varnames
+
+    def get_values(self, name, chains=None, combine=True, squeeze=True):
+        return self._trace.get_values(
+            name, chains=self.chains if chains is None else chains,
+            combine=combine, squeeze=squeeze)
+
+
+def phase_glm(pm, gp_cov, card, draws=150, tune=(100, 150), chains=256,
+              window=20):
+    """The radon GLMs of ``examples/suite.py``: ``GLM.from_formula(
+    "log_radon ~ floor", radon)`` (3 free values) and ``"log_radon ~ floor +
+    C(county)"`` (86 coefficients and ``sd`` over 919 rows, radon read
+    without pandas), each sampled by NUTS on the card at 256 chains, tune
+    100 (pooled) and 150 (unpooled) + draws 150 (the reference ran 8
+    chains of 1000 + 2000 per seed). Both start at jittered test points
+    and adapt their own mass matrix, pooled over the chains. The pooled
+    model adapts a diagonal one (``init="jitter+adapt_diag"``). The
+    unpooled model's flat intercept is the baseline county's (4 homes) and
+    every county coefficient is a difference from it: with a diagonal mass
+    matrix the JAX package's trees averaged depth 4.8 and split R-hat of
+    the intercept stayed at 1.024 and 1.047 after 1000 + 2000, so its
+    reference runs adapt a dense one (``jitter+adapt_full``). Here it does
+    too, through ``QuadPotentialFullAdapt(adaptation_window=20)``: with the
+    default window of 101 every one of the first 101 tuning draws built a
+    tree at the depth cap on the identity (441.7 s for tune 150 + draws
+    150); 256 chains pool 5,120 draws in 20, and the doubling windows
+    promote estimates at 20, 60 and 140 draws, so the last tuning draws
+    and all draws run on the covariance of draws 61-150. (On the CPU,
+    three seeds: depth 3.00, R-hat 1.0074-1.0079; with a window of 25 and
+    tune 125 the last estimate took in draws 26-75, still burning in:
+    depth 3.94 and R-hat 1.0117.)
+
+    Gates: ``Intercept``, ``floor`` and ``sd`` of each model against the
+    JAX package's NUTS runs (``tests/torch_reference.py glm_radon``, two
+    seeds pooled) by ``moment_check``, R-hat < 1.01. Then ``loo`` and
+    ``waic`` of both models on the card, and:
+
+    - the pointwise log-likelihood matrix of each, at the draws of its
+      first 16 chains, against the same draws' on the CPU in float32 and
+      in float64 (relative error within 4 times the CPU's plus 1e-6, as
+      :func:`_card_vs_cpu`);
+    - the unpooled model ranks first by LOO, as in both reference runs;
+    - d_loo = LOO(unpooled) - LOO(pooled) (deviance) within 5 noise sds of
+      the two reference runs' mean. One run's noise s is estimated from the
+      two runs, s^2 = (d1 - d2)^2 / 2, or from this run's halves (the first
+      and the last 128 chains: s^2 = (dA - dB)^2 / 4 for the whole run)
+      where that is larger; the limit is 5 sqrt(s_ref^2 / 2 + s_run^2),
+      with s_ref the larger of the two, since this run and the mean of two
+      reference runs each carry their own Monte-Carlo error, as
+      ``_fit_gate`` reads two ADVI fits.
+
+    Finally ``rhat_device`` / ``ess_device`` on the unpooled trace's 87
+    free values at once, against float64 numpy of the same plain formulas
+    (relative error 1e-6), timed beside the host's rank-normalised
+    ``pm.rhat`` / ``pm.ess``; their ratio is printed, not gated."""
+    from pymc3_tpu_torch.examples import suite
+    with open(os.path.join(ROOT, "pymc3_tpu_torch", "examples",
+                           "reference_moments.json")) as f:
+        ref = json.load(f)["configs"]["glm_radon"]
+    out = {"phase": "glm", "chains": chains, "tune": tune, "draws": draws,
+           "card": card}
+    from pymc3_tpu_torch.step_methods.hmc import QuadPotentialFullAdapt
+    traces, models = {}, {}
+    for label, build, n_tune in (("pooled", suite.glm_radon_pooled, tune[0]),
+                                 ("unpooled", suite.glm_radon_unpooled,
+                                  tune[1])):
+        model, names = build(pm)
+        _on_card(model, f"glm {label}")
+        keep = [rv.name for rv in model.free_RVs] + names
+        t0 = time.time()
+        start, step = None, None
+        if label == "unpooled":
+            start, _ = pm.init_nuts(init="jitter+adapt_full", chains=chains,
+                                    model=model, random_seed=3)
+            q = np.stack([model.dict_to_array(p) for p in start])
+            step = pm.NUTS(potential=QuadPotentialFullAdapt(
+                q.shape[1], q.mean(axis=0), adaptation_window=window),
+                model=model, axis_name="chains_local")
+        trace = pm.sample(draws=draws, tune=n_tune, chains=chains,
+                          model=model, step=step, start=start,
+                          init="jitter+adapt_diag", progressbar=False,
+                          random_seed=2, axis_name="chains_local",
+                          trace=list(dict.fromkeys(keep)),
+                          compute_convergence_checks=False)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        out[label] = _gate(pm, trace, names, ref[label]["moments"], wall,
+                           f"glm {label} chains={chains} tune={n_tune} "
+                           f"draws={draws}",
+                           against="the JAX package's reference runs")
+        out[label]["logp_grad_ms"] = _logp_grad_ms(model, chains)
+        traces[label], models[label] = trace, model
+
+    from pymc3_tpu_torch import stats as tstats
+    ic = {}
+    for label, build in (("pooled", suite.glm_radon_pooled),
+                         ("unpooled", suite.glm_radon_unpooled)):
+        trace, model = traces[label], models[label]
+        t0 = time.time()
+        lo = pm.loo(trace, model)
+        wa = pm.waic(trace, model)
+        ic_wall = time.time() - t0
+        halves = _split_loo(pm, trace, model, chains)
+        first = _ChainView(trace, trace.chains[:16])
+        lls = {}
+        for device, exact in (("cuda", False), ("cpu", False),
+                              ("cpu", True)):
+            prev = pm.get_config().device, pm.get_config().floatX
+            pm.set_config(device=device,
+                          floatX="float64" if exact else prev[1])
+            try:
+                lls[(device, exact)] = np.asarray(
+                    tstats._log_likelihood_matrix(first, build(pm)[0]),
+                    np.float64)
+            finally:
+                pm.set_config(device=prev[0], floatX=prev[1])
+        truth = lls[("cpu", True)]
+        scale = max(1.0, float(np.abs(truth).max()))
+        err = {"card": float(np.abs(lls[("cuda", False)] - truth).max())
+               / scale,
+               "cpu": float(np.abs(lls[("cpu", False)] - truth).max())
+               / scale}
+        ic[label] = {"loo": float(lo.loo), "loo_se": float(lo.loo_se),
+                     "p_loo": float(lo.p_loo), "shape_warn": lo.shape_warn,
+                     "waic": float(wa.waic), "waic_se": float(wa.waic_se),
+                     "p_waic": float(wa.p_waic), "wall_s": ic_wall,
+                     "loo_halves": halves, "ll_shape": list(truth.shape),
+                     "ll_rel_err": err}
+        print(f"glm {label} loo/waic: " + json.dumps(ic[label]), flush=True)
+        if not (np.isfinite(lo.loo) and np.isfinite(wa.waic)):
+            fail(f"glm {label}: LOO or WAIC is not finite")
+        if not err["card"] <= 4.0 * err["cpu"] + 1e-6:
+            fail(f"glm {label}: the card's pointwise log likelihood is "
+                 f"further from float64 than 4x the CPU's ({err})")
+    d = ic["unpooled"]["loo"] - ic["pooled"]["loo"]
+    d_ref = np.asarray(ref["d_loo"], np.float64)
+    s_ref = float(abs(d_ref[0] - d_ref[1]) / np.sqrt(2.0))
+    halves_d = np.subtract(ic["unpooled"]["loo_halves"],
+                           ic["pooled"]["loo_halves"])
+    s_run = float(abs(halves_d[0] - halves_d[1]) / 2.0)
+    s = max(s_ref, s_run)
+    limit = 5.0 * np.sqrt(s ** 2 / 2.0 + s_run ** 2)
+    out["ic"] = ic
+    out["d_loo"] = {"card": d, "reference": d_ref.tolist(),
+                    "s_ref": s_ref, "s_run": s_run, "limit": limit}
+    print("glm d_loo: " + json.dumps(out["d_loo"]), flush=True)
+    if not (d < 0 and np.all(d_ref < 0)):
+        fail(f"glm: the unpooled model does not rank first by LOO "
+             f"(d_loo {d:.3f}, reference {d_ref.tolist()})")
+    if not abs(d - d_ref.mean()) <= limit:
+        fail(f"glm: d_loo {d:.3f} is {abs(d - d_ref.mean()):.3f} from the "
+             f"reference's {d_ref.mean():.3f}, beyond {limit:.3f}")
+
+    trace, model = traces["unpooled"], models["unpooled"]
+    free = [rv.name for rv in model.free_RVs]
+    x = np.concatenate([np.stack(trace.get_values(
+        v, combine=False, squeeze=False)).reshape(chains, draws, -1)
+        for v in free], axis=2)
+    xd = torch.as_tensor(x, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    r_dev, e_dev = pm.rhat_device(xd), pm.ess_device(xd)
+    dev_wall = time.time() - t0
+    t0 = time.time()
+    r_host, e_host = pm.rhat(trace, var_names=free), pm.ess(
+        trace, var_names=free)
+    host_wall = time.time() - t0
+    x64 = x.astype(np.float64)
+    r_np, e_np = _rhat_np(x64), _ess_np(x64)
+    rel = {"rhat": float(np.max(np.abs(r_dev - r_np) / np.abs(r_np))),
+           "ess": float(np.max(np.abs(e_dev - e_np) / np.abs(e_np)))}
+    r_rank = np.concatenate([np.ravel(r_host[v]) for v in free])
+    e_rank = np.concatenate([np.ravel(e_host[v]) for v in free])
+    out["device_diagnostics"] = {
+        "values": x.shape[2], "device_wall_s": dev_wall,
+        "host_wall_s": host_wall, "rel_err_to_float64": rel,
+        "rhat_over_rank_normalised": [float(np.min(r_dev / r_rank)),
+                                      float(np.max(r_dev / r_rank))],
+        "ess_over_rank_normalised": [float(np.min(e_dev / e_rank)),
+                                     float(np.max(e_dev / e_rank))]}
+    print("glm device diagnostics: " + json.dumps(out["device_diagnostics"]),
+          flush=True)
+    if not (rel["rhat"] <= 1e-6 and rel["ess"] <= 1e-6):
+        fail(f"glm: rhat_device/ess_device off float64 numpy ({rel})")
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _gp_wall(other):
     """Phase 4 alone in four fresh processes: other, this, this, other."""
     code = ("import sys, torch; sys.path[:0] = ['.', 'scripts']; "
@@ -2128,7 +2554,7 @@ def main():
     parser.add_argument("--gp-wall", metavar="DIR",
                         help="phase 4 alone: DIR, this, this, DIR")
     parser.add_argument("--only", metavar="NAMES",
-                        help="phases 1-3, then only these of phases 6-22 "
+                        help="phases 1-3, then only these of phases 6-24 "
                         "(comma-separated: " + ",".join(LATER_PHASES) + ")")
     args = parser.parse_args()
 
@@ -2169,7 +2595,9 @@ def main():
         "svgd_map": lambda: phase_svgd_map(pm, card),
         "smc_bimodal": lambda: phase_smc_bimodal(pm, card),
         "smc_gp": lambda: phase_smc_gp(pm, gp_cov, card),
-        "gp_sparse": lambda: phase_gp_sparse(pm, gp_cov, card)}
+        "gp_sparse": lambda: phase_gp_sparse(pm, gp_cov, card),
+        "ode": lambda: phase_ode(pm, gp_cov, card),
+        "glm": lambda: phase_glm(pm, gp_cov, card)}
     if args.only:
         for name in args.only.split(","):
             t0 = time.time()
@@ -2195,7 +2623,7 @@ def main():
             smc_launches = out
         if name == "gp_sparse":
             fitc_launches = out
-    print(f"phases 1-22: {time.time() - t_start:.1f} s; each of 6-22 "
+    print(f"phases 1-24: {time.time() - t_start:.1f} s; each of 6-24 "
           f"{json.dumps(walls)}", flush=True)
 
     replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",

@@ -10,7 +10,9 @@ discrete distributions, the multivariate and time-series families, every transfo
 fixed mass matrices, the Metropolis family, ``Slice``, ``EllipticalSlice``,
 ``ElemwiseCategorical`` and ``CompoundStep`` with automatic step
 assignment, ``sample()`` and ``iter_sample()``, prior and posterior
-predictive draws, traces and diagnostics, variational inference (``fit``,
+predictive draws, traces, diagnostics on the host and on the card, model
+comparison (``loo``, ``waic``, ``compare``), ODEs (``ode``), GLMs
+(``GLM``, ``LinearComponent``), variational inference (``fit``,
 ADVI, full-rank ADVI, SVGD, ASVGD, normalizing flows), ``SGLD``, and the MAP
 and Hessian tools of ``tuning``. Models build on the card unless the caller
 asks for the CPU (``set_config(device="cpu")`` or ``Model(device="cpu")``).
@@ -53,7 +55,11 @@ from .sampling import (
     fast_sample_posterior_predictive, sample_posterior_predictive_w,
     stop_tuning, assign_step_methods, instantiate_steppers,
 )
-from .stats import ess, rhat, mcse, summary
+from . import stats
+from .stats import (
+    bfmi, compare, ess, geweke, hpd, loo, mcse, r2_score, rhat, summary,
+    waic, rhat_device, ess_device, effective_n, gelman_rubin,
+)
 from . import gp
 from . import smc
 from .smc import sample_smc
@@ -71,3 +77,6 @@ from .variational.updates import (
     adadelta, adam, adamax, norm_constraint, total_norm_constraint,
     apply_momentum, apply_nesterov_momentum,
 )
+from . import ode
+from . import glm
+from .glm import GLM, LinearComponent

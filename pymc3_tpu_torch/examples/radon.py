@@ -15,7 +15,7 @@ import numpy as np
 DATA = Path(__file__).resolve().parents[2] / "pymc3_tpu" / "examples" / \
     "data" / "radon.csv"
 
-__all__ = ["load_radon", "build_model"]
+__all__ = ["load_radon", "load_radon_columns", "build_model"]
 
 
 def load_radon(path=DATA):
@@ -29,6 +29,18 @@ def load_radon(path=DATA):
     log_radon = np.array([float(r["log_radon"]) for r in rows],
                          dtype=np.float32)
     return floor, county_idx, n_counties, log_radon
+
+
+def load_radon_columns(path=DATA):
+    """The columns a GLM formula names, as a dict of numpy arrays:
+    ``log_radon`` (float32), ``floor`` (float64) and ``county`` (the county
+    names, whose sorted order sets ``C(county)``'s levels)."""
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    return {"log_radon": np.array([float(r["log_radon"]) for r in rows],
+                                  dtype=np.float32),
+            "floor": np.array([float(r["floor"]) for r in rows]),
+            "county": np.array([r["county"].strip() for r in rows])}
 
 
 def build_model(pm):

@@ -12,8 +12,10 @@ JAX package's ADVI benchmark (``scripts/bench_advi_minibatch.py``), and a
 conjugate normal for SVGD and the MAP start (its posterior in closed
 form), the JAX package's SMC benchmark (``scripts/bench_smc.py``: a bimodal
 target with a closed-form evidence) and SMC-ABC model
-(``tests/test_smc.py``), and the sparse, latent, Student-T and Kronecker
-GPs at the widths of PyMC3's GP notebooks.
+(``tests/test_smc.py``), the sparse, latent, Student-T and Kronecker
+GPs at the widths of PyMC3's GP notebooks, the freefall ODE of the suite
+and the SIR model of PyMC3's ODE notebook, and the pooled and unpooled
+radon GLMs.
 
 The suite's own file imports the JAX package, so the port keeps what it
 needs here. The mixture model there writes its ordering ``Potential``
@@ -113,6 +115,99 @@ def gp_regression(pm):
         sigma = pm.HalfNormal("sigma", sigma=1)
         gp.marginal_likelihood("y", X=X, y=y, noise=sigma)
     return model, ["ls", "eta", "sigma"], gp
+
+
+def ode_model_data():
+    """The freefall's 20 observations (``benchmarks.py:225-229``)."""
+    return np.array([-2.01, 9.49, 15.58, 16.57, 27.58, 32.26, 35.13, 38.07,
+                     37.36, 38.83, 44.86, 43.58, 44.59, 42.75, 46.9, 49.32,
+                     44.06, 49.86, 46.48, 48.18])
+
+
+def freefall_ode(pm):
+    """The freefall's ``DifferentialEquation``: dy/dt = 2 p[1] - p[0] y at
+    20 times from t0 = times[0] = 0."""
+    def freefall(y, t, p):
+        return 2.0 * p[1] - p[0] * y[0]
+
+    return pm.ode.DifferentialEquation(func=freefall,
+                                       times=np.arange(0, 10, 0.5),
+                                       n_states=1, n_theta=2, t0=0)
+
+
+def ode_model(pm, ode=None):
+    """1-state 2-param freefall ODE (``scripts/bench_suite.py:83-99``,
+    from the reference's ``benchmarks.py:214-263``): ``gamma`` sampled and g
+    fixed at 9.8; returns the model and the gated names. ``ode`` is a
+    :func:`freefall_ode` to build on (a new one when None)."""
+    ode = freefall_ode(pm) if ode is None else ode
+    with pm.Model() as model:
+        sigma = pm.HalfCauchy("sigma", 1)
+        gamma = pm.Lognormal("gamma", 0, 1)
+        sol = ode(y0=[0], theta=[gamma, 9.8])
+        pm.Normal("Y", mu=sol, sigma=sigma,
+                  observed=ode_model_data().reshape(-1, 1))
+    return model, ["sigma", "gamma"]
+
+
+SIR_TIMES = np.arange(0.25, 5, 0.25)
+
+
+def sir_rhs(y, t, p):
+    """SIR with beta = p[0] and recovery rate lambda = p[1] (PyMC3 3.8's
+    ODE API notebook)."""
+    si = p[0] * y[0] * y[1]
+    return [-si, si - p[1] * y[1]]
+
+
+def sir_data(seed=20):
+    """The notebook's data: curves from ``scipy.integrate.odeint`` at beta
+    = 4, lambda = 1 from (0.99, 0.01), observed with lognormal noise of sds
+    (0.2, 0.3) at t = 0.25, ..., 4.75 (``RandomState(seed)``)."""
+    from scipy.integrate import odeint
+    curves = odeint(lambda y, t, p: sir_rhs(y, t, p),
+                    [0.99, 0.01], np.arange(0, 5, 0.25),
+                    args=((4.0, 1.0),), rtol=1e-8)
+    rng = np.random.RandomState(seed)
+    return rng.lognormal(mean=np.log(curves[1:]), sigma=[0.2, 0.3])
+
+
+def sir_model(pm):
+    """The SIR model of PyMC3 3.8's ODE API notebook: 2 states, 2
+    parameters (beta = lambda R0, lambda), a lognormal likelihood of the
+    19 observed pairs."""
+    y_obs = sir_data()
+    ode = pm.ode.DifferentialEquation(func=sir_rhs, times=SIR_TIMES,
+                                      n_states=2, n_theta=2, t0=0)
+    with pm.Model() as model:
+        sigma = pm.HalfCauchy("sigma", 1, shape=2)
+        R0 = pm.Bound(pm.Normal, lower=1)("R0", 2, 3)
+        lam = pm.Lognormal("lambda", pm.math.log(2), 2)
+        beta = pm.Deterministic("beta", lam * R0)
+        curves = ode(y0=[0.99, 0.01], theta=[beta, lam])
+        pm.Lognormal("Y", mu=pm.math.log(curves), sigma=sigma,
+                     observed=y_obs)
+    return model
+
+
+def glm_radon_pooled(pm):
+    """``GLM.from_formula("log_radon ~ floor", radon)``: one intercept and
+    one floor effect for all 919 homes; returns the model and the gated
+    names (the likelihood's ``sd`` with the two coefficients)."""
+    from .radon import load_radon_columns
+    with pm.Model() as model:
+        pm.GLM.from_formula("log_radon ~ floor", load_radon_columns())
+    return model, ["Intercept", "floor", "sd"]
+
+
+def glm_radon_unpooled(pm):
+    """``"log_radon ~ floor + C(county)"``: an intercept per county by
+    treatment coding, 86 coefficients over 919 rows."""
+    from .radon import load_radon_columns
+    with pm.Model() as model:
+        pm.GLM.from_formula("log_radon ~ floor + C(county)",
+                            load_radon_columns())
+    return model, ["Intercept", "floor", "sd"]
 
 
 def gp_model(pm):

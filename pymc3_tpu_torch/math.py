@@ -5,6 +5,7 @@ never forming the product."""
 from __future__ import annotations
 
 import functools
+import numbers
 
 import numpy as np
 import torch
@@ -33,6 +34,11 @@ __all__ = [
 def _wrap(fn):
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
+        # a number as the operand becomes a device constant, as jnp takes
+        # one (``pm.math.log(2)`` in PyMC3's ODE notebook); later numbers
+        # are options (``tril(x, -1)``)
+        if args and isinstance(args[0], (numbers.Number, np.generic)):
+            args = (as_node(np.asarray(args[0])),) + tuple(args[1:])
         return apply(lambda *a: fn(*a, **kwargs), *args)
     return wrapped
 

@@ -115,6 +115,45 @@ def _get_scaling(total_size, shape, ndim):
     raise TypeError(f"Unrecognized `total_size` type: {total_size}")
 
 
+#: The environment key under which ``_env_from_q`` records the flat point
+#: and, for each scalar variable, ``(index in it, value)``.
+SCALARS_ENV_KEY = "__scalars__"
+
+
+def _scalar(v):
+    """``v`` as a 0-d tensor, with no op where it is one already."""
+    return v if v.dim() == 0 else v.reshape(())
+
+
+def stack_scalars(nodes, env, memo):
+    """The values of ``nodes``, each of one element, stacked into a vector.
+    Where they are consecutive scalar variables of the flat point (a GLM's
+    coefficients), the vector is a slice of it: one op forward and one
+    backward, where a stack costs one a variable both ways and each
+    variable's own slice of the point a zero-filled gradient of all of it
+    and an add."""
+    q, scalars = env.get(SCALARS_ENV_KEY, (None, {}))
+    head = scalars.get(getattr(nodes[0], "name", None))
+    if head is not None and all(
+            scalars.get(n.name, (None,))[0] == head[0] + i
+            and env.get(n.name) is scalars[n.name][1]
+            for i, n in enumerate(nodes)):
+        return q[head[0]:head[0] + len(nodes)]
+    return torch.stack([_scalar(_ev(n, env, memo)) for n in nodes])
+
+
+class ScalarStack(Node):
+    """A node for :func:`stack_scalars` of ``nodes``."""
+
+    def __init__(self, nodes):
+        self.nodes = list(nodes)
+        self._test_value = np.stack([np.asarray(n.test_value).reshape(())
+                                     for n in self.nodes])
+
+    def _eval(self, env, memo):
+        return stack_scalars(self.nodes, env, memo)
+
+
 class FreeRV(NamedNode):
     """Unobserved random variable in *unconstrained* space
     (cf. ``model.py:1420``). For transformed distributions this is the
@@ -401,10 +440,17 @@ class Model(WithMemoization, metaclass=ContextMeta):
     def _env_from_q(self, q, ordering=None):
         """Decode one flat unconstrained point into an env holding both the
         transformed and the constrained values. A caller that decodes many
-        points passes the ``ordering`` it computed once."""
-        env = {}
+        points passes the ``ordering`` it computed once. Scalar variables
+        are recorded under ``SCALARS_ENV_KEY`` for :func:`stack_scalars`."""
+        env, scalars = {}, {}
         for vm in (self.ordering if ordering is None else ordering).vmap:
-            env[vm.var] = q[vm.slc].reshape(vm.shp)
+            if vm.shp == ():
+                v = env[vm.var] = q[vm.slc.start]
+                scalars[vm.var] = (vm.slc.start, v)
+            else:
+                env[vm.var] = q[vm.slc].reshape(vm.shp)
+        if scalars:
+            env[SCALARS_ENV_KEY] = (q, scalars)
         self._decode_transformed(env)
         return env
 
@@ -421,12 +467,47 @@ class Model(WithMemoization, metaclass=ContextMeta):
                                                           {})
         return env
 
+    def _logp_plan(self):
+        """The factors in declaration order, with every set of scalar free
+        variables that share one untransformed univariate distribution
+        object (a GLM's coefficients share their default prior) as one
+        ``(distribution, [rv, ...])`` entry at its first member's place:
+        its logp is one call on the stacked values instead of one call a
+        variable. Made again when factors are added."""
+        n = len(self._factor_order)
+        if getattr(self, "_plan", (None,))[0] == n:
+            return self._plan[1]
+        univariate = ("continuous", "discrete")
+        members = {}
+        for f in self._factor_order:
+            d = getattr(f, "distribution", None)
+            if type(f) is FreeRV and f.transform is None \
+                    and f.scaling == 1.0 and tuple(d.shape) == () \
+                    and type(d).__module__.rsplit(".", 1)[-1] in univariate:
+                members.setdefault(id(d), []).append(f)
+        plan, placed = [], set()
+        for f in self._factor_order:
+            group = members.get(id(getattr(f, "distribution", None)))
+            if group is None or len(group) < 2 or f not in group:
+                plan.append(f)
+            elif id(f.distribution) not in placed:
+                placed.add(id(f.distribution))
+                plan.append((f.distribution, group))
+        self._plan = (n, plan)
+        return plan
+
     def logp_from_env(self, env, memo=None, jacobian=True):
         """Total logp given an env of free-RV values; without the
         transforms' jacobians when ``jacobian`` is false."""
         memo = {} if memo is None else memo
-        terms = [factor.logp_env(env, memo, jacobian)
-                 for factor in self._factor_order]
+        terms = []
+        for item in self._logp_plan():
+            if isinstance(item, tuple):
+                dist, rvs = item
+                values = stack_scalars(rvs, env, memo)
+                terms.append(torch.sum(dist.logp(values, env, memo)))
+            else:
+                terms.append(item.logp_env(env, memo, jacobian))
         terms += [torch.sum(_ev(pot, env, memo)) for pot in self.potentials]
         return sum(terms[1:], terms[0])
 

@@ -277,7 +277,8 @@ def _complete_point(model, point):
     """Fill a (possibly partial, possibly untransformed) start point."""
     start = dict(point or {})
     update_start_vals(start, model.test_point, model)
-    return {k: v for k, v in start.items() if k in model.ordering.by_name}
+    names = model.ordering.by_name
+    return {k: v for k, v in start.items() if k in names}
 
 
 def _check_start_shape(model, start, chains):

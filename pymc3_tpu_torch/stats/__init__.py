@@ -1,17 +1,49 @@
-"""Convergence diagnostics (cf. ``pymc3_tpu/stats/__init__.py``).
+"""Diagnostics and model comparison (cf. ``pymc3_tpu/stats/__init__.py``).
 
 Rank-normalized split R-hat, bulk ESS (FFT autocorrelation, Geyer's initial
-monotone sequence) and the summary table, on the host in numpy. Inputs are
-upcast to float64: a float32 reduction over millions of draws drifts by a
-visible fraction of a posterior sd.
+monotone sequence), HPD intervals, Geweke, BFMI, Bayesian R², the summary
+table, PSIS-LOO, WAIC and ``compare``, on the host in numpy; the pointwise
+log-likelihood matrix behind LOO and WAIC is evaluated on the model's
+device. Inputs are upcast to float64: a float32 reduction over millions of
+draws drifts by a visible fraction of a posterior sd. ``summary`` and
+``compare`` return DataFrames and import pandas when called; nothing else
+needs it. ``rhat_device`` and ``ess_device`` run on the card
+(``stats/device.py``).
 """
 from __future__ import annotations
 
+import functools
+import warnings
+from collections import namedtuple
 from typing import Dict
 
 import numpy as np
+import torch
 
-__all__ = ["ess", "rhat", "mcse", "summary"]
+from ..config import floatX, get_config
+
+__all__ = [
+    "bfmi", "compare", "ess", "geweke", "hpd", "loo", "mcse", "r2_score",
+    "rhat", "summary", "waic", "rhat_device", "ess_device",
+    # deprecated aliases kept for parity (stats/__init__.py:56-80)
+    "effective_n", "gelman_rubin", "map_args",
+]
+
+from .device import rhat_device, ess_device  # noqa: E402
+
+
+def map_args(func):
+    """Rename deprecated ``varnames`` kwarg (cf. ``stats/__init__.py:26``)."""
+
+    @functools.wraps(func)
+    def wrapped(*args, **kwargs):
+        if "varnames" in kwargs and "var_names" not in kwargs:
+            warnings.warn(
+                "Keyword argument `varnames` renamed to `var_names`",
+                DeprecationWarning)
+            kwargs["var_names"] = kwargs.pop("varnames")
+        return func(*args, **kwargs)
+    return wrapped
 
 
 def _trace_to_arrays(trace, var_names=None, combine=False,
@@ -147,6 +179,68 @@ def _ess_single(ary, relative=False):
     return ess / (m * n) if relative else ess
 
 
+def _diag_device():
+    """Where ``rhat`` ranks its draws: the configured device when it is a
+    card that exists, else the CPU."""
+    device = torch.device(get_config().device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        return torch.device("cpu")
+    return device
+
+
+def _z_scale_columns(x):
+    """:func:`_z_scale` of every column of ``x (N, k)`` at once: ties take
+    their average rank, as ``scipy.stats.rankdata(method="average")``
+    gives. Also returns the sorted columns."""
+    N, k = x.shape
+    srt, order = torch.sort(x, dim=0)
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[1:] = srt[1:] != srt[:-1]
+    # a run of equal values is one group; number groups apart per column
+    group = torch.cumsum(new, dim=0) - 1 + N * torch.arange(
+        k, device=x.device)
+    pos = torch.arange(1, N + 1, dtype=x.dtype, device=x.device)[:, None]
+    sums = torch.zeros(N * k, dtype=x.dtype, device=x.device).index_add_(
+        0, group.reshape(-1), pos.expand(N, k).reshape(-1))
+    counts = torch.zeros_like(sums).index_add_(
+        0, group.reshape(-1), torch.ones_like(sums))
+    avg = (sums / torch.clamp(counts, min=1.0))[group]
+    ranks = torch.empty_like(avg).scatter_(0, order, avg)
+    return torch.special.ndtri((ranks - 0.5) / N), srt
+
+
+def _rhat_split_columns(x):
+    """:func:`_rhat_single` of every column of ``x (chains, draws, k)``."""
+    half = x.shape[1] // 2
+    if half < 2:
+        return torch.full(x.shape[2:], torch.nan, dtype=x.dtype)
+    x = torch.cat([x[:, :half], x[:, half:2 * half]])
+    n = x.shape[1]
+    within = x.var(dim=1, correction=1).mean(dim=0)
+    between = n * x.mean(dim=1).var(dim=0, correction=1)
+    vhat = (n - 1) / n * within + between / n
+    return torch.where(within == 0, torch.nan, torch.sqrt(vhat / within))
+
+
+def _rhat_rank_columns(ary):
+    """:func:`_rhat_rank` of every column of ``ary (chains, draws, k)``,
+    computed on :func:`_diag_device` in float64: one sort of all the draws
+    of every column at once, where the per-column loop ranked each with
+    scipy (most of a phase's wall at 256 chains x 1,300 draws x 100
+    columns)."""
+    c, n, k = ary.shape
+    x = torch.as_tensor(np.asarray(ary, dtype=np.float64),
+                        device=_diag_device()).reshape(c * n, k)
+    z, srt = _z_scale_columns(x)
+    bulk = _rhat_split_columns(z.reshape(c, n, k))
+    median = 0.5 * (srt[(c * n - 1) // 2] + srt[(c * n) // 2])
+    zf, _ = _z_scale_columns(torch.abs(x - median))
+    tail = _rhat_split_columns(zf.reshape(c, n, k))
+    # the max of (bulk, tail) as Python's max takes it: NaN only from bulk
+    out = torch.where(torch.isnan(bulk) | ~(tail > bulk), bulk, tail)
+    return out.cpu().numpy()
+
+
 def _per_element(fn, arrays: Dict[str, np.ndarray]):
     out = {}
     for name, ary in arrays.items():
@@ -162,9 +256,13 @@ def _per_element(fn, arrays: Dict[str, np.ndarray]):
 # ---------------------------------------------------------------------------
 def rhat(data, var_names=None, **kwargs):
     """Rank-normalized split R-hat (cf. ArviZ delegation,
-    ``stats/__init__.py:43``)."""
-    arrays = _trace_to_arrays(data, var_names)
-    return _per_element(_rhat_rank, arrays)
+    ``stats/__init__.py:43``), every element of a variable at once."""
+    out = {}
+    for name, ary in _trace_to_arrays(data, var_names).items():
+        c, n = ary.shape[:2]
+        vals = _rhat_rank_columns(ary.reshape(c, n, -1))
+        out[name] = vals.reshape(ary.shape[2:]) if ary.ndim > 2 else vals[0]
+    return out
 
 
 def ess(data, var_names=None, relative=False, **kwargs):
@@ -183,6 +281,24 @@ def mcse(data, var_names=None, **kwargs):
     return _per_element(_mcse, arrays)
 
 
+def hpd(x, alpha=0.05, credible_interval=None, **kwargs):
+    """Highest posterior density interval (pymc3 3.8 convention:
+    ``alpha`` is the tail mass; interval has prob ``1-alpha``)."""
+    if credible_interval is not None:
+        alpha = 1 - credible_interval
+    x = np.asarray(x)
+    if x.ndim == 2:
+        # (draws, k): interval per column
+        return np.array([_hpd_1d(x[:, i], alpha)
+                         for i in range(x.shape[1])])
+    if x.ndim > 2:
+        flat = x.reshape(x.shape[0] * x.shape[1], -1)
+        return np.array([_hpd_1d(flat[:, i], alpha)
+                         for i in range(flat.shape[1])]).reshape(
+            x.shape[2:] + (2,))
+    return _hpd_1d(x, alpha)
+
+
 def _hpd_1d(x, alpha):
     x = np.sort(np.asarray(x).ravel())
     n = len(x)
@@ -194,6 +310,277 @@ def _hpd_1d(x, alpha):
     interval_width = x[interval_idx_inc:] - x[:n_intervals]
     min_idx = np.argmin(interval_width)
     return np.array([x[min_idx], x[min_idx + interval_idx_inc]])
+
+
+def geweke(ary, first=0.1, last=0.5, intervals=20):
+    """Geweke z-scores over the chain (cf. ArviZ ``geweke``)."""
+    ary = np.asarray(ary).ravel()
+    if first + last >= 1:
+        raise ValueError("Invalid intervals for Geweke convergence analysis")
+    zscores = []
+    n = len(ary)
+    last_start = int((1 - last) * n)
+    step = max(int((last_start) / (intervals or 1)), 1)
+    for start in range(0, last_start, step):
+        seg = ary[start:]
+        n_seg = len(seg)
+        first_sl = seg[:int(first * n_seg)]
+        last_sl = seg[int((1 - last) * n_seg):]
+        z = (first_sl.mean() - last_sl.mean()) / np.sqrt(
+            first_sl.var() + last_sl.var())
+        zscores.append([start, z])
+    return np.array(zscores)
+
+
+def bfmi(trace):
+    """Bayesian fraction of missing information (cf. ArviZ ``bfmi``)."""
+    if hasattr(trace, "get_sampler_stats"):
+        energy = trace.get_sampler_stats("energy", combine=False,
+                                         squeeze=False)
+        energy = np.atleast_2d(np.asarray(energy))
+    else:
+        energy = np.atleast_2d(np.asarray(trace))
+    num = np.square(np.diff(energy, axis=1)).mean(axis=1)
+    den = np.var(energy, axis=1)
+    return num / den
+
+
+def r2_score(y_true, y_pred, round_to=2):
+    """Bayesian R² (Gelman et al. 2018)."""
+    y_true = np.asarray(y_true)
+    y_pred = np.asarray(y_pred)
+    r2_tuple = namedtuple("r2", ["r2", "r2_std"])
+    if y_pred.ndim == 1:
+        var_y_est = np.var(y_pred)
+        var_e = np.var(y_true - y_pred)
+        r2 = var_y_est / (var_y_est + var_e)
+        return r2_tuple(np.round(r2, round_to), 0.0)
+    var_y_est = np.var(y_pred, axis=1)
+    var_e = np.var(y_true[None, :] - y_pred, axis=1)
+    r2 = var_y_est / (var_y_est + var_e)
+    return r2_tuple(np.round(np.mean(r2), round_to),
+                    np.round(np.std(r2), round_to))
+
+
+# ---------------------------------------------------------------------------
+# pointwise log likelihood, WAIC / LOO
+# ---------------------------------------------------------------------------
+# points per vmapped call of the pointwise log likelihood: a chunk holds
+# chunk x n_obs values and the model's intermediates
+_LL_ELEMENTS = 1 << 24
+
+
+def _trace_q(trace, model):
+    """``(chains * draws, n)`` flat points of every draw, chain after chain
+    (the JAX package's ``trace.point(i, chain=c)`` order), in ``floatX``."""
+    parts = []
+    for vm in model.ordering.vmap:
+        vals = np.stack(trace.get_values(vm.var, combine=False,
+                                         squeeze=False))
+        parts.append(vals.reshape(vals.shape[0] * vals.shape[1], -1))
+    return np.concatenate(parts, axis=1).astype(floatX())
+
+
+def _log_likelihood_matrix(trace, model=None):
+    """(samples, n_obs) pointwise log-likelihood of all observed RVs,
+    evaluated on the model's device in one ``torch.func.vmap`` per chunk of
+    draws; returns numpy."""
+    from ..model import modelcontext
+    from ..node import _ev
+    model = modelcontext(model)
+    obs = model.observed_RVs
+    ordering = model.ordering
+
+    def pointwise(q):
+        env = model._env_from_q(q, ordering)
+        memo = {}
+        return torch.cat([torch.ravel(o.distribution.logp(
+            _ev(o, env, memo), env, memo)) for o in obs])
+
+    qs = torch.as_tensor(_trace_q(trace, model), device=model.device)
+    n_obs = sum(int(np.prod(o.data.shape, dtype=int)) for o in obs)
+    chunk = max(1, _LL_ELEMENTS // max(n_obs, 1))
+    batched = torch.func.vmap(pointwise)
+    with torch.no_grad():
+        out = [batched(qs[i:i + chunk]) for i in range(0, len(qs), chunk)]
+    return torch.cat(out).cpu().numpy()
+
+
+WAIC_r = namedtuple("WAIC_r", "waic, waic_se, p_waic, var_warn")
+LOO_r = namedtuple("LOO_r", "loo, loo_se, p_loo, shape_warn")
+
+
+def _scaled(elpd_i, scale):
+    if scale == "deviance":
+        return -2 * elpd_i
+    if scale == "log":
+        return elpd_i
+    return -elpd_i
+
+
+def waic(trace, model=None, pointwise=False, scale="deviance"):
+    """Widely-applicable information criterion (cf. ArviZ ``waic``)."""
+    ll = _log_likelihood_matrix(trace, model)
+    S, n = ll.shape
+    lppd_i = _logsumexp(ll, axis=0) - np.log(S)
+    p_waic_i = np.var(ll, axis=0, ddof=1)
+    var_warn = int((p_waic_i > 0.4).any())
+    out_i = _scaled(lppd_i - p_waic_i, scale)
+    se = np.sqrt(n * np.var(out_i))
+    if pointwise:
+        WAICp = namedtuple("WAIC_r",
+                           "waic, waic_se, p_waic, var_warn, waic_i")
+        return WAICp(out_i.sum(), se, p_waic_i.sum(), var_warn, out_i)
+    return WAIC_r(out_i.sum(), se, p_waic_i.sum(), var_warn)
+
+
+def _psislw(log_weights, reff=1.0):
+    """Pareto-smoothed importance sampling weights (Vehtari et al.). Each
+    observation's weights are one contiguous row of the transpose."""
+    lw = np.ascontiguousarray(np.asarray(log_weights, dtype=np.float64).T)
+    S = lw.shape[1]
+    khats = np.empty(lw.shape[0])
+    out = np.empty_like(lw)
+    cutoff_ind = -int(np.ceil(min(S / 5.0, 3 * np.sqrt(S / reff)))) - 1
+    for i, row in enumerate(lw):
+        x = row - row.max()
+        # the order statistic the reference takes from a full sort
+        tail_start = np.partition(x, cutoff_ind)[cutoff_ind]
+        tail_ids = np.where(x > tail_start)[0]
+        if len(tail_ids) <= 4:
+            khats[i] = np.inf
+            out[i] = x
+        else:
+            tail = np.exp(x[tail_ids]) - np.exp(tail_start)
+            k, sigma = _gpdfit(np.sort(tail))
+            khats[i] = k
+            if np.isfinite(k):
+                stail = _gpinv(
+                    (np.arange(0.5, len(tail)) / len(tail)), k, sigma)
+                smoothed = np.log(stail + np.exp(tail_start))
+                x_new = np.copy(x)
+                x_new[tail_ids[np.argsort(x[tail_ids])]] = smoothed
+                out[i] = np.minimum(x_new, 0)
+            else:
+                out[i] = x
+        out[i] -= _logsumexp(out[i])
+    return out.T, khats
+
+
+def _gpdfit(x):
+    """Fit generalized Pareto to tail (Zhang & Stephens 2009).
+
+    ``sigma`` comes from the estimate of k before the weakly informative
+    prior shrinks it, as in ArviZ's ``_gpdfit``. The JAX package takes it
+    after (``pymc3_tpu/stats/__init__.py:418-419``): where the prior moves
+    k across zero its sigma turns negative and that observation's smoothed
+    weights are NaN, which makes ``loo`` NaN."""
+    prior_bs, prior_k = 3.0, 10.0
+    n = len(x)
+    m_est = 30 + int(np.sqrt(n))
+    b_ary = 1 - np.sqrt(m_est / (np.arange(1, m_est + 1) - 0.5))
+    b_ary /= prior_bs * x[int(n / 4 + 0.5) - 1]
+    b_ary += 1 / x[-1]
+    k_ary = np.mean(np.log1p(-b_ary[:, None] * x[None, :]), axis=1)
+    len_scale = n * (np.log(-b_ary / k_ary) - k_ary - 1)
+    weights = 1 / np.sum(np.exp(len_scale[None, :] - len_scale[:, None]),
+                         axis=1)
+    weights /= weights.sum()
+    b_post = np.sum(b_ary * weights)
+    k_post = np.mean(np.log1p(-b_post * x))
+    sigma = -k_post / b_post
+    k_post = (n * k_post + prior_k * 0.5) / (n + prior_k)
+    return k_post, sigma
+
+
+def _gpinv(probs, kappa, sigma):
+    """Inverse generalized Pareto CDF."""
+    x = np.full_like(probs, np.nan)
+    if sigma <= 0:
+        return x
+    ok = (probs > 0) & (probs < 1)
+    if np.abs(kappa) < 1e-15:
+        x[ok] = -np.log1p(-probs[ok])
+    else:
+        x[ok] = np.expm1(-kappa * np.log1p(-probs[ok])) / kappa
+    x *= sigma
+    x[probs == 0] = 0
+    x[probs == 1] = np.inf if kappa >= 0 else -sigma / kappa
+    return x
+
+
+def loo(trace, model=None, pointwise=False, reff=None, scale="deviance"):
+    """PSIS leave-one-out cross-validation (cf. ArviZ ``loo``)."""
+    ll = _log_likelihood_matrix(trace, model)
+    S, n = ll.shape
+    if reff is None:
+        nchains = trace.nchains if hasattr(trace, "nchains") else 1
+        if nchains == 1:
+            reff = 1.0
+        else:
+            e = ess(trace)
+            vals = np.concatenate([np.ravel(v) for v in e.values()])
+            reff = np.nanmean(vals) / S if len(vals) else 1.0
+    lw, ks = _psislw(-ll, reff)
+    shape_warn = int((ks > 0.7).any())
+    loo_lppd_i = _logsumexp(lw + ll, axis=0)
+    lppd_i = _logsumexp(ll, axis=0) - np.log(S)
+    p_loo = (lppd_i - loo_lppd_i).sum()
+    out_i = _scaled(loo_lppd_i, scale)
+    se = np.sqrt(n * np.var(out_i))
+    if pointwise:
+        LOOp = namedtuple("LOO_r", "loo, loo_se, p_loo, shape_warn, loo_i")
+        return LOOp(out_i.sum(), se, p_loo, shape_warn, out_i)
+    return LOO_r(out_i.sum(), se, p_loo, shape_warn)
+
+
+def compare(model_dict, ic="loo", method="stacking", scale="deviance"):
+    """Model comparison table (cf. ArviZ ``compare``): a pandas DataFrame,
+    so pandas is imported here."""
+    import pandas as pd
+    names = list(model_dict.keys()) if isinstance(model_dict, dict) else \
+        list(range(len(model_dict)))
+    ics = []
+    fn = loo if ic.lower() == "loo" else waic
+    for name in names:
+        tr = model_dict[name] if isinstance(model_dict, dict) else name
+        if isinstance(tr, tuple):
+            trace, model = tr
+        else:
+            trace, model = tr, None
+        res = fn(trace, model=model, pointwise=True, scale=scale)
+        ics.append((name, res))
+    ascending = scale == "deviance" or scale == "negative_log"
+    ics.sort(key=lambda x: x[1][0], reverse=not ascending)
+    best = ics[0][1]
+    rows = []
+    for rank, (name, res) in enumerate(ics):
+        d = res[0] - best[0]
+        pointwise_i = res[-1]
+        dse = np.sqrt(len(pointwise_i) *
+                      np.var(pointwise_i - best[-1])) if rank else 0.0
+        rows.append({
+            "rank": rank, ic: res[0], f"p_{ic}": res[2],
+            f"d_{ic}": d, "weight": 0.0, "se": res[1], "dse": dse,
+            "warning": bool(res[3]),
+        })
+    df = pd.DataFrame(rows, index=[n if isinstance(n, str) else f"model_{i}"
+                                   for i, (n, _) in enumerate(ics)])
+    # pseudo-BMA weights
+    elpds = np.array([-0.5 * r[ic] if scale == "deviance" else
+                      (r[ic] if scale == "log" else -r[ic])
+                      for r in rows])
+    w = np.exp(elpds - elpds.max())
+    df["weight"] = w / w.sum()
+    return df
+
+
+def _logsumexp(a, axis=None):
+    if axis is None:
+        return np.log(np.sum(np.exp(a - np.max(a)))) + np.max(a)
+    amax = np.max(a, axis=axis, keepdims=True)
+    return np.log(np.sum(np.exp(a - amax), axis=axis)) + \
+        np.squeeze(amax, axis=axis)
 
 
 def summary(trace, var_names=None, round_to=2, alpha=0.05, batches=None,
@@ -244,3 +631,15 @@ def summary(trace, var_names=None, round_to=2, alpha=0.05, batches=None,
     if round_to is not None:
         df = df.round(round_to)
     return df
+
+
+def effective_n(*args, **kwargs):
+    warnings.warn("effective_n has been deprecated. In future, use ess "
+                  "instead.", DeprecationWarning)
+    return ess(*args, **kwargs)
+
+
+def gelman_rubin(*args, **kwargs):
+    warnings.warn("gelman_rubin has been deprecated. In future, use rhat "
+                  "instead.", DeprecationWarning)
+    return rhat(*args, **kwargs)

@@ -35,8 +35,8 @@ def find_MAP(start=None, vars=None, method="L-BFGS-B", return_raw=False,
     else:
         start_ = dict(model.test_point)
         update_start_vals(start_, start, model)
-        start_.update({k: v for k, v in start.items()
-                       if k in model.ordering.by_name})
+        names = model.ordering.by_name
+        start_.update({k: v for k, v in start.items() if k in names})
         start = start_
     if vars is None:
         vars = model.cont_vars

@@ -1,9 +1,9 @@
 """Reference values of the JAX package on the CPU for ``chip_smoke.py``'s
 gates: posterior moments of the LKJ, stochastic-volatility and GARCH
 examples, ADVI fits of the minibatch logistic regression and of the GP,
-the MAP and Hessian of radon, SMC on the GP at 4,096 particles, and the
+the MAP and Hessian of radon, SMC on the GP at 4,096 particles, the
 posterior of the sparse (FITC) GP of PyMC3's sparse-approximation
-notebook.
+notebook, and the pooled and unpooled radon GLMs with their LOO and WAIC.
 
 Not a test: it writes ``pymc3_tpu_torch/examples/reference_moments.json``
 (for the sampled examples mean, sd and MCSE per element, in
@@ -13,7 +13,8 @@ port on the card. Run from the repository root:
     JAX_PLATFORMS=cpu python tests/torch_reference.py [config ...]
 
 With names (``lkj``, ``stochastic_volatility``, ``garch``, ``advi_logistic``,
-``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``) it runs those
+``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``, ``glm_radon``) it
+runs those
 configurations only and keeps the others already in the file; the file is
 written after each configuration.
 
@@ -25,6 +26,17 @@ NUTS, written as a ``Potential`` whose covariances are computed from the
 random ``ls`` and ``eta``: the JAX package's own ``MarginalSparse``
 evaluates them at their test values whatever the sampler proposes, so it
 samples another model.
+
+``glm_radon`` samples ``GLM.from_formula("log_radon ~ floor", radon)`` and
+``"log_radon ~ floor + C(county)"`` (``examples/suite.py``) with two seeds
+each, and writes the moments of ``Intercept``, ``floor`` and ``sd`` over
+both seeds' chains, and each seed's WAIC (the JAX package's ``waic``) and
+LOO. The JAX package's ``loo`` is NaN on these models: its ``_gpdfit``
+takes the Pareto scale after the prior has moved k, so the scale turns
+negative for some observations (``pymc3_tpu/stats/__init__.py:418-419``).
+LOO here is the JAX package's ``loo`` with its ``_gpdfit`` replaced by
+``arviz_gpdfit`` below, which takes the scale first, as ArviZ does: an
+evaluation that calls nothing of the port.
 
 The ADVI fits run at two seeds each: the port's fit on the card draws other
 random numbers (Philox against threefry), so its gate is the spread of the
@@ -278,8 +290,100 @@ def sparse_fitc_model(pm):
     return model
 
 
+# chains, tune, draws, seeds and init of each GLM's runs. The unpooled
+# model's flat intercept is its baseline county's (4 homes), and every
+# county's coefficient is a difference from it: with a diagonal mass matrix
+# NUTS built trees of mean depth 4.8 and split R-hat of the intercept was
+# 1.024 and 1.047 after 1000 + 2000 at 8 chains; a dense mass matrix
+# adapts to that correlation
+GLM_RADON = {"chains": 8, "tune": 1000, "draws": 2000, "seeds": (1, 2),
+             "init": {"pooled": "jitter+adapt_diag",
+                      "unpooled": "jitter+adapt_full"}}
+
+
+def arviz_gpdfit(x):
+    """Zhang and Stephens' estimate of a generalized Pareto fit to the
+    sorted tail ``x``, in ArviZ's order (the scale from k before the
+    weakly informative prior moves it), in float64: ``(k, sigma)``."""
+    n = len(x)
+    m = 30 + int(np.sqrt(n))
+    b = 1 - np.sqrt(m / (np.arange(1, m + 1) - 0.5))
+    b = b / (3.0 * x[int(n / 4 + 0.5) - 1]) + 1 / x[-1]
+    k = np.log1p(-b[:, None] * x).mean(axis=1)
+    ll = n * (np.log(-(b / k)) - k - 1)
+    w = 1 / np.exp(ll - ll[:, None]).sum(axis=1)
+    bp = np.sum(b * w / w.sum())
+    kp = np.log1p(-bp * x).mean()
+    return (n * kp + 5.0) / (n + 10.0), -kp / bp
+
+
+def _ic(trace, model):
+    """WAIC and LOO by the JAX package, LOO with :func:`arviz_gpdfit` in
+    place of its ``_gpdfit`` (see the module's docstring), on the deviance
+    scale as ``loo``/``waic`` default."""
+    from pymc3_tpu import stats as jstats
+    w = jstats.waic(trace, model)
+    jax_loo_is_nan = bool(np.isnan(jstats.loo(trace, model).loo))
+    fit, jstats._gpdfit = jstats._gpdfit, arviz_gpdfit
+    try:
+        lo = jstats.loo(trace, model, pointwise=True)
+        ll = jstats._log_likelihood_matrix(trace, model)
+        e = jstats.ess(trace)
+        S = ll.shape[0]
+        reff = np.nanmean(np.concatenate([np.ravel(v)
+                                          for v in e.values()])) / S
+        ks = jstats._psislw(-ll, reff)[1]
+    finally:
+        jstats._gpdfit = fit
+    return {"waic": float(w.waic), "waic_se": float(w.waic_se),
+            "p_waic": float(w.p_waic),
+            "loo": float(lo.loo), "loo_se": float(lo.loo_se),
+            "p_loo": float(lo.p_loo),
+            "k_over_0.7": int((ks > 0.7).sum()),
+            "jax_loo_is_nan": jax_loo_is_nan}
+
+
+def glm_radon(pm):
+    """Both radon GLMs at two seeds: moments over all chains, per-seed
+    information criteria, and per seed d_loo = LOO(unpooled) - LOO(pooled)
+    (negative when the unpooled model predicts better)."""
+    from pymc3_tpu_torch.examples.suite import (chain_moments,
+                                                 glm_radon_pooled,
+                                                 glm_radon_unpooled)
+    c = GLM_RADON
+    out = dict(c)
+    for label, build in (("pooled", glm_radon_pooled),
+                         ("unpooled", glm_radon_unpooled)):
+        arrays, runs = {}, []
+        for seed in c["seeds"]:
+            model, names = build(pm)
+            t0 = time.time()
+            trace = pm.sample(draws=c["draws"], tune=c["tune"],
+                              chains=c["chains"], model=model,
+                              random_seed=seed, init=c["init"][label],
+                              progressbar=False,
+                              compute_convergence_checks=False)
+            wall = time.time() - t0
+            for n in names:
+                arrays.setdefault(n, []).append(_per_chain(trace, n))
+            depth = np.asarray(trace.get_sampler_stats("depth"))
+            runs.append({"seed": seed, "wall_s": wall,
+                         "mean_tree_depth": float(depth.mean()),
+                         "rhat": {n: float(np.max(pm.rhat(
+                             _per_chain(trace, n))["x"])) for n in names},
+                         **_ic(trace, model)})
+            print("glm_radon", label, json.dumps(runs[-1]), flush=True)
+        out[label] = {"runs": runs, "moments": chain_moments(
+            pm, {n: np.concatenate(a) for n, a in arrays.items()})}
+    out["d_loo"] = [u["loo"] - p["loo"] for u, p in
+                    zip(out["unpooled"]["runs"], out["pooled"]["runs"])]
+    out["d_waic"] = [u["waic"] - p["waic"] for u, p in
+                     zip(out["unpooled"]["runs"], out["pooled"]["runs"])]
+    return out
+
+
 FITS = {"advi_logistic": advi_logistic, "advi_gp": advi_gp,
-        "map_radon": map_radon, "smc_gp": smc_gp}
+        "map_radon": map_radon, "smc_gp": smc_gp, "glm_radon": glm_radon}
 
 
 def main():
