@@ -20,8 +20,9 @@ a non-zero exit and no result line:
    version's device time, and the bound from the bytes moved; then the
    shapes of phases 21-22, FITC's (64, 20, 2000, 1) and (64, 20, 20, 1)
    matern52 both ways, SMC's (4096, 200, 200, 1), (4096, 20, 2000, 1) and
-   (4096, 20, 20, 1) forward, and a batch of 70,000 that the wrappers cut
-   into two launches, each checked the same way;
+   (4096, 20, 20, 1) forward, ``gp_example``'s (256, 60, 60, 1) both ways
+   (phase 25), and a batch of 70,000 that the wrappers cut into two
+   launches, each checked the same way;
 4. GP marginal regression (``pymc3_tpu_torch/examples/suite.py``, n = 200,
    200 tune + 500 draws, 4 chains; tune cut from 500, then 300) sampled by NUTS
    through both kernels; moment check against ``BASELINE_CPU.json`` and
@@ -39,15 +40,18 @@ a non-zero exit and no result line:
    was 1.0251;
    split R-hat - 1 grows as 1 / draws whatever the chain count: 1.0019 at
    200 draws, 1.0027 at 120, 1.0038 at 90, so about 1.0057 at 60;
-   ``PERF.md``); moment check of ``mu_a`` and R-hat < 1.01;
-7. BEST (47 + 42 rows, StudentT likelihoods) at 256 chains, pooled, 150
-   tune + 150 draws; moment check of ``difference_of_means`` and R-hat <
+   ``PERF.md``); moment check of ``mu_a`` and R-hat < 1.01. Since phase
+   26 came, this run is that phase's: its 60 draws are drawn in two runs
+   of 30 joined by a saved, loaded and resumed trace;
+7. BEST (47 + 42 rows, StudentT likelihoods) at 256 chains, pooled, 100
+   tune (cut from 150 with phase 25's logp+grad timings) + 150 draws; moment check of ``difference_of_means`` and R-hat <
    1.01; then the posterior predictive of both groups at all 38,400 draws
    on the card: shapes, finiteness, and the median of the ``drug`` draws
    against the posterior median of ``group1_mean`` within four Monte-Carlo
    standard errors;
 8. the 3-component mixture (1000 rows, Dirichlet weights, ordered means,
-   Gamma precisions) at 512 chains, pooled, 150 tune + 70 draws (120 until
+   Gamma precisions) at 512 chains, pooled, 100 tune (cut from 150 with
+   phase 25's logp+grad timings) + 70 draws (120 until
    the SMC phases came: R-hat 1.0043 there and 1.0051 at 90, so about
    1.0066 at 70); moment
    check of ``mu`` and R-hat < 1.01; the posterior predictive of ``x_obs``
@@ -81,10 +85,11 @@ a non-zero exit and no result line:
    predictive of ``obs`` against the data's mean and covariance;
 13. stochastic volatility (``examples/stochastic_volatility.py``, 400
    steps) at 256 chains started at the reference run's posterior draws,
-   depth cap 8, 30 tune + 40 draws: ``sigma`` and ``nu`` against the
+   depth cap 8, 20 tune (cut from 30 with phase 25's logp+grad timings)
+   + 40 draws: ``sigma`` and ``nu`` against the
    reference, R-hat of ``nu`` < 1.15;
 14. GARCH(1,1) (``examples/garch_example.py``) at 256 chains, depth cap 5,
-   100 tune + 100 draws (cut from 200): the three parameters against the
+   100 tune + 60 draws (cut from 200, then 100): the three parameters against the
    reference, R-hat < 1.25 (two of them trade off and mix slowly);
 15. a latent GP of 100 inputs (``examples/suite.py::es_model``: its prior
    covariance is one launch of the forward kernel) under
@@ -95,16 +100,19 @@ a non-zero exit and no result line:
    ``[ElemwiseCategorical, NUTS]`` at 1024 chains, 30 tune + 170 draws,
    against the enumeration of all 729 states; R-hat < 1.02;
 17. minibatch ADVI on the JAX package's benchmark
-   (``scripts/bench_advi_minibatch.py``): logistic regression on 50,000
-   rows at d = 100 with batches of 500 (10,000 steps) and at d = 512 with
-   batches of 8192 (2,000 steps), each after a short warm fit; steps/s,
+   (``scripts/bench_advi_minibatch.py``) at half the benchmark's steps at
+   d = 100: logistic regression on 50,000 rows at d = 100 with batches of
+   500 (5,000 steps: the benchmark runs 10,000, as this phase did until
+   phases 25-26 came, so its steps/s is not that script's run) and at d =
+   512 with batches of 8192 (2,000 steps), each after a short warm fit; steps/s,
    host ms per step, the device's busy share over 20 steps, the ELBO and
    the coefficient RMSE; means and sds against two JAX fits
    (``examples/reference_moments.json``);
 18. ADVI and full-rank ADVI on the GP (n = 200) through both covariance
    kernels, one forward and one backward launch per step, against two JAX
-   fits; then ``sample(init="advi+adapt_diag")`` on BEST at 256 chains,
-   gated as phase 7;
+   fits; then ``sample(init="advi+adapt_diag")`` on BEST at 256 chains
+   (ADVI for at most 500 steps, cut from 1000 with phase 25's logp+grad
+   timings), gated as phase 7;
 19. SVGD with 256 particles on a conjugate normal against its closed form;
    ``find_MAP`` and ``find_hessian`` on radon against the JAX package's;
    ``sample(init="map")`` on the conjugate normal against its closed form;
@@ -139,10 +147,30 @@ a non-zero exit and no result line:
    unpooled model ranked first, d_loo within the reference runs' noise);
    ``rhat_device``/``ess_device`` against float64 numpy, timed beside the
    host's;
-25. a JSON line describing every kernel, then the result line
+25. the fifteen examples of ``tests/test_examples.py``
+   (``pymc3_tpu_torch/examples/``), each at its own data width through its
+   own entry point (``sample()`` at 256 chains, tune 100 + draws 50, or
+   ``pm.fit``), in three worker processes started after phase 5, beside
+   phases 7-24: against their closed
+   forms (``factor_potential``,
+   ``samplers_mvnormal``), the JAX package's reference runs or two JAX
+   fits (``minibatch_advi_logistic``); ``gp_example`` runs both covariance
+   kernels at (256, 60, 60, 1); each example's wall (beside the other
+   processes) and, once the workers have exited, its ms per logp+grad in
+   the main process;
+26. the trace backends: phase 6's radon run, its 2048 chains sampled for
+   tune 150 + draws 30 with every free variable recorded, saved by
+   ``save_trace``, read by ``load_trace`` and continued by
+   ``sample(tune=0, draws=30, resume_from=...)``: the step sizes and the
+   mass matrix carried exactly, the 60 draws gated as phase 6, the save
+   and load walls and bytes; then ``gelman_schools`` at 256 chains by
+   ``Metropolis`` into NDArray, ``trace="text"`` and ``trace="sqlite"``,
+   read back equal; all in a fourth worker process started with phase
+   25's (in the main process under ``--only``);
+27. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-24 each print a JSON line of their own (each with the card's name
+Phases 9-26 each print a JSON line of their own (each with the card's name
 and power limit, and its ms per logp+grad or logp-only call or per VI
 step). Every model is built with no device argument and must come out on
 the card: that is the port's default.
@@ -158,9 +186,10 @@ sampling). With ``--against DIR``, a checkout of another commit, it also
 times that commit's forward kernel in the same call, in turns (other, this,
 this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
 (DIR, this, this, DIR) and prints each wall. ``--only NAMES`` runs phases
-1-3 and then the named ones of phases 6-24 (radon, best, mixture, disaster,
+1-3 and then the named ones of phases 6-26 (radon, best, mixture, disaster,
 binary, population, lkj, sv, garch, es, labels, advi_minibatch, advi_gp,
-svgd_map, smc_bimodal, smc_gp, gp_sparse, ode, glm).
+svgd_map, smc_bimodal, smc_gp, gp_sparse, ode, glm, examples, traces;
+``radon`` runs phase 26, which holds phase 6's run).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -168,6 +197,8 @@ import argparse
 import importlib.util
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -189,10 +220,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 SOURCE = "pymc3_tpu_torch/csrc/gp_cov.cu"
-LATER_PHASES = ("radon", "best", "mixture", "disaster", "binary",
+LATER_PHASES = ("best", "mixture", "disaster", "binary",
                 "population", "lkj", "sv", "garch", "es", "labels",
                 "advi_minibatch", "advi_gp", "svgd_map", "smc_bimodal",
-                "smc_gp", "gp_sparse", "ode", "glm")
+                "smc_gp", "gp_sparse", "ode", "glm", "examples", "traces")
 MAIN_SHAPE = (4, 200, 200, 1)
 # the GP's sample(), predict's two widths, ADVI's fifty Monte-Carlo samples
 # a step (phase 18), SMC's 4,096 particles on the GP (phase 21), and FITC's
@@ -201,10 +232,13 @@ MAIN_SHAPE = (4, 200, 200, 1)
 VI_SHAPE = (50, 200, 200, 1)
 FITC_SHAPE = (64, 20, 2000, 1)
 SMC_SHAPE = (4096, 200, 200, 1)
+# gp_example's sample() at phase 25's 256 chains over its 60 inputs
+EXAMPLE_SHAPE = (256, 60, 60, 1)
 FITC_SHAPES = (FITC_SHAPE, (64, 20, 20, 1), (4096, 20, 2000, 1),
                (4096, 20, 20, 1))
 TIMED_SHAPES = (MAIN_SHAPE, (1, 4096, 4096, 4), (1, 200, 16384, 1),
-                (1, 200, 4096, 1), VI_SHAPE, SMC_SHAPE) + FITC_SHAPES
+                (1, 200, 4096, 1), VI_SHAPE, SMC_SHAPE,
+                EXAMPLE_SHAPE) + FITC_SHAPES
 TIMED_KIND = {shape: "matern52" for shape in FITC_SHAPES}
 # a batch above the 65,535 blocks of gridDim.z: the wrappers cut it
 CHUNKED_SHAPE = (70_000, 8, 8, 1)
@@ -428,14 +462,16 @@ def phase_kernel(gp_cov, card, other=None):
 
     # the shapes of phases 21-22 (SMC's particles run the forward only):
     # FITC's Kuf and Kuu at 64 points both ways and at 4,096 particles
-    # forward (Kuu there takes the tiled kernel); and a batch above 65,535,
-    # cut into two launches that count as one call
+    # forward (Kuu there takes the tiled kernel); gp_example's of phase 25
+    # both ways; and a batch above 65,535, cut into two launches that count
+    # as one call
     for i, (kind, shape, backward) in enumerate((
             ("matern52", FITC_SHAPES[0], True),
             ("matern52", FITC_SHAPES[1], True),
             ("expquad", SMC_SHAPE, False),
             ("matern52", FITC_SHAPES[2], False),
             ("matern52", FITC_SHAPES[3], False),
+            ("expquad", EXAMPLE_SHAPE, True),
             ("expquad", CHUNKED_SHAPE, True))):
         calls = gp_cov.LAUNCHES, gp_cov.BACKWARD_LAUNCHES
         fwd = _check_forward(gp_cov, kind, shape, seed=60 + i)
@@ -711,22 +747,6 @@ def _posterior_mean_point(model, trace):
             for rv in model.free_RVs}
 
 
-def phase_radon(pm, draws=60, tune=150, chains=2048):
-    from pymc3_tpu_torch.examples.radon import build_model
-    model = build_model(pm)
-    _on_card(model, "radon")
-    t0 = time.time()
-    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
-                      progressbar=False, random_seed=2, target_accept=0.9,
-                      axis_name="chains_local", trace=["mu_a"],
-                      record_stats=["diverging"],
-                      compute_convergence_checks=False)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    _gate(pm, trace, ["mu_a"], _baseline()["radon"]["moments"], wall,
-          f"radon chains={chains} tune={tune} draws={draws}")
-
-
 def _median_se(x, n_eff):
     """Standard error of a sample median: sqrt(pi/2) sd / sqrt(n_eff), with
     the sd read robustly from the interquartile range."""
@@ -734,7 +754,7 @@ def _median_se(x, n_eff):
     return np.sqrt(np.pi / 2.0) * (q3 - q1) / 1.349 / np.sqrt(n_eff)
 
 
-def phase_best(pm, draws=150, tune=150, chains=256):
+def phase_best(pm, draws=150, tune=100, chains=256):
     from pymc3_tpu_torch.examples.suite import best_model
     model, names = best_model(pm)
     _on_card(model, "best")
@@ -776,7 +796,7 @@ def phase_best(pm, draws=150, tune=150, chains=256):
         fail("best predictive median disagrees with the posterior")
 
 
-def phase_mixture(pm, draws=70, tune=150, chains=512,
+def phase_mixture(pm, draws=70, tune=100, chains=512,
                   prior_samples=100_000):
     from pymc3_tpu_torch.examples.suite import mixture_model
     model, names = mixture_model(pm)
@@ -1135,7 +1155,7 @@ def _nuts_phase(pm, card, label, model, names, draws, tune, chains,
     return out, trace
 
 
-def phase_sv(pm, card, draws=40, tune=30, chains=256):
+def phase_sv(pm, card, draws=40, tune=20, chains=256):
     """``examples/stochastic_volatility.py`` at its width: a Gaussian random
     walk of 400 latent log-volatilities (402 free values) under StudentT
     returns, NUTS with target_accept 0.9 and diagonal adaptation pooled
@@ -1153,8 +1173,11 @@ def phase_sv(pm, card, draws=40, tune=30, chains=256):
     the gate asks whether the port's NUTS keeps it there, and ``nu`` mixes
     (0.54 effective draws per draw in the reference).
 
-    R-hat < 1.15 for ``nu``: 60 + 80 on the card drew 1.0630 and 30 + 50
-    drew 1.0729, about 0.2 effective draws per draw with the capped trees,
+    R-hat < 1.15 for ``nu``: 60 + 80 on the card drew 1.0630, 30 + 50
+    drew 1.0729 and 30 + 40 1.0751, about 0.2 effective draws per draw
+    with the capped trees (tune is 20, cut from 30 when phase 25 came: the
+    chains start in the posterior, and nearly every iteration reaches the
+    depth cap, so each one cut saves a 70th of the phase),
     so a half chain of 20 draws holds about 4 and split R-hat is about
     sqrt(1 + 1/4) = 1.12.
     ``sigma``'s R-hat is printed, not gated: its chains start apart, at the
@@ -1194,7 +1217,7 @@ def phase_sv(pm, card, draws=40, tune=30, chains=256):
              f"{z:.2f}, sd {100 * sd_rel:.1f}% off)")
 
 
-def phase_garch(pm, card, draws=100, tune=100, chains=256):
+def phase_garch(pm, card, draws=60, tune=100, chains=256):
     """``examples/garch_example.py``: 100 returns, three ``Uniform``
     priors, ``GARCH11`` (its volatility one Toeplitz product with powers of
     beta, not a loop), NUTS pooled over 256 chains at the example's
@@ -1208,8 +1231,9 @@ def phase_garch(pm, card, draws=100, tune=100, chains=256):
     other), so a half chain of 100 draws holds about 2 and split R-hat is
     about sqrt(1 + 1/2) = 1.22; the port's chains do better (1.0398 on the
     card with 300 draws, 1.0719 without the depth cap); ``alpha1`` (0.16
-    per draw) is near 1.03. Draws are 100 (cut from 200) for the run's
-    budget: R-hat 1.0698 on the card at 150 draws, so about 1.10 at 100."""
+    per draw) is near 1.03. Draws are 60 (cut from 200, then 100) for the
+    run's budget: R-hat 1.0698 on the card at 150 draws and 1.0830 at 100,
+    so about 1.14 at 60 (R-hat - 1 grows as 1 / draws)."""
     from pymc3_tpu_torch.examples import garch_example
     out, _ = _nuts_phase(pm, card, "garch", garch_example.build_model(),
                          ["alpha1", "beta1", "omega"], draws, tune, chains,
@@ -1373,8 +1397,10 @@ def phase_advi_minibatch(pm, card, warm=50, profiled=20):
     rows of ``RandomState(0)`` data, ``w ~ N(0, 1)`` and ``b ~ N(0, 1)``,
     Bernoulli on ``invlogit(X_mb w + b)`` with ``total_size = N``, ADVI
     with the default ``adagrad_window`` from the test point; at d = 100
-    with batches of 500 for 10,000 steps, and at d = 512 with batches of
-    8192 for 2,000 steps. Each timed fit follows a warm fit of ``warm``
+    with batches of 500 for 5,000 steps, half the benchmark's 10,000 (which
+    this phase ran until phases 25-26 came; the JAX fits of the gate are
+    made at the same 5,000 steps), and at d = 512 with batches of 8192 for
+    2,000 steps. Each timed fit follows a warm fit of ``warm``
     steps (the JAX benchmark's warm fit is a whole fit: it compiles; the
     port has nothing to compile, so the warm fit only brings the allocator
     and the host's caches to steady state); the timed fit is a new
@@ -1448,7 +1474,7 @@ def _fit_gate(mean, std, fits, z_max=5.0):
 
 
 def phase_advi_gp(pm, gp_cov, card, tune=50, draws=150, chains=256,
-                  n_init=1000, warm=20):
+                  n_init=500, warm=20):
     """ADVI and full-rank ADVI on the GP (``examples/suite.py``, n = 200)
     after a warm fit of ``warm`` steps: Adam at rate 0.01 for 1000 steps
     (full-rank: 1500), then a new Adam at rate 0.001 for 1000, fifty
@@ -1466,10 +1492,11 @@ def phase_advi_gp(pm, gp_cov, card, tune=50, draws=150, chains=256,
     noisiest (0.089 against 0.165 after stages of 1500 and 1000 steps).
 
     Then BEST at 256 chains with ``init="advi+adapt_diag"`` (ADVI for at
-    most ``n_init`` steps, stopped early by the convergence callbacks), 50
-    tune + 150 draws (the ADVI fit gives the mass matrix its start), gated
-    as phase 7 against ``BASELINE_CPU.json`` (R-hat 1.0046 at 200 draws on
-    the card, so about 1.006 at 150).
+    most ``n_init`` steps, stopped early by the convergence callbacks; 1000
+    until phase 25's logp+grad timings came), 50 tune + 150 draws (the
+    ADVI fit gives the mass matrix its start), gated as phase 7 against
+    ``BASELINE_CPU.json`` (R-hat 1.0046 at 200 draws on the card, so about
+    1.006 at 150).
     Returns the forward and backward launches of the two fits."""
     from pymc3_tpu_torch.examples.suite import best_model, gp_regression
     ref = _reference_fits("advi_gp")
@@ -2528,6 +2555,595 @@ def phase_glm(pm, gp_cov, card, draws=150, tune=(100, 150), chains=256,
     return out
 
 
+# examples of phase 25, in the order of ``tests/test_examples.py``'s port
+EXAMPLES = ("gelman_schools", "gelman_bioassay", "baseball",
+            "lightspeed_example", "factor_potential", "censored_data",
+            "glm_hierarchical", "custom_dists", "arbitrary_stochastic",
+            "rankdata_ordered", "arma_example", "samplers_mvnormal",
+            "gp_example", "minibatch_advi_logistic", "lasso_missing")
+# each example's wall in phase 25 (s; NVIDIA H100 80GB HBM3, 700.00 W,
+# beside the other workers and phases 7-11), from which the workers'
+# groups are made (:func:`_example_groups`)
+EXAMPLE_WALLS = {
+    "lasso_missing": 94.5, "glm_hierarchical": 42.8, "baseball": 38.3,
+    "gp_example": 28.2, "arma_example": 26.4, "gelman_schools": 24.7,
+    "rankdata_ordered": 23.1, "custom_dists": 14.2, "censored_data": 8.2,
+    "lightspeed_example": 7.4, "samplers_mvnormal": 6.9,
+    "minibatch_advi_logistic": 5.1, "arbitrary_stochastic": 3.2,
+    "gelman_bioassay": 3.0, "factor_potential": 2.0}
+EXAMPLE_WORKERS = 3
+# tune, draws and sample() arguments of each example where they differ
+# from phase 25's defaults (see phase_examples)
+EXAMPLE_RUNS = {
+    "lasso_missing": {"dense_window": 16, "tune": 80, "draws": 30},
+    "custom_dists": {"start": "least_squares",
+                     "nuts": {"max_treedepth": 6}},
+    "arma_example": {"init": "adapt_diag"},
+    "glm_hierarchical": {"nuts": {"max_treedepth": 5}},
+}
+
+
+def _example_groups(workers=EXAMPLE_WORKERS):
+    """Phase 25's examples cut into ``workers`` groups of about equal
+    summed walls (``EXAMPLE_WALLS``): the longest first, each to the group
+    with the least so far."""
+    groups = [[] for _ in range(workers)]
+    load = [0.0] * workers
+    for name in sorted(EXAMPLES, key=lambda n: -EXAMPLE_WALLS[n]):
+        i = load.index(min(load))
+        groups[i].append(name)
+        load[i] += EXAMPLE_WALLS[name]
+    return [tuple(g) for g in groups]
+
+
+def _example_closed_form(name, module):
+    """The exact posterior of the two examples that have one, in the shape
+    ``moment_check`` compares: ``factor_potential``'s N(1/3, 1/3) and
+    ``samplers_mvnormal``'s N(0, cov)."""
+    if name == "factor_potential":
+        return ["x"], _exact_ref({"x": {"mean": 1.0 / 3.0,
+                                        "sd": np.sqrt(1.0 / 3.0)}})
+    cov = module.build_model()[1].astype(np.float64)
+    return ["x"], _exact_ref({"x": {"mean": np.zeros(len(cov)),
+                                    "sd": np.sqrt(np.diag(cov))}})
+
+
+def _rhat_limits(moments, draws, names, tau_floor=2.0):
+    """Split R-hat limit of each gated variable: ``1.01 + 2 (tau - 1) /
+    draws``, ``tau`` the reference run's integrated autocorrelation time
+    (its chains x draws over its ESS, the largest over the variable's
+    elements), at least ``tau_floor`` (and that alone for a closed form).
+    See :func:`phase_examples`."""
+    limits = {}
+    for v in names:
+        m = moments[v]
+        tau = tau_floor
+        mcse = np.atleast_1d(np.asarray(m["mcse"], np.float64))
+        if np.all(mcse > 0):
+            sd = np.atleast_1d(np.asarray(m["sd"], np.float64))
+            tau = max(tau, float(np.max(m["draws_total"] * (mcse / sd) ** 2)))
+        limits[v] = 1.01 + 2.0 * (tau - 1.0) / draws
+    return limits
+
+
+def _run_example(pm, gp_cov, name, card, ref, chains=256, tune=100,
+                 draws=50):
+    """One example of phase 25 on the card: its row of numbers, the list
+    of its failed gates, and (for ``gp_example``) its kernel launches."""
+    import importlib
+    from pymc3_tpu_torch.examples.suite import (EXAMPLE_ADVI, EXAMPLE_GATES,
+                                                 example_model)
+    module = importlib.import_module(f"pymc3_tpu_torch.examples.{name}")
+    t0 = time.time()
+    if name == "minibatch_advi_logistic":
+        X, y, _ = module.make_data()
+        model = module.build_model(X, y)
+        _on_card(model, name)
+        approx = pm.fit(n=EXAMPLE_ADVI["steps"], method="advi", model=model,
+                        progressbar=False, random_seed=1,
+                        obj_optimizer=pm.variational.updates.adam(
+                            learning_rate=EXAMPLE_ADVI["learning_rate"]))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        gate = _fit_gate(approx.mean, approx.std, ref[name]["fits"])
+        row = {"wall_s": wall, "steps": EXAMPLE_ADVI["steps"],
+               "steps_per_s": EXAMPLE_ADVI["steps"] / wall, "gate": gate}
+        print(f"examples {name}: " + json.dumps(row), flush=True)
+        return row, ([] if gate["pass"] else [
+            f"{name}: the fit is {gate['max_z']:.2f} noise sds from the JAX "
+            "fits"]), None
+    run = dict(EXAMPLE_RUNS.get(name, {}))
+    tune, draws = run.get("tune", tune), run.get("draws", draws)
+    if name in ("factor_potential", "samplers_mvnormal"):
+        names, want = _example_closed_form(name, module)
+        nuts, against = {}, "its closed form"
+    else:
+        names, nuts = EXAMPLE_GATES[name]
+        want = ref[name]["moments"]
+        against = "the JAX package's reference run"
+        for v in names:
+            want[v]["draws_total"] = ref[name]["chains"] * ref[name]["draws"]
+    model = example_model(module)
+    _on_card(model, name)
+    nuts = dict(nuts, **run.get("nuts", {}))
+    if run.get("dense_window"):
+        from pymc3_tpu_torch.step_methods.hmc.quadpotential import (
+            QuadPotentialFullAdapt)
+        cont = [v for v in model.free_RVs if v not in model.missing_values]
+        mean = np.concatenate([np.ravel(v.test_value) for v in cont])
+        nuts.update(axis_name="chains_local",
+                    potential=QuadPotentialFullAdapt(
+                        len(mean), mean,
+                        adaptation_window=run["dense_window"]))
+    start = None
+    if run.get("start") == "least_squares":
+        slope, intercept = np.polyfit(module.xdata, module.ydata, 1)
+        resid = module.ydata - (intercept + slope * module.xdata)
+        start = {"intercept": np.float32(intercept),
+                 "slope": np.float32(slope),
+                 "sigma": np.float32(resid.std())}
+    if name == "gp_example":
+        gp_cov.LAUNCHES = gp_cov.BACKWARD_LAUNCHES = 0
+    trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                      init=run.get("init", "auto"), start=start,
+                      progressbar=False,
+                      random_seed=2, axis_name="chains_local", trace=names,
+                      compute_convergence_checks=False, nuts=nuts)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = None
+    failed = []
+    if name == "gp_example":
+        launches = {"forward": gp_cov.LAUNCHES,
+                    "backward": gp_cov.BACKWARD_LAUNCHES}
+        if min(launches.values()) == 0:
+            failed.append(f"gp_example launched no kernel: {launches}")
+    limits = _rhat_limits(want, draws, names)
+    try:
+        out = _gate(pm, trace, names, want, wall,
+                    f"examples {name} chains={chains} tune={tune} "
+                    f"draws={draws}", against=against, rhat_limit=limits)
+    except SystemExit:
+        for v in names:
+            x = np.stack(trace.get_values(v, combine=False)).astype(
+                np.float64)
+            x = x.reshape(x.shape[0], x.shape[1], -1)
+            far = np.abs(x.mean(1) - x.mean((0, 1))) / x.std((0, 1))
+            worst = np.argsort(far.max(1))[-3:]
+            print(f"examples {name} {v}: mean {x.mean((0, 1))}, sd "
+                  f"{x.std((0, 1))}; chains {worst.tolist()} lie "
+                  f"{far.max(1)[worst].round(2).tolist()} sds away",
+                  flush=True)
+        return {"wall_s": wall}, failed + [name], launches
+    row = {k: out[k] for k in (
+        "wall_s", "min_ess", "rhat", "divergences",
+        "mean_tree_depth", "deepest_lane_depth", "moment_check")}
+    row.update(tune=tune, draws=draws, rhat_limit=limits)
+    return row, failed, launches
+
+
+def _worker(args):
+    """A worker process of phases 25-26: ``traces CARD`` runs phase 26 and
+    prints a ``TRACES`` JSON line at its end; otherwise it runs the
+    examples ``args``, one ``EXAMPLE`` JSON line each. Exits 1 if anything
+    failed."""
+    import pymc3_tpu_torch as pm
+    from pymc3_tpu_torch.ops import gp_cov
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    if args[0] == "traces":
+        phase_traces(pm, args[1])
+        print("TRACES " + json.dumps({"finished_at": time.time()}),
+              flush=True)
+        sys.exit(0)
+    ref = _reference_fits("examples")
+    failed = []
+    for name in args:
+        row, bad, launches = _run_example(pm, gp_cov, name, "", ref)
+        failed += bad
+        print("EXAMPLE " + json.dumps({"name": name, "row": row,
+                                       "failed": bad, "launches": launches,
+                                       "finished_at": time.time()}),
+              flush=True)
+    sys.exit(1 if failed else 0)
+
+
+_WORKER_CODE = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
+                "chip_smoke._worker(sys.argv[1:])")
+
+
+def start_workers(card, traces=True):
+    """Start phase 25's example workers and, with ``traces``, phase 26's
+    worker; :func:`phase_examples` and :func:`read_traces` read them. Their
+    output goes to files, not pipes (a full pipe would stall a worker),
+    and they are killed if the script ends first. Returns ``(examples,
+    traces worker or None, time started)``, each worker ``(process, out,
+    err, args)``."""
+    import atexit
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    started_at = time.time()
+    jobs = [tuple(g) for g in _example_groups()]
+    if traces:
+        jobs.append(("traces", card))
+    workers = []
+    for i, args in enumerate(jobs):
+        out = open(os.path.join(tmp, f"{i}.out"), "w+")
+        err = open(os.path.join(tmp, f"{i}.err"), "w+")
+        workers.append((subprocess.Popen(
+            [sys.executable, "-c", _WORKER_CODE, *args], cwd=ROOT,
+            stdout=out, stderr=err, text=True), out, err, args))
+
+    def stop():
+        for proc, out, err, _ in workers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    atexit.register(stop)
+    return (workers[:len(_example_groups())],
+            workers[-1] if traces else None, started_at)
+
+
+def _read_worker(worker):
+    """Wait for a worker, copy its standard error to ours, and return its
+    exit code and the lines of its standard output."""
+    proc, out, err, _ = worker
+    proc.wait()
+    err.seek(0)
+    sys.stderr.write(err.read())
+    out.seek(0)
+    return proc.returncode, out.read().splitlines()
+
+
+def _finished_during(finished):
+    """The phase of the main process that was running at ``finished``."""
+    during = [name for name, at in PHASE_STARTS
+              if finished is not None and at <= finished]
+    return during[-1] if during else None
+
+
+# (phase name, time.time() at its start) of each of phases 7-26 run so far
+PHASE_STARTS = []
+
+
+def phase_examples(card, started):
+    """The fifteen examples of ``tests/test_examples.py`` on the card, each
+    built by its own module at its own data width and run through its own
+    entry point: ``sample()`` at 256 chains, tune 100 + draws 50, pooled
+    adaptation and the NUTS arguments of the example's ``run()``, or
+    ``pm.fit`` for ``minibatch_advi_logistic``. Many chains and short runs:
+    a batch of chains costs little more than one, but a NUTS iteration
+    lasts as long as its deepest lane's tree. Where a first run showed one
+    lane far deeper than the rest, ``EXAMPLE_RUNS`` changes the run:
+
+    - ``glm_hierarchical`` (the centred radon model, a funnel: 110
+      divergences and the deepest lane at depth 6.4 of a mean 4.3; 59 s)
+      caps the tree depth at 5;
+    - ``arma_example`` starts every chain at the test point
+      (``init="adapt_diag"``): with the default jitter one of 256 lanes was
+      stranded 12 posterior sds away;
+    - ``custom_dists`` starts every chain at the least-squares line and its
+      residual sd, and caps its depth at 6: its ``sigma`` is untransformed
+      with a 1/sigma prior, so from the jittered test point (``sigma`` near
+      1 or below, residuals near 50) one lane was stranded 6 sds away and
+      built trees of depth 10 every draw (170 s), and from the test point
+      itself several lanes halved their step sizes to a standstill;
+    - ``lasso_missing`` is a compound step, NUTS over the continuous
+      variables and the binary Gibbs sampler that ``sample()`` assigns to
+      its 91 imputed indicators (91 logp calls a draw). Its uncentred
+      predictors correlate the intercept with age's coefficient: with a
+      diagonal mass matrix the deepest lane reached depth 7.4 (374 s), so
+      its NUTS adapts a dense one pooled over the chains, windows of 16 and
+      32 draws (after tune 60 with windows of 20 the second window never
+      closed, the estimate kept the first draws and the depth stayed near
+      6); tune 80 + draws 30. (``BinaryMetropolis`` over the indicators,
+      one logp a draw, failed the moment check by 15 MCSEs in 50 draws,
+      with R-hat 1.25: the imputed values mixed too slowly.)
+
+    The examples run in three worker processes, started after phase 5 and
+    read here: each step of one is bound by its process's host dispatch,
+    and the card is idle most of the time, so they run beside phases 7-24
+    (whose walls they lengthen) instead of adding their own. The groups are
+    made from each example's wall in an earlier run (``EXAMPLE_WALLS``,
+    :func:`_example_groups`). Each worker's finish is printed with the
+    phase of the main process it fell in, which shows how far the overlap
+    reached. Each example's wall is taken beside the other processes; its
+    ms per logp+grad at 256 chains is taken here, in the main process,
+    after the workers have exited, with the card to itself.
+
+    Gates. ``factor_potential`` against its closed form N(1/3, 1/3) and
+    ``samplers_mvnormal`` against N(0, cov) (``moment_check`` with no
+    error on the exact side). The other sampled ones against the JAX
+    package's run of the same example at 16 chains, tune 1000 + draws 2500
+    (``examples/reference_moments.json``, ``tests/torch_reference.py
+    examples``; the variables of ``examples/suite.py::EXAMPLE_GATES``):
+    |Δmean| / combined MCSE < 4 and sds within 20%. Split R-hat (rank
+    normalised, the larger of the bulk and the folded one): of a converged
+    ensemble it is about ``1 + (tau - 1) / draws``, ``tau`` the draws'
+    integrated autocorrelation time, whatever the chain count. NUTS draws
+    of a near-Gaussian posterior alternate about the mean (bulk ESS above
+    the draw count), which correlates the folded draws |x - median| and
+    lifts R-hat above 1.01 at 50 draws all the same
+    (``tests/test_torch_stats.py::test_split_rhat_of_converged_short_chains``
+    simulates both at 256 x 50; ``gelman_bioassay`` read 1.0224 on the
+    card with a bulk ESS of 12,388 of its 12,800 draws). So the limit
+    is ``1.01 + 2 (tau - 1) / draws`` with ``tau`` the reference run's
+    (chains x draws over its ESS) but at least 2: it admits the port's
+    draws being twice as correlated as that and flags chains that
+    disagree beyond it. ``minibatch_advi_logistic`` (50,000 rows, d = 10,
+    batches of 500, Adam at 0.02 for ``EXAMPLE_ADVI``'s steps) against two
+    JAX fits of the same settings with phase 17's ``_fit_gate``. Every
+    example runs before the phase fails; any failure ends the script.
+
+    ``gp_example`` (60 inputs) runs both covariance kernels at (256, 60,
+    60, 1): its worker counts their launches in its ``sample()``, which
+    are returned for the kernels line."""
+    procs, _, started_at = started
+    t0 = time.time()
+    rows, failed, launches, workers = {}, [], None, []
+    for worker in procs:
+        code, lines = _read_worker(worker)
+        group, finished = worker[3], None
+        for line in lines:
+            if line.startswith("EXAMPLE "):
+                res = json.loads(line[len("EXAMPLE "):])
+                rows[res["name"]] = res["row"]
+                failed += res["failed"]
+                launches = res["launches"] or launches
+                finished = res["finished_at"]
+            else:
+                print(line, flush=True)
+        missing = [n for n in group if n not in rows]
+        if missing:
+            failed.append(f"worker {group} exited {code} without a result "
+                          f"for {missing}")
+        workers.append({
+            "examples": list(group), "exit": code,
+            "walls_s": sum(EXAMPLE_WALLS[n] for n in group),
+            "finished_s": (None if finished is None
+                           else finished - started_at),
+            "during": _finished_during(finished)})
+        print(f"examples worker: {json.dumps(workers[-1])}", flush=True)
+    waited = time.time() - t0
+    if failed or sorted(rows) != sorted(EXAMPLES):
+        fail("examples: " + "; ".join(failed or ["an example did not run"]))
+    import importlib
+    from pymc3_tpu_torch.examples.suite import example_model
+    for name in EXAMPLES:
+        if name == "minibatch_advi_logistic":
+            continue
+        model = example_model(importlib.import_module(
+            f"pymc3_tpu_torch.examples.{name}"))
+        _on_card(model, name)
+        rows[name]["logp_grad_ms"] = _logp_grad_ms(model, 256, calls=20)
+    print("examples logp+grad ms at 256 chains: " + json.dumps(
+        {n: r["logp_grad_ms"] for n, r in rows.items()
+         if "logp_grad_ms" in r}), flush=True)
+    print(json.dumps({"phase": "examples", "examples": rows,
+                      "gp_example_launches": launches, "workers": workers,
+                      "waited_s": waited, "card": card}), flush=True)
+    return launches
+
+
+def read_traces(started):
+    """Phase 26 as the full run makes it: read from the worker that
+    :func:`start_workers` started after phase 5 (its lines are printed
+    here), and fail if it failed. Its radon run at 2048 chains is bound by
+    its process's host dispatch, as the examples are, so it runs beside
+    phases 7-24 instead of adding its wall to theirs; its walls are taken
+    beside them."""
+    _, worker, started_at = started
+    t0 = time.time()
+    code, lines = _read_worker(worker)
+    finished = None
+    for line in lines:
+        if line.startswith("TRACES "):
+            finished = json.loads(line[len("TRACES "):])["finished_at"]
+        else:
+            print(line, flush=True)
+    print("traces worker: " + json.dumps({
+        "exit": code, "finished_s": (None if finished is None
+                                     else finished - started_at),
+        "during": _finished_during(finished),
+        "waited_s": time.time() - t0}), flush=True)
+    if code != 0 or finished is None:
+        fail(f"traces: the worker exited {code}")
+
+
+def _concat_draws(first, second):
+    """One trace of each chain's draws of ``first`` followed by those of
+    ``second`` (values and statistics)."""
+    from pymc3_tpu_torch.backends.base import MultiTrace
+    from pymc3_tpu_torch.backends.ndarray import NDArray
+    straces = []
+    for c in first.chains:
+        a, b = first._straces[c], second._straces[c]
+        s = NDArray(model=a.model, vars=a.vars)
+        s.chain = c
+        s.samples = {k: np.concatenate([a.samples[k], b.samples[k]])
+                     for k in a.samples}
+        s.sampler_vars = a.sampler_vars
+        s._stats = [{k: np.concatenate([x[k], y[k]]) for k in x}
+                    for x, y in zip(a._stats, b._stats)]
+        s.draw_idx = s.draws = len(a) + len(b)
+        straces.append(s)
+    return MultiTrace(straces)
+
+
+def _nuts_template(model):
+    """A NUTS kernel state of ``model`` (the structure of phase 26's
+    checkpoints) and a function giving the index, in its flattened leaves,
+    of the tensor that ``pick(state)`` returns."""
+    from torch.utils._pytree import tree_flatten
+    from pymc3_tpu_torch.step_methods.hmc.nuts import NUTS
+    q = torch.as_tensor(model.dict_to_array(model.test_point)[None],
+                        device=model.device)
+    state = NUTS(model=model).kernel_init(q)
+    leaves = tree_flatten(state)[0]
+
+    def index_of(pick):
+        target = pick(state)
+        return next(i for i, leaf in enumerate(leaves) if leaf is target)
+    return state, index_of
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_traces(pm, card, tune=150, draws=(30, 30), chains=2048,
+                 small_chains=256):
+    """Phase 6's radon run at 2048 chains (``bench.py``'s model, pooled
+    adaptation, target 0.9) split in two through the trace backends:
+
+    1. tune 150 + draws 30, recording every free variable (a resumed chain
+       starts at its trace's last point, so a trace that lacks a free
+       variable cannot resume: that raises, naming it);
+    2. ``save_trace`` to a temporary directory, then ``load_trace``;
+    3. ``sample(tune=0, draws=30, resume_from=loaded)``.
+
+    Checks: the resumed run's first step size equals the checkpoint's
+    (``exp(log_bar_step) * eps_scale`` of each chain's dual averaging, and
+    the first part's last step size), its mass-matrix diagonal equals the
+    checkpoint's (its own checkpoint, after 30 draws untuned, holds the
+    loaded one's ``var`` exactly); the 60 draws of both parts pass phase
+    6's gate against ``BASELINE_CPU.json`` (moment check of ``mu_a``,
+    R-hat < 1.01). Prints the save and load walls and the bytes written.
+
+    Then ``gelman_schools`` at ``small_chains`` chains, tune 20 + draws 10
+    by ``Metropolis`` (the backends, not the sampler, are under test here:
+    under NUTS, untuned, the three runs took 47 s in a first run), once
+    into NDArray, once through ``trace="text"`` and once through
+    ``trace="sqlite"`` (the shortcuts write under the working directory, a
+    temporary one here), each read back with its backend's ``load``: the
+    card repeats a seed exactly, so every recorded value of the three runs
+    must be equal. The text files hold each float's shortest repr, which
+    reads back to the same float32: the tolerance is 0, as for SQLite's
+    raw bytes."""
+    import tempfile
+    from pymc3_tpu_torch.backends import sqlite as sqlite_backend
+    from pymc3_tpu_torch.backends import text as text_backend
+    from pymc3_tpu_torch.examples.radon import build_model
+    model = build_model(pm)
+    _on_card(model, "traces")
+    kw = dict(chains=chains, model=model, progressbar=False,
+              target_accept=0.9, axis_name="chains_local",
+              record_stats=["diverging", "step_size"],
+              compute_convergence_checks=False)
+    t0 = time.time()
+    first = pm.sample(draws=draws[0], tune=tune, random_seed=2, **kw)
+    torch.cuda.synchronize()
+    t_first = time.time() - t0
+    lacking = pm.point_list_to_multitrace([{"mu_a": np.float32(1.0)}],
+                                          model=model)
+    try:
+        pm.sample(draws=2, tune=0, model=model, progressbar=False,
+                  resume_from=lacking, compute_convergence_checks=False)
+        fail("traces: a trace without every free variable resumed")
+    except ValueError as e:
+        if "sigma_a_log__" not in str(e):
+            fail(f"traces: the refusal does not name the variable: {e}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        path = pm.save_trace(first, os.path.join(tmp, "radon"))
+        t_save = time.time() - t0
+        n_bytes = _dir_bytes(path)
+        t0 = time.time()
+        loaded = pm.load_trace(path, model=model)
+        t_load = time.time() - t0
+    t0 = time.time()
+    second = pm.sample(draws=draws[1], tune=0, random_seed=3,
+                       resume_from=loaded, **kw)
+    torch.cuda.synchronize()
+    t_second = time.time() - t0
+
+    def stat(trace, at):
+        return np.asarray(trace.get_sampler_stats(
+            "step_size", combine=False))[:, at]
+    from pymc3_tpu_torch.sampling import checkpoint_leaves
+    template, index_of = _nuts_template(model)
+    i_bar = index_of(lambda s: s.da.log_bar_step)
+    i_scale = index_of(lambda s: s.eps_scale)
+    i_var = index_of(lambda s: s.pot.var)
+    ckpt = checkpoint_leaves(template, [loaded._straces[c].warmup_state
+                                        for c in loaded.chains])
+    eps_ckpt = np.exp(ckpt[i_bar].astype(np.float64)) \
+        * ckpt[i_scale].astype(np.float64)
+    eps_err = float(np.max(np.abs(stat(second, 0) / eps_ckpt - 1.0)))
+    if not np.array_equal(stat(second, 0), stat(first, -1)) \
+            or not eps_err < 1e-6:
+        fail(f"traces: the resumed step sizes differ from the checkpoint's "
+             f"(relative error {eps_err:.2e})")
+    var_in = ckpt[i_var]
+    var_out = checkpoint_leaves(template, [
+        second._straces[c].warmup_state for c in second.chains])[i_var]
+    if not np.array_equal(var_in, var_out):
+        fail("traces: the resumed run's mass matrix differs from the "
+             "checkpoint's")
+    both = _concat_draws(first, second)
+    gate = _gate(pm, both, ["mu_a"], _baseline()["radon"]["moments"],
+                 t_first + t_second,
+                 f"traces: radon chains={chains} tune={tune} draws="
+                 f"{draws[0]}+{draws[1]} (saved, loaded, resumed)")
+    print(f"traces: save_trace {t_save:.2f} s, load_trace {t_load:.2f} s, "
+          f"{n_bytes} bytes in {chains} chain directories; first part "
+          f"{t_first:.2f} s, resumed part {t_second:.2f} s; step sizes "
+          f"equal the checkpoint's to {eps_err:.1e}, mass matrix equal",
+          flush=True)
+
+    from pymc3_tpu_torch.examples.gelman_schools import build_model as schools
+    small = schools()
+    names = [v.name for v in small.unobserved_RVs]
+    skw = dict(draws=10, tune=20, chains=small_chains, model=small,
+               progressbar=False, random_seed=5,
+               compute_convergence_checks=False)
+    here = os.getcwd()
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.time()
+            ref = pm.sample(step=pm.Metropolis(model=small), **skw)
+            walls["ndarray"] = time.time() - t0
+            read = {}
+            for backend, module, where in (
+                    ("text", text_backend, "mcmc"),
+                    ("sqlite", sqlite_backend, "mcmc.sqlite")):
+                t0 = time.time()
+                pm.sample(trace=backend, step=pm.Metropolis(model=small),
+                          **skw)
+                walls[backend] = time.time() - t0
+                read[backend] = module.load(os.path.join(tmp, where),
+                                            model=small)
+        finally:
+            os.chdir(here)
+        for backend, got in read.items():
+            if got.nchains != small_chains or len(got) != len(ref):
+                fail(f"traces: {backend} read back {got.nchains} chains of "
+                     f"{len(got)} draws")
+            for v in names:
+                for c in (0, small_chains // 2, small_chains - 1):
+                    if not np.array_equal(
+                            np.asarray(got.get_values(v, chains=[c])),
+                            np.asarray(ref.get_values(v, chains=[c]))):
+                        fail(f"traces: {backend}'s {v} of chain {c} differs "
+                             "from the NDArray run's")
+    print(f"traces: gelman_schools chains={small_chains} through NDArray, "
+          f"text and SQLite: every value read back equal; walls "
+          + json.dumps({k: round(v, 2) for k, v in walls.items()}),
+          flush=True)
+    print(json.dumps({"phase": "traces", "radon": gate, "save_s": t_save,
+                      "load_s": t_load, "bytes": n_bytes,
+                      "first_part_s": t_first, "resumed_part_s": t_second,
+                      "step_size_rel_err": eps_err,
+                      "small_walls_s": walls, "card": card}), flush=True)
+
+
 def _gp_wall(other):
     """Phase 4 alone in four fresh processes: other, this, this, other."""
     code = ("import sys, torch; sys.path[:0] = ['.', 'scripts']; "
@@ -2554,13 +3170,15 @@ def main():
     parser.add_argument("--gp-wall", metavar="DIR",
                         help="phase 4 alone: DIR, this, this, DIR")
     parser.add_argument("--only", metavar="NAMES",
-                        help="phases 1-3, then only these of phases 6-24 "
+                        help="phases 1-3, then only these of phases 6-26 "
                         "(comma-separated: " + ",".join(LATER_PHASES) + ")")
     args = parser.parse_args()
 
     t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    # a time limit's SIGTERM still runs the exit handlers that stop workers
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     sys.path.insert(0, ROOT)
     import pymc3_tpu_torch as pm
     from pymc3_tpu_torch.ops import gp_cov
@@ -2581,7 +3199,7 @@ def main():
         print(f"quick: ok in {time.time() - t_start:.1f} s", flush=True)
         return
     runners = {
-        "radon": lambda: phase_radon(pm), "best": lambda: phase_best(pm),
+        "best": lambda: phase_best(pm),
         "mixture": lambda: phase_mixture(pm),
         "disaster": lambda: phase_disaster(pm, card),
         "binary": lambda: phase_binary(pm, card),
@@ -2597,10 +3215,18 @@ def main():
         "smc_gp": lambda: phase_smc_gp(pm, gp_cov, card),
         "gp_sparse": lambda: phase_gp_sparse(pm, gp_cov, card),
         "ode": lambda: phase_ode(pm, gp_cov, card),
-        "glm": lambda: phase_glm(pm, gp_cov, card)}
+        "glm": lambda: phase_glm(pm, gp_cov, card),
+        "examples": lambda: phase_examples(card, started[0]),
+        "traces": lambda: phase_traces(pm, card)}
+    # phase 6's radon run is the first part of phase 26
+    runners["radon"] = runners["traces"]
+    started = [None]
     if args.only:
+        if "examples" in args.only.split(","):
+            started[0] = start_workers(card, traces=False)
         for name in args.only.split(","):
             t0 = time.time()
+            PHASE_STARTS.append((name, t0))
             runners[name]()
             print(f"{name}: {time.time() - t0:.1f} s", flush=True)
         print(f"only: ok in {time.time() - t_start:.1f} s", flush=True)
@@ -2609,9 +3235,14 @@ def main():
     predict_launches = phase_predict(gp_cov, model, gp,
                                      _posterior_mean_point(model, trace))
     del model, gp, trace
+    # phases 25-26 run in worker processes beside phases 7-24 (see
+    # phase_examples and read_traces)
+    started[0] = start_workers(card)
+    runners["traces"] = lambda: read_traces(started[0])
     walls = {}
     for name in LATER_PHASES:
         t0 = time.time()
+        PHASE_STARTS.append((name, t0))
         out = runners[name]()
         walls[name] = round(time.time() - t0, 1)
         print(f"{name}: {walls[name]} s", flush=True)
@@ -2623,7 +3254,9 @@ def main():
             smc_launches = out
         if name == "gp_sparse":
             fitc_launches = out
-    print(f"phases 1-24: {time.time() - t_start:.1f} s; each of 6-24 "
+        if name == "examples":
+            example_launches = out
+    print(f"phases 1-26: {time.time() - t_start:.1f} s; each of 7-26 "
           f"{json.dumps(walls)}", flush=True)
 
     replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",
@@ -2645,6 +3278,7 @@ def main():
             "launches_gp_sparse_smc": fitc_launches["smc"][direction],
             "launches_gp_sparse_logp_grad": fitc_launches["logp_grad"][
                 direction],
+            "launches_examples": example_launches[direction],
             "max_abs_err": max_err[direction],
             "ms": row["device_ms"], "device_ms": row["device_ms"],
             "issue_ms": row["issue_ms"], "plain_ms": row["plain_ms"],

@@ -10,7 +10,9 @@ discrete distributions, the multivariate and time-series families, every transfo
 fixed mass matrices, the Metropolis family, ``Slice``, ``EllipticalSlice``,
 ``ElemwiseCategorical`` and ``CompoundStep`` with automatic step
 assignment, ``sample()`` and ``iter_sample()``, prior and posterior
-predictive draws, traces, diagnostics on the host and on the card, model
+predictive draws, traces (in memory, saved and loaded with their warmup
+state, text, SQLite, HDF5, InferenceData) with ``sample(resume_from=...)``,
+missing-value imputation, diagnostics on the host and on the card, model
 comparison (``loo``, ``waic``, ``compare``), ODEs (``ode``), GLMs
 (``GLM``, ``LinearComponent``), variational inference (``fit``,
 ADVI, full-rank ADVI, SVGD, ASVGD, normalizing flows), ``SGLD``, and the MAP
@@ -48,8 +50,14 @@ from .step_methods.metropolis import (
     NormalProposal, UniformProposal, CauchyProposal, LaplaceProposal,
     PoissonProposal, MultivariateNormalProposal,
 )
-from .backends.base import MultiTrace
-from .backends.ndarray import NDArray
+from . import backends
+from .backends.base import MultiTrace, merge_traces
+from .backends.ndarray import (
+    NDArray, save_trace, load_trace, point_list_to_multitrace,
+)
+from .backends.tracetab import trace_to_dataframe
+from .backends.inferencedata import InferenceData, to_inference_data
+from .backends.report import SamplerReport, SamplerWarning, WarningType
 from .sampling import (
     sample, iter_sample, init_nuts, sample_prior_predictive, sample_posterior_predictive,
     fast_sample_posterior_predictive, sample_posterior_predictive_w,

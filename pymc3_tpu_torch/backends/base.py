@@ -17,7 +17,7 @@ import numpy as np
 from ..model import modelcontext
 from ..util import get_var_name
 
-__all__ = ["BaseTrace", "MultiTrace", "merge_traces"]
+__all__ = ["BackendError", "BaseTrace", "MultiTrace", "merge_traces"]
 
 
 class BackendError(Exception):
@@ -254,6 +254,53 @@ class MultiTrace:
             names |= strace.stat_names
         self._stat_names_cache = names
         return names
+
+    def add_values(self, vals, overwrite=False) -> None:
+        """Attach derived per-draw series to every chain (API parity with
+        the reference's ``MultiTrace.add_values``, ``base.py:394``).
+
+        Each value is read in the layout ``get_values(combine=True)``
+        produces — the chain-major concatenation of
+        ``nchains * len(self)`` rows — and split back into per-chain
+        blocks stored on each chain's backend.
+        """
+        n_draws = len(self)
+        for name, series in vals.items():
+            exists = name in self.varnames
+            if exists and not overwrite:
+                raise ValueError(f"Variable name {name} already exists.")
+            arr = np.asarray(series)
+            expected = n_draws * self.nchains
+            n_rows = arr.shape[0] if arr.ndim else 0
+            if n_rows != expected:
+                warnings.warn(
+                    f"add_values: {name!r} has {n_rows} rows but the trace "
+                    f"holds {expected} (chains * iterations).")
+            table = arr.reshape((self.nchains, n_draws, -1))
+            if table.shape[-1] == 1:
+                table = table[..., 0]
+            for cid, block in zip(self.chains, table):
+                strace = self._straces[cid]
+                if not hasattr(strace, "samples"):
+                    raise BackendError(
+                        f"{type(strace).__name__} does not support "
+                        "post-hoc add_values")
+                strace.samples[name] = block
+                if name not in strace.varnames:
+                    strace.varnames.append(name)
+
+    def remove_values(self, name) -> None:
+        """Drop a variable from every chain (API parity with the
+        reference's ``MultiTrace.remove_values``, ``base.py:448``)."""
+        if name not in self.varnames:
+            raise KeyError(f"Unknown variable {name}")
+        for strace in self._straces.values():
+            strace.vars = [v for v in strace.vars
+                           if get_var_name(v) != name]
+            if name in strace.varnames:
+                strace.varnames.remove(name)
+            if hasattr(strace, "samples"):
+                strace.samples.pop(name, None)
 
     def _chain_list(self, chains):
         """Normalize a chains argument to a list of chain ids."""

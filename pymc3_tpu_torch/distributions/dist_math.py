@@ -100,14 +100,46 @@ def zvalue(value, mu=0.0, sigma=1.0):
     return (value - mu) / sigma
 
 
+def log_ndtr(z):
+    """log Phi(z), stable in both tails, from operations that
+    ``torch.func.vmap`` batches and that run as the card's built-in kernels:
+    ``log1p(-erfc(z/√2) / 2)`` above 0, ``log(erfc(-z/√2) / 2)`` down to
+    ``-T``, and below it the asymptotic series ``-z²/2 - log(-z) -
+    log(2π)/2 + log1p(Σ_k (-1)^k (2k-1)!! / z^2k)`` (six terms; T = 10 in
+    float32, 20 in float64, where erfc is still normal and the series'
+    first omitted term is below the dtype's rounding). The same function as
+    ``torch.special.log_ndtr``, which has no batching rule (under ``vmap``
+    it runs once per lane) and, like ``erfcx``, is compiled at run time on
+    the card at its first call. Each branch sees only its own part of the
+    line, so the others' gradients stay finite."""
+    t = 20.0 if z.dtype == torch.float64 else 10.0
+    lo = torch.clamp(z, max=-t)
+    mid = torch.clamp(z, min=-t, max=0.0)
+    hi = torch.clamp(z, min=0.0)
+    inv = 1.0 / (lo * lo)
+    series, term = torch.zeros_like(lo), torch.ones_like(lo)
+    for k in range(1, 7):
+        term = term * (-(2 * k - 1)) * inv
+        series = series + term
+    tail = -0.5 * lo * lo - torch.log(-lo) - _HALF_LOG_2PI \
+        + torch.log1p(series)
+    left = torch.log(0.5 * torch.erfc(-mid * _SQRT1_2))
+    right = torch.log1p(-0.5 * torch.erfc(hi * _SQRT1_2))
+    return torch.where(z < -t, tail, torch.where(z < 0, left, right))
+
+
+_SQRT1_2 = 0.7071067811865476
+_HALF_LOG_2PI = 0.9189385332046727
+
+
 def normal_lcdf(mu, sigma, x):
     """log Phi((x - mu) / sigma), stable in both tails (cf. ``dist_math.py:105``)."""
-    return torch.special.log_ndtr((x - mu) / sigma)
+    return log_ndtr((x - mu) / sigma)
 
 
 def normal_lccdf(mu, sigma, x):
     """log(1 - Phi((x - mu) / sigma)) (cf. ``dist_math.py:114``)."""
-    return torch.special.log_ndtr(-(x - mu) / sigma)
+    return log_ndtr(-(x - mu) / sigma)
 
 
 def _logdiffexp(a, b):

@@ -12,8 +12,7 @@ from pathlib import Path
 
 import numpy as np
 
-DATA = Path(__file__).resolve().parents[2] / "pymc3_tpu" / "examples" / \
-    "data" / "radon.csv"
+DATA = Path(__file__).resolve().parent / "data" / "radon.csv"
 
 __all__ = ["load_radon", "load_radon_columns", "build_model"]
 

@@ -651,3 +651,37 @@ def kron_model(pm, dense=False):
             pm.gp.MarginalKron(cov_funcs=covs).marginal_likelihood(
                 "y", Xs=[x1, x2], y=y, sigma=sigma)
     return model
+
+
+# The examples of ``chip_smoke.py``'s phase 25 that are gated against a JAX
+# reference run (``tests/torch_reference.py examples``): the variables
+# compared and the NUTS arguments of the example's own ``run()``.
+# ``factor_potential`` and ``samplers_mvnormal`` have closed forms, and
+# ``minibatch_advi_logistic`` is gated against two JAX fits
+# (``EXAMPLE_ADVI``).
+EXAMPLE_GATES = {
+    "gelman_schools": (["mu", "tau_log__", "eta"], {}),
+    "gelman_bioassay": (["alpha", "beta"], {}),
+    "baseball": (["phi", "kappa_log"], {"target_accept": 0.9}),
+    "lightspeed_example": (["beta", "sigma"], {}),
+    "censored_data": (["mu", "sigma"], {}),
+    "glm_hierarchical": (["mu_a", "mu_b"], {}),
+    "custom_dists": (["intercept", "slope", "sigma"], {}),
+    "arbitrary_stochastic": (["custom"], {}),
+    "rankdata_ordered": (["mu_hat"], {}),
+    "arma_example": (["sigma", "theta", "phi", "mu"],
+                     {"target_accept": 0.9}),
+    "gp_example": (["ls", "eta", "sigma"], {"target_accept": 0.9}),
+    "lasso_missing": (["beta", "s", "p_disab", "p_mother", "sib_mean"], {}),
+}
+# minibatch ADVI on the example's data (``make_data()``: 50,000 rows,
+# d = 10, batches of 500): Adam at rate 0.02 for this many steps
+EXAMPLE_ADVI = {"steps": 1000, "learning_rate": 0.02, "seeds": (1, 2)}
+
+
+def example_model(module):
+    """The model of an example module, built by its own builder."""
+    if hasattr(module, "build_marginal"):
+        return module.build_marginal(*module.make_data())[0]
+    out = module.build_model()
+    return out[0] if isinstance(out, tuple) else out

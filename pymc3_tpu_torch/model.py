@@ -14,6 +14,7 @@ on the configured device (``config.device``, the card by default).
 from __future__ import annotations
 
 import threading
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -229,16 +230,34 @@ class ObservedRV(NamedNode):
     model's device; data given as a node (``Data``, ``Minibatch``) is
     evaluated at every logp, so it reads the container's current value or
     the minibatch the environment selects. ``total_size`` scales the term
-    from the data's rows to the full data set's."""
+    from the data's rows to the full data set's.
+
+    Partly observed data (a masked array, or float data holding NaN) is
+    imputed (cf. ``model.py:236-320``): the missing entries become a
+    ``name_missing`` free variable with no density of its own
+    (``NoDistribution`` with ``parent_dist`` set), scattered into the data
+    at their flat indices at every evaluation, with no host read."""
 
     def __init__(self, name, data, distribution, model, total_size=None):
         self.name = name
         self.distribution = distribution
         self.model = model
         self.data_node = None
+        self.missing_values = None
+        self._missing_idx = None
         if isinstance(data, Node) and not isinstance(data, ConstantNode):
             self.data_node = data
-        data = np.asarray(data.test_value if isinstance(data, Node) else data)
+        if isinstance(data, Node):
+            data = data.test_value
+        mask = None
+        if isinstance(data, np.ma.MaskedArray):
+            mask = np.ma.getmaskarray(data)
+            data = np.asarray(data.filled(0))
+        else:
+            data = np.asarray(data)
+            if data.dtype.kind == "f" and np.isnan(data).any():
+                mask = np.isnan(data)
+                data = np.nan_to_num(data, nan=0.0)
         if data.dtype.kind == "f":
             data = floatX(data)
         self.data = data
@@ -246,19 +265,49 @@ class ObservedRV(NamedNode):
         self._data = torch.as_tensor(data, device=model.device)
         if not distribution.shape and data.ndim > 0:
             distribution.shape = tuple(data.shape)
+        if mask is not None and mask.any():
+            self._add_missing(mask)
         self.scaling = _get_scaling(total_size, data.shape, data.ndim)
+
+    def _add_missing(self, mask):
+        from .distributions.distribution import NoDistribution
+        from .exceptions import ImputationWarning
+        warnings.warn(
+            f"Data in {self.name} contains missing values and will be "
+            "automatically imputed from the sampling distribution.",
+            ImputationWarning)
+        idx = np.nonzero(mask.ravel())[0]
+        dist = self.distribution
+        testval = np.broadcast_to(dist.default(), mask.shape).ravel()[idx]
+        fake = NoDistribution.dist(shape=(idx.size,), dtype=dist.dtype,
+                                   testval=testval, parent_dist=dist)
+        missing_rv = FreeRV(self.name + "_missing", fake, self.model)
+        self.model.free_RVs.append(missing_rv)
+        self.model.add_named_variable(missing_rv)
+        self.model.missing_values.append(missing_rv)
+        self.missing_values = missing_rv
+        self._missing_idx = torch.as_tensor(idx, dtype=torch.int64,
+                                            device=self.model.device)
 
     @property
     def dtype(self):
         return self.data.dtype
 
-    def _eval_default(self, env, memo):
+    def value_node_eval(self, env, memo):
+        """The observed value, with the imputed entries scattered in."""
         if self.data_node is not None:
             return _ev(self.data_node, env, memo)
-        return self._data
+        if self.missing_values is None:
+            return self._data
+        miss = _ev(self.missing_values, env, memo).to(self._data.dtype)
+        flat = self._data.reshape(-1).scatter(0, self._missing_idx, miss)
+        return flat.reshape(self._data.shape)
+
+    def _eval_default(self, env, memo):
+        return self.value_node_eval(env, memo)
 
     def logp_env(self, env, memo, jacobian=True):
-        lp = torch.sum(self.distribution.logp(self._eval_default(env, memo),
+        lp = torch.sum(self.distribution.logp(self.value_node_eval(env, memo),
                                               env, memo))
         return lp if self.scaling == 1.0 else self.scaling * lp
 
@@ -311,6 +360,7 @@ class Model(WithMemoization, metaclass=ContextMeta):
             self.observed_RVs = self.parent.observed_RVs
             self.deterministics = self.parent.deterministics
             self.potentials = self.parent.potentials
+            self.missing_values = self.parent.missing_values
             self._factor_order = self.parent._factor_order
         else:
             self.named_vars: Dict[str, Node] = {}
@@ -318,6 +368,7 @@ class Model(WithMemoization, metaclass=ContextMeta):
             self.observed_RVs: List[ObservedRV] = []
             self.deterministics: List[DeterministicRV] = []
             self.potentials: List[Node] = []
+            self.missing_values: List[FreeRV] = []
             self._factor_order: List = []  # declaration-ordered factors
 
     @property

@@ -26,8 +26,9 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
-from .backends.base import MultiTrace
+from .backends.base import BaseTrace, MultiTrace
 from .backends.ndarray import NDArray
 from .backends.report import SamplerReport, SamplerWarning, WarningType
 from .config import floatX, torch_floatX
@@ -122,14 +123,6 @@ _STEPPER_NAMES = ("nuts", "hmc", "metropolis", "slice", "DEMetropolis",
                   "DEMetropolisZ", "binary_metropolis",
                   "binary_gibbs_metropolis", "categorical_gibbs_metropolis")
 
-# keywords of the JAX package's sample() that later slices of the port bring
-_LATER = {
-    "resume_from": "the port's bench slice (ROADMAP item 6)",
-    "devices": "the multi-GPU slice (ROADMAP item 13)",
-    "return_inferencedata": "the backends slice (ROADMAP item 14)",
-    "idata_kwargs": "the backends slice (ROADMAP item 14)",
-}
-
 
 def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
            trace=None, chain_idx=0, chains=None, cores=None, tune=500,
@@ -160,17 +153,26 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
     once, with ``draw.draw_idx`` the draws done and ``draw.is_last``. A
     ``KeyboardInterrupt``, from the callback or the user, ends the run with
     the draws of the blocks done so far.
+
+    ``trace`` may also be a backend for a one-chain run, or the name of
+    one (``"text"``, ``"sqlite"``, ``"hdf5"``); a backend without sampler
+    statistics records the draws only. Every chain's trace carries a
+    warmup-state checkpoint (its kernel state: step size, mass matrix and
+    their adaptation state), which ``save_trace``/``load_trace`` keep.
+    ``resume_from=trace`` continues such a run: each chain starts at its
+    trace's last point, with its checkpointed state when there is one
+    (with ``tune=0`` nothing is tuned again). ``return_inferencedata=True``
+    returns ``to_inference_data(trace, **idata_kwargs)``.
     """
     model = modelcontext(model)
     if not model.free_RVs:
         raise ValueError("The model does not contain any free variables.")
-    asked = {"resume_from": kwargs.pop("resume_from", None),
-             "devices": devices, "return_inferencedata": return_inferencedata,
-             "idata_kwargs": idata_kwargs}
-    for name, value in asked.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"sample({name}=...) comes with {_LATER[name]}")
+    if devices is not None:
+        raise NotImplementedError(
+            "sample(devices=...) comes with the multi-GPU slice (ROADMAP "
+            "item 13)")
+    resume_from = kwargs.pop("resume_from", None)
+    chains_requested = chains
     if chains is None:
         chains = max(4, cores or 0)
     step_kwargs = {name: dict(kwargs.pop(name)) for name in _STEPPER_NAMES
@@ -225,7 +227,11 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
 
     # every chain of a run without the NUTS initialization starts at the
     # test point, as in the JAX package (no jitter)
-    if start is not None:
+    warm_states = None
+    if resume_from is not None:
+        chains, chain_starts, warm_states = _resume_points(
+            model, resume_from, chains_requested)
+    elif start is not None:
         chain_starts = start
     elif start_points is not None:
         chain_starts = start_points
@@ -235,13 +241,15 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
     q0 = np.stack([model.dict_to_array(_complete_point(model, p))
                    for p in chain_starts]).astype(floatX())
     _check_bad_init(model, chain_starts[0])
-    trace_vars = _resolve_trace_vars(model, trace)
+    trace, trace_vars = _resolve_trace_vars(model, trace)
+    if isinstance(trace, BaseTrace) and chains > 1:
+        raise ValueError("Cannot reuse a single trace for multiple chains")
 
     keep_from = tune if discard_tuned_samples else 0
     t_start = time.time()
     result = _device_sample(model, step, q0, draws, tune, random_seed,
                             progressbar, keep_from, trace_vars, record_stats,
-                            block_size, callback)
+                            block_size, callback, warm_states)
     t_sampling = time.time() - t_start
     if result["interrupted"]:
         if result["n_kept"] == 0:
@@ -253,7 +261,7 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
                      "draws per chain.")
 
     mtrace = MultiTrace(_flush_to_traces(model, step, result, chain_idx,
-                                         trace_vars))
+                                         trace_vars, trace))
     mtrace._report = SamplerReport()
     mtrace.report._n_tune = tune
     mtrace.report._n_draws = draws
@@ -266,7 +274,42 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
         else:
             mtrace.report._run_convergence_checks(mtrace, model)
     mtrace.report._log_summary()
+    if return_inferencedata:
+        from .backends.inferencedata import to_inference_data
+        idata = to_inference_data(mtrace, model=model,
+                                  **(idata_kwargs or {}))
+        idata.report = mtrace.report
+        return idata
     return mtrace
+
+
+def _resume_points(model, resume_from, chains_requested):
+    """The chain count, each chain's start (its trace's last point) and
+    each chain's warmup-state checkpoint (``None`` for all when any chain
+    lacks one) of a run that continues ``resume_from`` (cf.
+    ``sampling.py:239-255``)."""
+    if chains_requested is not None \
+            and resume_from.nchains != chains_requested:
+        raise ValueError(
+            f"resume_from has {resume_from.nchains} chains but "
+            f"chains={chains_requested} was requested")
+    lacking = [rv.name for rv in model.free_RVs
+               if rv.name not in resume_from.varnames]
+    if lacking:
+        raise ValueError(
+            f"resume_from does not record the free variable(s) {lacking}: "
+            "a resumed chain starts at its trace's last point, which needs "
+            "every free variable")
+    chain_starts = [resume_from.point(-1, chain=c)
+                    for c in resume_from.chains]
+    warm_states = [getattr(resume_from._straces[c], "warmup_state", None)
+                   for c in resume_from.chains]
+    if any(w is None for w in warm_states):
+        _log.warning("resume_from trace carries no warmup-state "
+                     "checkpoint; resuming from last points with "
+                     "fresh adaptation state")
+        warm_states = None
+    return resume_from.nchains, chain_starts, warm_states
 
 
 def _members(step):
@@ -318,12 +361,21 @@ def _check_bad_init(model, start):
 
 
 def _resolve_trace_vars(model, trace):
-    """A list-valued ``trace`` selects the unobserved variables to record."""
-    if trace is None:
-        return model.unobserved_RVs
+    """The backend argument and the variables to record: a list-valued
+    ``trace`` selects unobserved variables (and the NDArray backend); a
+    backend instance or a shortcut name records every unobserved one."""
     if not isinstance(trace, (list, tuple)):
-        raise NotImplementedError("only the NDArray trace is ported; pass "
-                                  "trace=None or a list of variable names")
+        if trace is not None and not isinstance(trace, (str, BaseTrace)):
+            raise TypeError(f"trace must be a list of names, a backend or "
+                            f"a backend's name; got {trace!r}")
+        if isinstance(trace, str):
+            from .backends import _shortcuts
+            if trace not in _shortcuts:
+                raise ValueError(f"Unknown trace backend {trace!r}; known: "
+                                 f"{sorted(_shortcuts)}")
+        vars_ = trace.vars if isinstance(trace, BaseTrace) \
+            else model.unobserved_RVs
+        return trace, list(vars_)
     by_name = {v.name: v for v in model.unobserved_RVs}
     out = []
     for item in trace:
@@ -332,12 +384,12 @@ def _resolve_trace_vars(model, trace):
             raise ValueError(f"trace list entries must name unobserved model "
                              f"variables; got {item!r}")
         out.append(by_name[name])
-    return out
+    return None, out
 
 
 def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
                    keep_from, trace_vars, record_stats, block_size=None,
-                   callback=None):
+                   callback=None, warm_states=None):
     """Run warmup and draws over all chains at once, in blocks of
     ``block_size`` draws (tuning included) that end with one copy to the
     host and one call of ``callback``.
@@ -347,7 +399,9 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
     through ``population_kernel_step``. Returns ``values`` {name: (chains,
     n_kept, ...)} and ``stats``, one {name: (chains, n_kept)} per stepper
     that generates statistics, on the host, the final kernel state, and
-    whether a ``KeyboardInterrupt`` cut the run short.
+    whether a ``KeyboardInterrupt`` cut the run short. ``warm_states``
+    (per-chain checkpoints of an earlier run) replace the fresh kernel state
+    where they match it, and then the step-size probe is skipped.
     """
     device = model.device
     chains = q0.shape[0]
@@ -357,12 +411,14 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
     noise = GeneratorNoise(gen, chains, device)
     q = torch.as_tensor(q0, dtype=torch_floatX(), device=device)
 
-    if tune > 0:
+    if tune > 0 and warm_states is None:
         for m in _members(step):
             if getattr(m, "adapt_step_size", False) and \
                     hasattr(m, "step_size") and hasattr(m, "potential"):
                 m.step_size = find_reasonable_eps(m, q, noise)
     state = step.kernel_init(q)
+    if warm_states is not None:
+        state = _restore_warmup_state(step, state, warm_states)
     kernel_step = (step.population_kernel_step
                    if getattr(step, "population_based", False)
                    else step.kernel_step)
@@ -449,26 +505,135 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
             "n_kept": n_kept, "chains": chains, "interrupted": interrupted}
 
 
-def _flush_to_traces(model, step, result, chain_idx, trace_vars):
-    """Record the (chains, n_kept, ...) host blocks into one NDArray per
-    chain, with one dictionary of statistics per stepper."""
+def _flush_to_traces(model, step, result, chain_idx, trace_vars,
+                     trace_arg=None):
+    """Record the (chains, n_kept, ...) host blocks into one backend per
+    chain (cf. ``_flush_to_traces``, ``sampling.py:694``), with one
+    dictionary of statistics per stepper where the backend keeps them, and
+    each chain's warmup-state checkpoint."""
     values, stats = result["values"], result["stats"]
     nkept = result["n_kept"]
+    chains = result["chains"]
     # only the statistics that were kept (a record_stats subset trims them)
     dtypes = [{k: dt for k, dt in full.items() if k in kept}
               for full, kept in zip(step.stats_dtypes, stats)]
+    warm = _warmup_checkpoints(step, result["final_state"], chains)
     traces = []
-    for ci in range(result["chains"]):
-        strace = NDArray(model=model, vars=trace_vars)
-        strace.setup(nkept, chain_idx + ci, dtypes)
+    for ci in range(chains):
+        if isinstance(trace_arg, BaseTrace):
+            strace = trace_arg
+        elif isinstance(trace_arg, str):
+            from .backends import _shortcuts
+            shortcut = _shortcuts[trace_arg]
+            strace = shortcut["backend"](shortcut["name"], model=model,
+                                         vars=trace_vars)
+        else:
+            strace = NDArray(model=model, vars=trace_vars)
+        keep_stats = strace.supports_sampler_stats
+        strace.setup(nkept, chain_idx + ci, dtypes if keep_stats else None)
         if nkept:
             strace.record_batch(
                 {k: v[ci] for k, v in values.items()}, nkept,
                 [{k: kept[k][ci].astype(dt) for k, dt in dts.items()}
-                 for dts, kept in zip(dtypes, stats)])
+                 for dts, kept in zip(dtypes, stats)] if keep_stats
+                else None)
+        strace.warmup_state = warm[ci]
         strace.close()
         traces.append(strace)
     return traces
+
+
+def _warmup_checkpoints(step, final_state, chains):
+    """One checkpoint a chain, a dictionary of a few arrays: the tensors of
+    the kernel state, flattened as a pytree, that have a chain dimension,
+    that chain's rows raveled and joined by dtype into ``rows_<dtype>``
+    (with ``per_chain`` the indices of those tensors, in order); the others
+    whole as ``shared{i}``; each stepper's held step size as
+    ``step_size{j}``; and the state's structure as ``spec``. Few arrays,
+    because a saved trace holds one npz member per array and chain. Each
+    tensor crosses to the host once."""
+    leaves, spec = tree_flatten(final_state)
+    common = {"spec": np.array(str(spec))}
+    for j, m in enumerate(_members(step)):
+        if hasattr(m, "step_size"):
+            common[f"step_size{j}"] = np.array(m.step_size)
+    per_chain, rows = [], defaultdict(list)
+    for i, leaf in enumerate(leaves):
+        if not torch.is_tensor(leaf):
+            continue
+        arr = leaf.detach().cpu().numpy()
+        if arr.ndim > 0 and arr.shape[0] == chains:
+            per_chain.append(i)
+            rows[arr.dtype.name].append(arr.reshape(chains, -1))
+        else:
+            common[f"shared{i}"] = arr
+    common["per_chain"] = np.array(per_chain, dtype=np.int64)
+    joined = {f"rows_{k}": np.concatenate(v, axis=1) for k, v in rows.items()}
+    return [dict(common, **{k: v[ci] for k, v in joined.items()})
+            for ci in range(chains)]
+
+
+def checkpoint_leaves(template, warm_states):
+    """The kernel-state tensors of per-chain checkpoints written by
+    :func:`_warmup_checkpoints`, as numpy arrays in the order of
+    ``tree_flatten(template)`` (``(chains, ...)`` where the checkpoint has a
+    chain dimension; ``None`` for a leaf that is not a tensor). Raises
+    ``ValueError`` or ``KeyError`` when the checkpoints do not match the
+    structure of ``template``, a kernel state of the current stepper."""
+    leaves, spec = tree_flatten(template)
+    first = warm_states[0]
+    if str(first.get("spec")) != str(spec):
+        raise ValueError("the state's structure differs")
+    per_chain = set(np.asarray(first["per_chain"]).tolist())
+    rows = {k[len("rows_"):]: np.stack([np.asarray(w[k]) for w in warm_states])
+            for k in first if k.startswith("rows_")}
+    offset = defaultdict(int)
+    out = []
+    for i, leaf in enumerate(leaves):
+        if not torch.is_tensor(leaf):
+            out.append(None)
+            continue
+        trailing = tuple(leaf.shape[1:])
+        if i in per_chain:
+            dtype = str(leaf.dtype).replace("torch.", "")
+            size = int(np.prod(trailing, dtype=np.int64))
+            block = rows[dtype][:, offset[dtype]:offset[dtype] + size]
+            if block.shape[1] != size:
+                raise ValueError(f"leaf{i}: too few values in the checkpoint")
+            offset[dtype] += size
+            arr = block.reshape((len(warm_states),) + trailing)
+        else:
+            arr = np.asarray(first[f"shared{i}"])
+            if arr.shape[1:] != trailing:
+                raise ValueError(f"leaf{i}: {arr.shape} != "
+                                 f"{tuple(leaf.shape)}")
+        out.append(arr)
+    if any(offset[k] != v.shape[1] for k, v in rows.items()):
+        raise ValueError("the checkpoint holds values the state does not")
+    return out
+
+
+def _restore_warmup_state(step, template, warm_states):
+    """The kernel state of per-chain checkpoints written by
+    :func:`_warmup_checkpoints` (cf. ``_restore_warmup_state``,
+    ``sampling.py:769``), with each stepper's step size set back. A
+    checkpoint of another structure, as from another stepper, is logged
+    and the fresh ``template`` kept."""
+    try:
+        arrays = checkpoint_leaves(template, warm_states)
+    except (KeyError, ValueError) as e:
+        _log.warning(f"warmup-state checkpoint does not match the current "
+                     f"kernel state ({e}); resuming with fresh adaptation")
+        return template
+    leaves, spec = tree_flatten(template)
+    restored = [leaf if arr is None else torch.as_tensor(
+        arr, dtype=leaf.dtype, device=leaf.device)
+        for leaf, arr in zip(leaves, arrays)]
+    first = warm_states[0]
+    for j, m in enumerate(_members(step)):
+        if f"step_size{j}" in first:
+            m.step_size = float(first[f"step_size{j}"])
+    return tree_unflatten(restored, spec)
 
 
 def stop_tuning(step):

@@ -5,12 +5,27 @@ from typing import Dict
 
 import numpy as np
 
-__all__ = ["get_transformed_name", "get_var_name", "update_start_vals"]
+__all__ = ["get_transformed_name", "is_transformed_name",
+           "get_default_varnames", "get_var_name", "update_start_vals"]
 
 
 def get_transformed_name(name: str, transform) -> str:
     """``x`` + Log -> ``x_log__`` (cf. ``pymc3/util.py:50``)."""
     return f"{name}_{transform.name}__"
+
+
+def is_transformed_name(name: str) -> bool:
+    """Does ``name`` look like ``x_log__``?"""
+    return name.endswith("__") and name.count("_") >= 3
+
+
+def get_default_varnames(var_iterator, include_transformed: bool):
+    """The names to show a user: without the transformed ones unless
+    ``include_transformed`` (cf. ``pymc3_tpu/util.py:38``)."""
+    if include_transformed:
+        return list(var_iterator)
+    return [v for v in var_iterator
+            if not is_transformed_name(get_var_name(v))]
 
 
 def get_var_name(var) -> str:

@@ -161,10 +161,131 @@ def test_callback_can_cancel_with_a_partial_trace():
 
 
 @pytest.mark.parametrize("name,value,slice_", [
-    ("resume_from", object(), "bench"), ("devices", [0], "multi-GPU"),
-    ("return_inferencedata", True, "backends"),
-    ("idata_kwargs", {}, "backends")])
+    ("devices", [0], "multi-GPU")])
 def test_later_keywords_name_their_slice(name, value, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         pt.sample(draws=5, tune=5, model=_normal_model(pt), progressbar=False,
                   **{name: value})
+
+
+class TestWarmResume:
+    """``tests/test_sampling_args.py::TestWarmResume`` on the port: a run
+    continued with ``resume_from`` and ``tune=0`` starts from each chain's
+    checkpointed kernel state (step size and mass matrix), also after
+    ``save_trace``/``load_trace``."""
+
+    KW = dict(progressbar=False, compute_convergence_checks=False)
+
+    @pytest.fixture(scope="class")
+    def first(self):
+        model = _normal_model(pt)
+        return model, pt.sample(draws=40, tune=80, chains=4, model=model,
+                                random_seed=1, **self.KW)
+
+    @staticmethod
+    def _eps(trace, at):
+        return np.asarray(trace.get_sampler_stats(
+            "step_size", combine=False))[:, at]
+
+    def test_resume_carries_the_step_size(self, first):
+        model, tr1 = first
+        tr2 = pt.sample(draws=30, tune=0, chains=4, model=model,
+                        random_seed=2, resume_from=tr1, **self.KW)
+        np.testing.assert_allclose(self._eps(tr2, 0), self._eps(tr1, -1),
+                                   rtol=1e-6)
+        assert len(tr2) == 30
+
+    def test_resume_carries_the_mass_matrix(self, first):
+        """With ``tune=0`` the potential's variance does not move: the
+        resumed run's own checkpoint holds the first run's."""
+        model, tr1 = first
+        tr2 = pt.sample(draws=10, tune=0, chains=4, model=model,
+                        random_seed=2, resume_from=tr1, **self.KW)
+        var1 = _diag(tr1)
+        np.testing.assert_array_equal(_diag(tr2), var1)
+        assert not np.allclose(var1, 1.0)
+
+    def test_resume_after_save_and_load(self, first, tmp_path):
+        model, tr1 = first
+        loaded = pt.load_trace(pt.save_trace(tr1, str(tmp_path / "ckpt")),
+                               model=model)
+        tr2 = pt.sample(draws=20, tune=0, chains=4, model=model,
+                        random_seed=4, resume_from=loaded, **self.KW)
+        np.testing.assert_allclose(self._eps(tr2, 0), self._eps(tr1, -1),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(_diag(tr2), _diag(tr1))
+
+    def test_resume_chain_count_mismatch_raises(self, first):
+        model, tr1 = first
+        with pytest.raises(ValueError, match="chains"):
+            pt.sample(draws=10, tune=0, chains=8, model=model,
+                      resume_from=tr1, **self.KW)
+
+    def test_a_trace_without_every_free_variable_cannot_resume(self, first):
+        model, _ = first
+        tr = pt.sample(draws=5, tune=5, chains=2, model=model, random_seed=1,
+                       trace=["mu"], **self.KW)
+        with pytest.raises(ValueError, match="sigma_log__"):
+            pt.sample(draws=5, tune=0, chains=2, model=model,
+                      resume_from=tr, **self.KW)
+
+    def test_a_mismatched_checkpoint_warns_and_starts_fresh(self, first,
+                                                            caplog):
+        """A checkpoint of NUTS given to a Metropolis run: the JAX
+        package's warning, and the fresh state."""
+        model, tr1 = first
+        with caplog.at_level("WARNING", logger="pymc3_tpu_torch"):
+            tr2 = pt.sample(draws=5, tune=0, chains=4, model=model,
+                            step=pt.Metropolis(model=model), random_seed=3,
+                            resume_from=tr1, **self.KW)
+        assert any("does not match the current kernel state" in r.message
+                   for r in caplog.records)
+        assert len(tr2) == 5 and tr2.nchains == 4
+
+    def test_a_trace_without_checkpoints_resumes_from_its_points(self,
+                                                                 caplog):
+        model = _normal_model(pt)
+        points = [{"mu": np.float32(0.2), "sigma_log__": np.float32(0.1)}]
+        tr = pt.point_list_to_multitrace(points, model=model)
+        with caplog.at_level("WARNING", logger="pymc3_tpu_torch"):
+            tr2 = pt.sample(draws=5, tune=5, model=model, random_seed=3,
+                            resume_from=tr, **self.KW)
+        assert tr2.nchains == 1
+        assert any("no warmup-state checkpoint" in r.message
+                   for r in caplog.records)
+
+
+def _diag(trace):
+    """Each chain's adapted mass-matrix diagonal, from its checkpoint: the
+    tensor of the NUTS state that holds the potential's ``var``."""
+    from torch.utils._pytree import tree_flatten
+    from pymc3_tpu_torch.sampling import checkpoint_leaves
+    model = trace._straces[0].model
+    state = pt.NUTS(model=model).kernel_init(torch.zeros(1, model.ndim))
+    index = next(i for i, leaf in enumerate(tree_flatten(state)[0])
+                 if leaf is state.pot.var)
+    return checkpoint_leaves(state, [trace._straces[c].warmup_state
+                                     for c in trace.chains])[index]
+
+
+def test_return_inferencedata_gives_the_jax_packages_groups():
+    """``tests/test_inferencedata.py::test_return_inferencedata`` on the
+    port, with ``idata_kwargs``."""
+    with pt.Model() as model:
+        mu = pt.Normal("mu", 0.0, 1.0)
+        sigma = pt.HalfNormal("sigma", 1.0)
+        pt.Normal("y", mu, sigma, observed=np.array([0.1, -0.3, 0.5, 0.2]))
+    idata = pt.sample(draws=30, tune=30, chains=2, model=model,
+                      random_seed=1, progressbar=False,
+                      compute_convergence_checks=False,
+                      return_inferencedata=True,
+                      idata_kwargs={"log_likelihood": True})
+    assert idata.groups() == ["posterior", "sample_stats", "log_likelihood",
+                              "observed_data"]
+    assert np.asarray(idata.posterior["mu"]).shape == (2, 30)
+    assert "sigma_log__" not in idata.posterior
+    assert "acceptance_rate" in idata.sample_stats
+    assert np.asarray(idata.log_likelihood["y"]).shape == (2, 30, 4)
+    np.testing.assert_allclose(np.asarray(idata.observed_data["y"]),
+                               [0.1, -0.3, 0.5, 0.2], rtol=1e-6)
+    assert idata.report is not None

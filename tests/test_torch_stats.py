@@ -311,3 +311,18 @@ def test_deprecated_aliases():
         return var_names
     with pytest.warns(DeprecationWarning):
         assert f(varnames=["a"]) == ["a"]
+
+
+@pytest.mark.parametrize("rho,low,high", [
+    (0.0, 0.995, 1.006), (0.3, 1.008, 1.03), (-0.7, 1.012, 1.05)])
+def test_split_rhat_of_converged_short_chains(rho, low, high):
+    """What ``chip_smoke.py`` phase 25's R-hat limits rest on: at 256
+    chains of 50 draws of an AR(1) the rank-normalised split R-hat is about
+    1 + (tau - 1) / draws for positively correlated draws (rho 0.3: tau =
+    1.86, so 1.017), and above 1.01 for alternating draws too (rho -0.7,
+    bulk ESS above the draw count), whose absolute deviations correlate."""
+    x = _ar1(chains=256, draws=50, dim=1, rho=rho)[..., 0]
+    rhat = float(pt.rhat(x)["x"])
+    assert low < rhat < high, rhat
+    if rho < 0:
+        assert float(pt.ess(x)["x"]) > x.size

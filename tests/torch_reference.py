@@ -3,7 +3,9 @@ gates: posterior moments of the LKJ, stochastic-volatility and GARCH
 examples, ADVI fits of the minibatch logistic regression and of the GP,
 the MAP and Hessian of radon, SMC on the GP at 4,096 particles, the
 posterior of the sparse (FITC) GP of PyMC3's sparse-approximation
-notebook, and the pooled and unpooled radon GLMs with their LOO and WAIC.
+notebook, the pooled and unpooled radon GLMs with their LOO and WAIC, and
+(``examples``) the posteriors of twelve more examples and two fits of the
+minibatch-ADVI example, for phase 25.
 
 Not a test: it writes ``pymc3_tpu_torch/examples/reference_moments.json``
 (for the sampled examples mean, sd and MCSE per element, in
@@ -13,7 +15,8 @@ port on the card. Run from the repository root:
     JAX_PLATFORMS=cpu python tests/torch_reference.py [config ...]
 
 With names (``lkj``, ``stochastic_volatility``, ``garch``, ``advi_logistic``,
-``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``, ``glm_radon``) it
+``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``, ``glm_radon``,
+``examples``) it
 runs those
 configurations only and keeps the others already in the file; the file is
 written after each configuration.
@@ -103,8 +106,9 @@ def _starts(model, trace, chains, draws, per_chain=16):
 
 
 # (N, d, batch, steps) of the minibatch-ADVI fits: the JAX package's
-# benchmark (scripts/bench_advi_minibatch.py) and its wide configuration
-ADVI_LOGISTIC = {"d100": (50_000, 100, 500, 10_000),
+# benchmark (scripts/bench_advi_minibatch.py) at half its 10,000 steps,
+# and its wide configuration
+ADVI_LOGISTIC = {"d100": (50_000, 100, 500, 5_000),
                  "d512": (50_000, 512, 8192, 2_000)}
 # the GP fits: Adam in two stages of (steps, rate), the second with a new
 # optimizer, and the Monte-Carlo samples of a step. With one stage at rate
@@ -382,8 +386,55 @@ def glm_radon(pm):
     return out
 
 
+def examples(pm, only=None, out=None):
+    """Each example of ``EXAMPLE_GATES`` (``examples/suite.py``) sampled by
+    the JAX package at 16 chains, tune 1000 + draws 2500, with its own NUTS
+    arguments: the moments of its gated variables; and two fits of the
+    minibatch-ADVI example (``EXAMPLE_ADVI``). ``examples.NAME`` on the
+    command line runs the one example ``NAME`` and keeps the others."""
+    import importlib
+    from pymc3_tpu_torch.examples.suite import (EXAMPLE_ADVI, EXAMPLE_GATES,
+                                                 chain_moments, example_model)
+    out = dict(out or {})
+    for name, (names, nuts) in EXAMPLE_GATES.items():
+        if only is not None and name != only:
+            continue
+        module = importlib.import_module(f"pymc3_tpu.examples.{name}")
+        model = example_model(module)
+        chains, tune, draws = 16, 1000, 2500
+        t0 = time.time()
+        trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
+                          random_seed=11, progressbar=False, nuts=nuts,
+                          compute_convergence_checks=False)
+        arrays = {n: _per_chain(trace, n) for n in names}
+        out[name] = {
+            "chains": chains, "tune": tune, "draws": draws,
+            "wall_s": time.time() - t0,
+            "rhat": {n: float(np.max(pm.rhat(a)["x"]))
+                     for n, a in arrays.items()},
+            "moments": chain_moments(pm, arrays)}
+        print(name, json.dumps({k: v for k, v in out[name].items()
+                                if k != "moments"}), flush=True)
+    if only is not None and only != "minibatch_advi_logistic":
+        return out
+    from pymc3_tpu.examples import minibatch_advi_logistic as mal
+    X, y, w_true = mal.make_data()
+    model = mal.build_model(X, y)
+    fits = []
+    for seed in EXAMPLE_ADVI["seeds"]:
+        t0 = time.time()
+        approx = pm.fit(n=EXAMPLE_ADVI["steps"], method="advi", model=model,
+                        progressbar=False, random_seed=seed,
+                        obj_optimizer=pm.variational.updates.adam(
+                            learning_rate=EXAMPLE_ADVI["learning_rate"]))
+        fits.append(_fit_record(approx, time.time() - t0))
+    out["minibatch_advi_logistic"] = dict(EXAMPLE_ADVI, fits=fits)
+    return out
+
+
 FITS = {"advi_logistic": advi_logistic, "advi_gp": advi_gp,
-        "map_radon": map_radon, "smc_gp": smc_gp, "glm_radon": glm_radon}
+        "map_radon": map_radon, "smc_gp": smc_gp, "glm_radon": glm_radon,
+        "examples": examples}
 
 
 def main():
@@ -403,6 +454,11 @@ def main():
         with open(OUT) as f:
             configs = json.load(f)["configs"]
     for config in names:
+        if config.startswith("examples."):
+            configs["examples"] = examples(pm, config.split(".", 1)[1],
+                                           configs.get("examples"))
+            _write(configs)
+            continue
         if config in FITS:
             configs[config] = FITS[config](pm)
             print(config, "done", flush=True)
