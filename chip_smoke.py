@@ -167,10 +167,27 @@ a non-zero exit and no result line:
    ``Metropolis`` into NDArray, ``trace="text"`` and ``trace="sqlite"``,
    read back equal; all in a fourth worker process started with phase
    25's (in the main process under ``--only``);
-27. a JSON line describing every kernel, then the result line
+27. several ranks on the card (``pymc3_tpu_torch.parallel``), started by
+   ``parallel.launch`` from a fifth worker process (in the main process
+   under ``--only``): two gloo ranks on ``cuda:0`` first check that gloo
+   sums, maximises, minimises and broadcasts CUDA tensors; then 30 pooled
+   tuning transitions of radon at 2048 chains, two ranks of 1024 with the
+   global chains' noise against one process over all 2048, equal within
+   the phase's stated tolerance; radon sharded over the two ranks
+   (``sample(devices=..., axis_name=...)``, tune 150 + draws 60) gated as
+   phase 26, its step size and mass matrix bit-equal on both ranks and its
+   trace the same on both; SMC on the GP at 4,096 particles over the two
+   ranks, one forward launch at (2048, 200, 200, 1) per rank and mutation
+   step, gated as phase 21; phase 17's d = 100 minibatch ADVI for 5,000
+   steps through ``sharded_step_function``, batches of 500 per rank,
+   parameters bit-equal on both ranks, gated by phase 17's gate against
+   the JAX package's sharded fits of the same setting; then
+   ``gelman_schools`` through a one-rank NCCL group at phase 25's settings
+   and gate. A rank that fails ends the script with its traceback;
+28. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-26 each print a JSON line of their own (each with the card's name
+Phases 9-27 each print a JSON line of their own (each with the card's name
 and power limit, and its ms per logp+grad or logp-only call or per VI
 step). Every model is built with no device argument and must come out on
 the card: that is the port's default.
@@ -186,10 +203,10 @@ sampling). With ``--against DIR``, a checkout of another commit, it also
 times that commit's forward kernel in the same call, in turns (other, this,
 this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
 (DIR, this, this, DIR) and prints each wall. ``--only NAMES`` runs phases
-1-3 and then the named ones of phases 6-26 (radon, best, mixture, disaster,
+1-3 and then the named ones of phases 6-27 (radon, best, mixture, disaster,
 binary, population, lkj, sv, garch, es, labels, advi_minibatch, advi_gp,
-svgd_map, smc_bimodal, smc_gp, gp_sparse, ode, glm, examples, traces;
-``radon`` runs phase 26, which holds phase 6's run).
+svgd_map, smc_bimodal, smc_gp, gp_sparse, ode, glm, examples, traces,
+multirank; ``radon`` runs phase 26, which holds phase 6's run).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -223,7 +240,8 @@ SOURCE = "pymc3_tpu_torch/csrc/gp_cov.cu"
 LATER_PHASES = ("best", "mixture", "disaster", "binary",
                 "population", "lkj", "sv", "garch", "es", "labels",
                 "advi_minibatch", "advi_gp", "svgd_map", "smc_bimodal",
-                "smc_gp", "gp_sparse", "ode", "glm", "examples", "traces")
+                "smc_gp", "gp_sparse", "ode", "glm", "examples", "traces",
+                "multirank")
 MAIN_SHAPE = (4, 200, 200, 1)
 # the GP's sample(), predict's two widths, ADVI's fifty Monte-Carlo samples
 # a step (phase 18), SMC's 4,096 particles on the GP (phase 21), and FITC's
@@ -234,11 +252,13 @@ FITC_SHAPE = (64, 20, 2000, 1)
 SMC_SHAPE = (4096, 200, 200, 1)
 # gp_example's sample() at phase 25's 256 chains over its 60 inputs
 EXAMPLE_SHAPE = (256, 60, 60, 1)
+# phase 27: each of two ranks holds half of SMC's 4,096 particles
+MULTIRANK_SHAPE = (2048, 200, 200, 1)
 FITC_SHAPES = (FITC_SHAPE, (64, 20, 20, 1), (4096, 20, 2000, 1),
                (4096, 20, 20, 1))
 TIMED_SHAPES = (MAIN_SHAPE, (1, 4096, 4096, 4), (1, 200, 16384, 1),
                 (1, 200, 4096, 1), VI_SHAPE, SMC_SHAPE,
-                EXAMPLE_SHAPE) + FITC_SHAPES
+                EXAMPLE_SHAPE, MULTIRANK_SHAPE) + FITC_SHAPES
 TIMED_KIND = {shape: "matern52" for shape in FITC_SHAPES}
 # a batch above the 65,535 blocks of gridDim.z: the wrappers cut it
 CHUNKED_SHAPE = (70_000, 8, 8, 1)
@@ -460,15 +480,17 @@ def phase_kernel(gp_cov, card, other=None):
         print(f"kernels ok: {kind} B,n,m,d={shape} forward max|err| "
               f"{fwd:.2e}, backward max|err| {bwd:.2e}", flush=True)
 
-    # the shapes of phases 21-22 (SMC's particles run the forward only):
-    # FITC's Kuf and Kuu at 64 points both ways and at 4,096 particles
-    # forward (Kuu there takes the tiled kernel); gp_example's of phase 25
+    # the shapes of phases 21-22 and 27 (SMC's particles run the forward
+    # only): FITC's Kuf and Kuu at 64 points both ways and at 4,096
+    # particles forward (Kuu there takes the tiled kernel); the GP's at
+    # 4,096 particles and at 2,048 a rank forward; gp_example's of phase 25
     # both ways; and a batch above 65,535, cut into two launches that count
     # as one call
     for i, (kind, shape, backward) in enumerate((
             ("matern52", FITC_SHAPES[0], True),
             ("matern52", FITC_SHAPES[1], True),
             ("expquad", SMC_SHAPE, False),
+            ("expquad", MULTIRANK_SHAPE, False),
             ("matern52", FITC_SHAPES[2], False),
             ("matern52", FITC_SHAPES[3], False),
             ("expquad", EXAMPLE_SHAPE, True),
@@ -648,16 +670,18 @@ def phase_gp(pm, gp_cov, draws=500, tune=200, chains=4):
 
 def _timed_predict(gp_cov, model, gp, Xnew, point, expect, label, **kwargs):
     """One ``predict`` call on the card: its results, and a failure unless
-    the forward kernel was launched ``expect`` times."""
-    gp_cov.LAUNCHES = 0
+    the forward kernel was launched ``expect`` times and the backward
+    never."""
+    gp_cov.LAUNCHES = gp_cov.BACKWARD_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.time()
     with model:
         mu, cov = gp.predict(Xnew, point=point, **kwargs)
     wall = time.time() - t0
-    if gp_cov.LAUNCHES != expect:
-        fail(f"{label}: {gp_cov.LAUNCHES} forward launches, expected "
-             f"{expect}")
+    if gp_cov.LAUNCHES != expect or gp_cov.BACKWARD_LAUNCHES != 0:
+        fail(f"{label}: {gp_cov.LAUNCHES} forward and "
+             f"{gp_cov.BACKWARD_LAUNCHES} backward launches, expected "
+             f"{expect} and 0")
     if not (np.isfinite(mu).all() and np.isfinite(cov).all()):
         fail(f"{label}: mean or covariance not finite")
     print(f"{label}: wall {wall:.3f} s, {expect} forward launches, mean "
@@ -1262,12 +1286,13 @@ def phase_es(pm, gp_cov, card, draws=1300, tune=300, chains=256):
     the chains start at the prior mean; at 500 the card read R-hat 1.1331,
     the means within 1.42 standard errors."""
     from pymc3_tpu_torch.examples.suite import es_exact_posterior, es_model
-    gp_cov.LAUNCHES = 0
+    gp_cov.LAUNCHES = gp_cov.BACKWARD_LAUNCHES = 0
     model, K = es_model(pm)
     launches = gp_cov.LAUNCHES
     _on_card(model, "es")
-    if launches != 1:
-        fail(f"es: {launches} forward launches building K, expected 1")
+    if launches != 1 or gp_cov.BACKWARD_LAUNCHES != 0:
+        fail(f"es: {launches} forward and {gp_cov.BACKWARD_LAUNCHES} "
+             "backward launches building K, expected 1 and 0")
     step = pm.EllipticalSlice(vars=[model["f"]], prior_cov=K, model=model)
     t0 = time.time()
     trace = pm.sample(draws=draws, tune=tune, chains=chains, model=model,
@@ -1869,13 +1894,14 @@ def phase_smc_gp(pm, gp_cov, card, particles=4096, abc_particles=4096):
     names = ["ls", "eta", "sigma"]
     model = gp_regression(pm)[0]
     _on_card(model, "smc_gp")
-    gp_cov.LAUNCHES = 0
+    gp_cov.LAUNCHES = gp_cov.BACKWARD_LAUNCHES = 0
     with _LaunchShapes(gp_cov) as launched, _SMCCounts() as counts:
         torch.cuda.synchronize()
         t0 = time.time()
         trace = pm.sample_smc(draws=particles, model=model, random_seed=5)
         wall = time.time() - t0
     launches, shapes, steps = gp_cov.LAUNCHES, launched.forward, counts.steps
+    backward = gp_cov.BACKWARD_LAUNCHES
     got = {"mean": {v: float(np.mean(trace[v], dtype=np.float64))
                     for v in names},
            "sd": {v: float(np.std(np.asarray(trace[v], np.float64)))
@@ -1899,6 +1925,9 @@ def phase_smc_gp(pm, gp_cov, card, particles=4096, abc_particles=4096):
         fail(f"smc_gp: {launches} forward launches at {set(shapes)} for "
              f"{steps} mutation steps, expected one each at {SMC_SHAPE} "
              "and one for the first evaluation")
+    if backward != 0:
+        fail(f"smc_gp: {backward} backward launches; SMC's likelihood "
+             "takes no gradient")
     if not gate["pass"]:
         fail("smc_gp posterior moments disagree with BASELINE_CPU.json")
     if not lml_z < 4.0:
@@ -2627,9 +2656,10 @@ def _rhat_limits(moments, draws, names, tau_floor=2.0):
 
 
 def _run_example(pm, gp_cov, name, card, ref, chains=256, tune=100,
-                 draws=50):
+                 draws=50, devices=None):
     """One example of phase 25 on the card: its row of numbers, the list
-    of its failed gates, and (for ``gp_example``) its kernel launches."""
+    of its failed gates, and (for ``gp_example``) its kernel launches.
+    ``devices`` goes to ``sample()`` (phase 27's one-rank NCCL run)."""
     import importlib
     from pymc3_tpu_torch.examples.suite import (EXAMPLE_ADVI, EXAMPLE_GATES,
                                                  example_model)
@@ -2688,7 +2718,8 @@ def _run_example(pm, gp_cov, name, card, ref, chains=256, tune=100,
                       init=run.get("init", "auto"), start=start,
                       progressbar=False,
                       random_seed=2, axis_name="chains_local", trace=names,
-                      compute_convergence_checks=False, nuts=nuts)
+                      compute_convergence_checks=False, nuts=nuts,
+                      devices=devices)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = None
@@ -2732,10 +2763,18 @@ def _worker(args):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(1)
+    # a SIGTERM from the main process's exit handler unwinds this process,
+    # so that parallel.launch stops phase 27's ranks
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     if args[0] == "traces":
         phase_traces(pm, args[1])
         print("TRACES " + json.dumps({"finished_at": time.time()}),
               flush=True)
+        sys.exit(0)
+    if args[0] == "multirank":
+        launches = phase_multirank(pm, args[1])
+        print("MULTIRANK " + json.dumps({"finished_at": time.time(),
+                                         "launches": launches}), flush=True)
         sys.exit(0)
     ref = _reference_fits("examples")
     failed = []
@@ -2754,19 +2793,20 @@ _WORKER_CODE = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
 
 
 def start_workers(card, traces=True):
-    """Start phase 25's example workers and, with ``traces``, phase 26's
-    worker; :func:`phase_examples` and :func:`read_traces` read them. Their
-    output goes to files, not pipes (a full pipe would stall a worker),
-    and they are killed if the script ends first. Returns ``(examples,
-    traces worker or None, time started)``, each worker ``(process, out,
-    err, args)``."""
+    """Start phase 25's example workers and, with ``traces``, the workers
+    of phases 26 and 27; :func:`phase_examples`, :func:`read_traces` and
+    :func:`read_multirank` read them. Their output goes to files, not pipes
+    (a full pipe would stall a worker), and they are stopped if the script
+    ends first (SIGTERM, then SIGKILL after 10 s). Returns ``(examples,
+    traces worker or None, multirank worker or None, time started)``, each
+    worker ``(process, out, err, args)``."""
     import atexit
     import tempfile
     tmp = tempfile.mkdtemp()
     started_at = time.time()
     jobs = [tuple(g) for g in _example_groups()]
     if traces:
-        jobs.append(("traces", card))
+        jobs += [("traces", card), ("multirank", card)]
     workers = []
     for i, args in enumerate(jobs):
         out = open(os.path.join(tmp, f"{i}.out"), "w+")
@@ -2776,16 +2816,22 @@ def start_workers(card, traces=True):
             stdout=out, stderr=err, text=True), out, err, args))
 
     def stop():
-        for proc, out, err, _ in workers:
+        for proc, _, _, _ in workers:
             if proc.poll() is None:
+                proc.terminate()
+        for proc, out, err, _ in workers:
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
             out.close()
             err.close()
         shutil.rmtree(tmp, ignore_errors=True)
     atexit.register(stop)
-    return (workers[:len(_example_groups())],
-            workers[-1] if traces else None, started_at)
+    n = len(_example_groups())
+    return (workers[:n], workers[n] if traces else None,
+            workers[n + 1] if traces else None, started_at)
 
 
 def _read_worker(worker):
@@ -2806,7 +2852,7 @@ def _finished_during(finished):
     return during[-1] if during else None
 
 
-# (phase name, time.time() at its start) of each of phases 7-26 run so far
+# (phase name, time.time() at its start) of each of phases 7-27 run so far
 PHASE_STARTS = []
 
 
@@ -2882,7 +2928,7 @@ def phase_examples(card, started):
     ``gp_example`` (60 inputs) runs both covariance kernels at (256, 60,
     60, 1): its worker counts their launches in its ``sample()``, which
     are returned for the kernels line."""
-    procs, _, started_at = started
+    procs, _, _, started_at = started
     t0 = time.time()
     rows, failed, launches, workers = {}, [], None, []
     for worker in procs:
@@ -2936,7 +2982,7 @@ def read_traces(started):
     its process's host dispatch, as the examples are, so it runs beside
     phases 7-24 instead of adding its wall to theirs; its walls are taken
     beside them."""
-    _, worker, started_at = started
+    _, worker, _, started_at = started
     t0 = time.time()
     code, lines = _read_worker(worker)
     finished = None
@@ -3144,6 +3190,437 @@ def phase_traces(pm, card, tune=150, draws=(30, 30), chains=2048,
                       "small_walls_s": walls, "card": card}), flush=True)
 
 
+# phase 27: several ranks on the card ------------------------------------
+MULTIRANK_CHAINS = 2048
+MULTIRANK_TRANSITIONS = 30
+# tolerance of the exactness check: a float32 transition of 2048 chains on
+# two ranks against one process (rtol and atol)
+MULTIRANK_TOL = dict(rtol=1e-5, atol=1e-5)
+# the jobs of phase 27: (job, backend, ranks), all ranks on one card
+MULTIRANK_JOBS = (("pair", "gloo", 2), ("schools", "nccl", 1))
+MULTIRANK_DEVICE = "cuda:0"
+_RANK_CODE = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
+              "chip_smoke._multirank_rank(sys.argv[1:])")
+
+
+def _radon_transitions(pm, mesh=None):
+    """``MULTIRANK_TRANSITIONS`` pooled tuning transitions of radon
+    (``bench.py``'s model, target 0.9) over ``MULTIRANK_CHAINS`` chains
+    jittered from the test point, after the step-size probe: this rank's
+    rows of them, with the global chains' noise (``parallel.GlobalNoise``,
+    seed 11), so that ranks consume the numbers one process over every
+    chain does. Deterministic
+    algorithms on, so that no atomic sum blurs what is compared. Returns
+    ``q``, the step sizes and the mass diagonal after the first and the
+    last transition, as numpy."""
+    from pymc3_tpu_torch.examples.radon import build_model
+    from pymc3_tpu_torch.parallel import GlobalNoise
+    from pymc3_tpu_torch.step_methods.arraystep import TuneContext
+    from pymc3_tpu_torch.step_methods.hmc.nuts import find_reasonable_eps
+    from pymc3_tpu_torch.step_methods.hmc.quadpotential import (
+        QuadPotentialDiagAdapt)
+    chains, transitions = MULTIRANK_CHAINS, MULTIRANK_TRANSITIONS
+    model = build_model(pm)
+    _on_card(model, "multirank exactness")
+    n = model.ndim
+    q0 = (model.dict_to_array(model.test_point)[None]
+          + np.random.RandomState(3).uniform(-1, 1, (chains, n))).astype(
+              np.float32)
+    step = pm.NUTS(model=model, target_accept=0.9, axis_name="chains",
+                   potential=QuadPotentialDiagAdapt(n, q0.mean(0),
+                                                    np.ones(n), 10))
+    step.mesh = mesh
+    rows = slice(0, chains) if mesh is None else mesh.local_rows(chains)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(11)
+    noise = GlobalNoise(gen, chains, model.device, rows)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        q = torch.as_tensor(q0[rows], device=model.device)
+        step.step_size = find_reasonable_eps(step, q, noise)
+        state = step.kernel_init(q)
+        out = {"probe_eps": step.step_size}
+        for i in range(transitions):
+            q, state, stats = step.kernel_step(
+                q, state, TuneContext(True, i, 150), noise)
+            if i in (0, transitions - 1):
+                out[i] = {k: v.detach().cpu().numpy() for k, v in (
+                    ("q", q), ("eps", stats["step_size"]),
+                    ("var", state.pot.var))}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _collectives_check(mesh):
+    """gloo's SUM, MAX, MIN and broadcast on CUDA tensors (float32 and
+    int64) against their values computed on the host."""
+    w = mesh.world_size
+    ranks = np.arange(w, dtype=np.float64)
+    rows = np.stack([[1.0 + r, 5.0 - r, -r] for r in ranks])
+    for dtype in (torch.float32, torch.int64):
+        x = torch.tensor(rows[mesh.rank], dtype=dtype, device=mesh.device)
+        got = {"sum": mesh.sum(x), "max": mesh.max(x), "min": mesh.min(x),
+               "broadcast": mesh.broadcast(x, src=w - 1)}
+        want = {"sum": rows.sum(0), "max": rows.max(0), "min": rows.min(0),
+                "broadcast": rows[w - 1]}
+        for op, t in got.items():
+            if t.device != x.device or not np.array_equal(
+                    t.cpu().numpy().astype(np.float64), want[op]):
+                fail(f"multirank: {mesh.backend} {op} of {dtype} CUDA "
+                     f"tensors gave {t.tolist()}, want {want[op].tolist()}")
+    return ["sum", "max", "min", "broadcast"]
+
+
+def _digest(arrays):
+    """A hash of named numpy arrays, to compare them across ranks."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(arrays[k]).tobytes())
+    return h.hexdigest()
+
+
+def _multirank_radon(pm, mesh, tune=150, draws=60):
+    """Phase 26's radon run sharded over the ranks, pooled: every rank
+    returns the trace of all 2048 chains. Rank 0 gates ``mu_a`` as phase
+    26 does (moment check against ``BASELINE_CPU.json``, R-hat < 1.01).
+    Returns the rank's wall, its collectives a draw and their host ms, the
+    pooled step size (``exp(log_bar_step)``) and mass diagonal of each of
+    its chains from the checkpoints, and a digest of the trace."""
+    from pymc3_tpu_torch.examples.radon import build_model
+    from pymc3_tpu_torch.sampling import checkpoint_leaves
+    model = build_model(pm)
+    _on_card(model, "multirank radon")
+    mesh.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trace = pm.sample(draws=draws, tune=tune, chains=MULTIRANK_CHAINS,
+                      model=model, devices=mesh, axis_name="chains",
+                      target_accept=0.9, random_seed=2,
+                      record_stats=["diverging", "step_size"],
+                      progressbar=False, compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    calls, host_s = mesh.calls, mesh.host_s
+    template, index_of = _nuts_template(model)
+    ckpt = checkpoint_leaves(template, [trace._straces[c].warmup_state
+                                        for c in trace.chains])
+    bar = np.exp(ckpt[index_of(lambda s: s.da.log_bar_step)])
+    var = ckpt[index_of(lambda s: s.pot.var)]
+    arrays = {v: np.asarray(trace.get_values(v, combine=False))
+              for v in trace.varnames}
+    arrays.update({f"stat_{k}": np.asarray(trace.get_sampler_stats(
+        k, combine=False)) for k in trace.stat_names})
+    out = {"wall_s": wall, "chains": trace.nchains, "draws": len(trace),
+           "tune": tune, "collectives_per_draw": calls / (tune + draws),
+           "collective_host_ms_per_draw": 1e3 * host_s / (tune + draws),
+           "bar": bar, "var": var, "digest": _digest(arrays)}
+    if mesh.rank == 0:
+        out["gate"] = _gate(pm, trace, ["mu_a"],
+                            _baseline()["radon"]["moments"], wall,
+                            f"multirank radon chains={MULTIRANK_CHAINS} "
+                            f"over {mesh.world_size} ranks tune={tune} "
+                            f"draws={draws}")
+    return out
+
+
+def _multirank_smc_gp(pm, gp_cov, mesh, particles=4096):
+    """Phase 21's SMC on the GP with the particles sharded over the ranks:
+    each rank's likelihood is one forward launch at (particles / ranks,
+    200, 200, 1) per mutation step and one for the first evaluation. Rank 0
+    gates the moments and the evidence as phase 21 does (the trace and
+    the evidence are the same on every rank)."""
+    from pymc3_tpu_torch.examples.suite import gp_regression
+    ref = _reference_fits("smc_gp")
+    base = _baseline()["gp"]["moments"]
+    names = ["ls", "eta", "sigma"]
+    model = gp_regression(pm)[0]
+    _on_card(model, "multirank smc_gp")
+    mesh.reset_counts()
+    gp_cov.LAUNCHES = gp_cov.BACKWARD_LAUNCHES = 0
+    with _LaunchShapes(gp_cov) as launched, _SMCCounts() as counts:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trace = pm.sample_smc(draws=particles, model=model, random_seed=5,
+                              devices=mesh)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches, shapes, steps = gp_cov.LAUNCHES, launched.forward, counts.steps
+    backward = gp_cov.BACKWARD_LAUNCHES
+    shape = (particles // mesh.world_size, 200, 200, 1)
+    if launches != steps + 1 or set(shapes) != {shape}:
+        fail(f"multirank smc_gp: {launches} forward launches at "
+             f"{set(shapes)} for {steps} mutation steps, expected one each "
+             f"at {shape} and one for the first evaluation")
+    if backward != 0 or launched.backward:
+        fail(f"multirank smc_gp: {backward} backward launches at "
+             f"{set(launched.backward)}; SMC's likelihood takes no gradient")
+    x = {v: np.asarray(trace[v], np.float64) for v in names}
+    got = {"mean": {v: float(x[v].mean()) for v in names},
+           "sd": {v: float(x[v].std()) for v in names},
+           "smc_error": {v: ref["mean"][v]["sd"] for v in names}}
+    lml = trace.report.log_marginal_likelihood
+    out = {"particles": len(trace), "wall_s": wall, "stages": counts.stages,
+           "mutation_steps": steps, "host_reads": counts.reads,
+           "forward_launches": launches, "backward_launches": backward,
+           "launch_shape": list(shape),
+           "collectives": mesh.calls,
+           "collective_host_ms": 1e3 * mesh.host_s,
+           "log_marginal_likelihood": lml,
+           "digest": _digest({v: x[v] for v in names})}
+    if mesh.rank == 0:
+        ref_base = {v: {"mean": base[v]["mean"][0], "sd": base[v]["sd"][0],
+                        "mcse": base[v]["mcse"][0]} for v in names}
+        gate = _smc_reference_gate(got, ref_base, names)
+        lml_ref = ref["log_marginal_likelihood"]
+        lml_z = abs(lml - lml_ref["mean"]) / (lml_ref["sd"] * np.sqrt(1.25))
+        out.update(mean=got["mean"], sd=got["sd"], gate=gate,
+                   evidence_z=lml_z)
+        if not gate["pass"]:
+            fail("multirank smc_gp posterior moments disagree with "
+                 "BASELINE_CPU.json")
+        if not lml_z < 4.0:
+            fail(f"multirank smc_gp evidence {lml:.4f} is {lml_z:.2f} sds "
+                 "from the JAX runs'")
+    return out
+
+
+def _multirank_advi(pm, mesh, warm=50):
+    """Phase 17's d = 100 fit (``scripts/bench_advi_minibatch.py``'s model
+    and data, ADVI with ``adagrad_window`` from the test point, 5,000
+    steps) through ``sharded_step_function``: every rank draws its own
+    batch of 500 rows and its Monte-Carlo noise from its own generator, and
+    the gradients are averaged over the ranks. After ``warm`` steps on a
+    copy of the parameters, the timed steps. Rank 0 gates the fit with
+    phase 17's ``_fit_gate`` against two fits of the JAX package's
+    ``sharded_step_function`` over two CPU devices, a batch of 500 each
+    (``tests/torch_reference.py advi_sharded``): the average of two
+    batches' gradients has half the noise of one, and after 5,000 steps
+    the JAX package's own sharded fits lie 23.6 noise sds from its
+    single-device fits of phase 17, so those are not this fit's
+    reference."""
+    from pymc3_tpu_torch.examples.suite import (advi_logistic_data,
+                                                 advi_logistic_model)
+    from pymc3_tpu_torch.parallel import rank_seed
+    from pymc3_tpu_torch.variational.updates import adagrad_window
+    cfg = _reference_fits("advi_sharded")
+    if cfg["devices"] != mesh.world_size:
+        fail(f"multirank advi: the reference fits ran on {cfg['devices']} "
+             f"devices, this on {mesh.world_size} ranks")
+    X, y, _ = advi_logistic_data(cfg["N"], cfg["d"])
+    model = advi_logistic_model(pm, X, y, cfg["batch"])
+    _on_card(model, "multirank advi")
+    with model:
+        inference = pm.ADVI()
+    objective, approx = inference.objective, inference.approx
+    step, opt = objective.sharded_step_function(
+        mesh, obj_n_mc=1, obj_optimizer=adagrad_window())
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(rank_seed(1, mesh))
+    params = approx.params
+    state = opt.init(params)
+    warm_params = params
+    for _ in range(warm):
+        warm_params, state, _ = step(warm_params, state,
+                                     objective.draw_noise(gen, 1))
+    gen.manual_seed(rank_seed(2, mesh))
+    state = opt.init(params)
+    steps = cfg["steps"]
+    losses = torch.zeros(steps, device=model.device)
+    mesh.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in range(steps):
+        params, state, losses[i] = step(params, state,
+                                        objective.draw_noise(gen, 1))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    approx.params = params
+    out = {"N": cfg["N"], "d": cfg["d"], "batch_per_rank": cfg["batch"],
+           "steps": steps, "wall_s": wall, "steps_per_s": steps / wall,
+           "collectives": mesh.calls,
+           "collective_host_ms_per_step": 1e3 * mesh.host_s / steps,
+           "last100_loss": float(losses[-100:].mean()),
+           "jax_last100_loss": [f["last100_loss"] for f in cfg["fits"]],
+           "digest": _digest({f"{g}.{k}": v.cpu().numpy()
+                              for g, leaf in params.items()
+                              for k, v in leaf.items()})}
+    if mesh.rank == 0:
+        out["gate"] = _fit_gate(approx.mean, approx.std, cfg["fits"])
+        if not out["gate"]["pass"]:
+            fail(f"multirank advi: the fit is {out['gate']['max_z']:.2f} "
+                 "noise sds from the JAX package's sharded fits")
+    return out
+
+
+def _multirank_rank(args):
+    """One rank of phase 27, started by ``parallel.launch``: ``pair
+    BACKEND OUT`` runs the two-rank parts, ``schools BACKEND OUT`` the
+    one-rank part; the results go to ``OUT/rank<r>.pt``. A failed gate
+    exits non-zero."""
+    import pymc3_tpu_torch as pm
+    from pymc3_tpu_torch import parallel
+    from pymc3_tpu_torch.ops import gp_cov
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    job, backend, where = args
+    mesh = parallel.initialize_distributed()
+    if mesh.backend != backend:
+        fail(f"multirank: asked for {backend}, the group runs "
+             f"{mesh.backend}")
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "backend": mesh.backend}
+    t0 = time.time()
+    if job == "pair":
+        out["collectives_checked"] = _collectives_check(mesh)
+        print(f"multirank rank {mesh.rank}: {backend} SUM/MAX/MIN/broadcast "
+              f"of {mesh.device.type} tensors right", flush=True)
+        out["exact"] = _radon_transitions(pm, mesh)
+        out["exact_s"] = time.time() - t0
+        for name, fn in (("radon", lambda: _multirank_radon(pm, mesh)),
+                         ("smc_gp", lambda: _multirank_smc_gp(pm, gp_cov,
+                                                              mesh)),
+                         ("advi", lambda: _multirank_advi(pm, mesh))):
+            out[name] = fn()
+            print(f"multirank rank {mesh.rank}: {name} done in "
+                  f"{out[name]['wall_s']:.2f} s", flush=True)
+    else:
+        ref = _reference_fits("examples")
+        row, failed, _ = _run_example(pm, gp_cov, "gelman_schools", "", ref,
+                                      devices=mesh)
+        if failed:
+            fail(f"multirank schools ({backend}): " + "; ".join(failed))
+        out["schools"] = dict(row, collectives=mesh.calls,
+                              collective_host_ms=1e3 * mesh.host_s)
+    out["rank_wall_s"] = time.time() - t0
+    torch.save(out, os.path.join(where, f"rank{mesh.rank}.pt"))
+
+
+def phase_multirank(pm, card):
+    """Phase 27 (see the module's docstring): the one-process reference of
+    the exactness check here, then the jobs of ``MULTIRANK_JOBS`` (two
+    gloo ranks on the card, then one NCCL rank), each through
+    ``parallel.launch``; compares what the ranks saved and prints the
+    phase's JSON line. Two ranks on one card
+    show that the multi-rank code runs right on the card, not how it
+    scales. Returns the ranks' forward and backward launches in SMC on the
+    GP."""
+    import tempfile
+    from pymc3_tpu_torch import parallel
+    t_phase = time.time()
+    ref = _radon_transitions(pm)
+    t_ref = time.time() - t_phase
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for job, backend, n in MULTIRANK_JOBS:
+            where = os.path.join(tmp, job)
+            os.makedirs(where)
+            t0 = time.time()
+            try:
+                outs = parallel.launch(["-c", _RANK_CODE, job, backend,
+                                        where], n,
+                                       devices=[MULTIRANK_DEVICE] * n,
+                                       backend=backend, timeout=900,
+                                       cwd=ROOT)
+            except parallel.RemoteWorkerError as e:
+                fail(f"multirank {job}: {e}")
+            for text in outs:
+                sys.stdout.write(text)
+            results[job] = {
+                "launch_s": time.time() - t0, "backend": backend,
+                "ranks": [torch.load(os.path.join(where, f"rank{r}.pt"),
+                                     weights_only=False) for r in range(n)]}
+    gloo = results["pair"]["ranks"]
+    ranks = len(gloo)
+
+    # 1. one process against two ranks, transition by transition
+    errors = {}
+    for i in (0, MULTIRANK_TRANSITIONS - 1):
+        for k in ("q", "eps", "var"):
+            got = np.concatenate([r["exact"][i][k] for r in gloo])
+            want = ref[i][k]
+            err = np.abs(got.astype(np.float64) - want)
+            bound = MULTIRANK_TOL["atol"] + MULTIRANK_TOL["rtol"] * np.abs(
+                want.astype(np.float64))
+            errors[f"{k}@{i + 1}"] = float(err.max())
+            if not np.all(err <= bound):
+                fail(f"multirank: {k} after transition {i + 1} on {ranks} "
+                     f"ranks differs from one process by {err.max():.3e} "
+                     f"({int((err > bound).sum())} values beyond rtol "
+                     f"{MULTIRANK_TOL['rtol']}, atol {MULTIRANK_TOL['atol']})")
+    probes = [r["exact"]["probe_eps"] for r in gloo] + [ref["probe_eps"]]
+    if len(set(probes)) != 1:
+        fail(f"multirank: the step-size probes differ: {probes}")
+    print(f"multirank exactness: {MULTIRANK_CHAINS} chains, "
+          f"{MULTIRANK_TRANSITIONS} pooled tuning transitions, one process "
+          f"against {ranks} ranks, max |err| " + json.dumps(errors), flush=True)
+
+    # 2-4. the same on every rank
+    radon = [r["radon"] for r in gloo]
+    half = MULTIRANK_CHAINS // ranks
+    for k in ("bar", "var"):
+        x = radon[0][k]
+        if not all(np.array_equal(x[j * half:(j + 1) * half],
+                                  x[:half]) for j in range(ranks)) or \
+                not np.array_equal(x, radon[1][k]):
+            fail(f"multirank radon: the pooled {k} differs between ranks")
+        if np.ptp(x, axis=0).max() != 0:
+            fail(f"multirank radon: the pooled {k} differs between chains")
+    for name in ("radon", "smc_gp", "advi"):
+        digests = {r[name]["digest"] for r in gloo}
+        if len(digests) != 1:
+            fail(f"multirank {name}: the ranks returned different results")
+    schools = results["schools"]["ranks"][0]["schools"]
+    if schools["collectives"] == 0:
+        fail("multirank schools: sample(devices=mesh) issued no collective")
+    launches = {d: sum(r["smc_gp"][f"{d}_launches"] for r in gloo)
+                for d in ("forward", "backward")}
+    drop = ("bar", "var", "digest")
+    out = {"phase": "multirank", "ranks": ranks,
+           "backends": {j: results[j]["backend"] for j in results},
+           "reference_s": t_ref, "exact_max_abs_err": errors,
+           "tolerance": MULTIRANK_TOL,
+           "launch_s": {p: results[p]["launch_s"] for p in results},
+           "rank_walls_s": [r["rank_wall_s"] for r in gloo],
+           "radon": [{k: v for k, v in r["radon"].items() if k not in drop}
+                     for r in gloo],
+           "smc_gp": [{k: v for k, v in r["smc_gp"].items()
+                       if k not in drop} for r in gloo],
+           "advi": [{k: v for k, v in r["advi"].items() if k not in drop}
+                    for r in gloo],
+           "schools_one_rank": schools, "wall_s": time.time() - t_phase,
+           "card": card}
+    print(json.dumps(out, default=float), flush=True)
+    return launches
+
+
+def read_multirank(started):
+    """Phase 27 as the full run makes it: read from the worker that
+    :func:`start_workers` started after phase 5 (its lines are printed
+    here); fails if it failed. Returns the ranks' forward and backward
+    launches in SMC on the GP."""
+    _, _, worker, started_at = started
+    t0 = time.time()
+    code, lines = _read_worker(worker)
+    result = None
+    for line in lines:
+        if line.startswith("MULTIRANK "):
+            result = json.loads(line[len("MULTIRANK "):])
+        else:
+            print(line, flush=True)
+    print("multirank worker: " + json.dumps({
+        "exit": code, "finished_s": (None if result is None
+                                     else result["finished_at"] - started_at),
+        "during": _finished_during(result and result["finished_at"]),
+        "waited_s": time.time() - t0}), flush=True)
+    if code != 0 or result is None:
+        fail(f"multirank: the worker exited {code}")
+    return result["launches"]
+
+
 def _gp_wall(other):
     """Phase 4 alone in four fresh processes: other, this, this, other."""
     code = ("import sys, torch; sys.path[:0] = ['.', 'scripts']; "
@@ -3170,7 +3647,7 @@ def main():
     parser.add_argument("--gp-wall", metavar="DIR",
                         help="phase 4 alone: DIR, this, this, DIR")
     parser.add_argument("--only", metavar="NAMES",
-                        help="phases 1-3, then only these of phases 6-26 "
+                        help="phases 1-3, then only these of phases 6-27 "
                         "(comma-separated: " + ",".join(LATER_PHASES) + ")")
     args = parser.parse_args()
 
@@ -3217,7 +3694,8 @@ def main():
         "ode": lambda: phase_ode(pm, gp_cov, card),
         "glm": lambda: phase_glm(pm, gp_cov, card),
         "examples": lambda: phase_examples(card, started[0]),
-        "traces": lambda: phase_traces(pm, card)}
+        "traces": lambda: phase_traces(pm, card),
+        "multirank": lambda: phase_multirank(pm, card)}
     # phase 6's radon run is the first part of phase 26
     runners["radon"] = runners["traces"]
     started = [None]
@@ -3239,6 +3717,7 @@ def main():
     # phase_examples and read_traces)
     started[0] = start_workers(card)
     runners["traces"] = lambda: read_traces(started[0])
+    runners["multirank"] = lambda: read_multirank(started[0])
     walls = {}
     for name in LATER_PHASES:
         t0 = time.time()
@@ -3256,7 +3735,9 @@ def main():
             fitc_launches = out
         if name == "examples":
             example_launches = out
-    print(f"phases 1-26: {time.time() - t_start:.1f} s; each of 7-26 "
+        if name == "multirank":
+            multirank_launches = out
+    print(f"phases 1-27: {time.time() - t_start:.1f} s; each of 7-27 "
           f"{json.dumps(walls)}", flush=True)
 
     replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",
@@ -3269,6 +3750,7 @@ def main():
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces[direction],
             "launches": launches[direction],
+            # predict, es and smc_gp fail unless their backward count was 0
             "launches_predict": predict_launches if direction == "forward"
             else 0,
             "launches_es": es_launches if direction == "forward" else 0,
@@ -3279,6 +3761,7 @@ def main():
             "launches_gp_sparse_logp_grad": fitc_launches["logp_grad"][
                 direction],
             "launches_examples": example_launches[direction],
+            "launches_multirank_smc_gp": multirank_launches[direction],
             "max_abs_err": max_err[direction],
             "ms": row["device_ms"], "device_ms": row["device_ms"],
             "issue_ms": row["issue_ms"], "plain_ms": row["plain_ms"],

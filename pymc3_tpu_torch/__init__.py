@@ -16,7 +16,9 @@ missing-value imputation, diagnostics on the host and on the card, model
 comparison (``loo``, ``waic``, ``compare``), ODEs (``ode``), GLMs
 (``GLM``, ``LinearComponent``), variational inference (``fit``,
 ADVI, full-rank ADVI, SVGD, ASVGD, normalizing flows), ``SGLD``, and the MAP
-and Hessian tools of ``tuning``. Models build on the card unless the caller
+and Hessian tools of ``tuning``, and chains, SMC particles and ADVI
+minibatches sharded over the ranks of a process group (``parallel``,
+``sample(devices=...)``). Models build on the card unless the caller
 asks for the CPU (``set_config(device="cpu")`` or ``Model(device="cpu")``).
 Imports torch, numpy and scipy only, never jax or pymc3_tpu.
 """
@@ -88,3 +90,4 @@ from .variational.updates import (
 from . import ode
 from . import glm
 from .glm import GLM, LinearComponent
+from . import parallel

@@ -144,6 +144,24 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
     may list the variables to record; ``record_stats`` lists the sampler
     statistics to keep ("diverging" is always kept). ``axis_name`` (any
     value) pools step-size and mass-matrix adaptation over all chains.
+
+    ``devices`` shards the chains over the ranks of a process group (one
+    process per device: ``parallel.initialize_distributed`` in each, or
+    ``parallel.launch``); it is a ``parallel.ChainMesh`` or the list of
+    every rank's device, and every rank calls ``sample`` alike. Each rank
+    samples its contiguous block of the chains on its own device from its
+    own generator (seeded from ``random_seed`` and its rank), and every
+    rank returns the same trace of all chains in global order, warmup-state
+    checkpoints included. ``devices`` alone adapts each chain on its own;
+    with ``axis_name`` too the adaptation pools over every chain of every
+    rank (cf. ``sampling.py:541-548``). ``chains`` must be a multiple of
+    the rank count. Outside a process group one device means this one, and
+    more raise. A population stepper (``DEMetropolis``) is not sharded:
+    every rank steps the whole population from ``random_seed``, as the JAX
+    package steps it on one device. With the name of a file backend
+    (``trace="text"``) rank 0 alone writes the files, and every rank
+    returns once they are written: rank 0 the backend's traces, the others
+    the same draws in memory.
     Step-method arguments go by stepper name, ``nuts={"max_treedepth":
     8}``, or together as ``step_kwargs={...}``.
 
@@ -167,10 +185,10 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
     model = modelcontext(model)
     if not model.free_RVs:
         raise ValueError("The model does not contain any free variables.")
+    mesh = None
     if devices is not None:
-        raise NotImplementedError(
-            "sample(devices=...) comes with the multi-GPU slice (ROADMAP "
-            "item 13)")
+        from .parallel import make_mesh
+        mesh = make_mesh(devices)
     resume_from = kwargs.pop("resume_from", None)
     chains_requested = chains
     if chains is None:
@@ -194,7 +212,11 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
         step_kwargs.setdefault("nuts", {})["target_accept"] = target_accept
     if random_seed is None:
         random_seed = np.random.randint(0, 2 ** 30)
+        if mesh is not None:
+            random_seed = mesh.host_broadcast(int(random_seed))
     random_seed = int(np.asarray(random_seed).ravel()[0])
+    if mesh is not None and resume_from is None:
+        mesh.local_rows(chains)   # raises before any initialization runs
     start = _check_start_shape(model, start, chains)
     draws, tune = int(draws), int(tune)
     if draws + tune <= 0:
@@ -241,15 +263,36 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
     q0 = np.stack([model.dict_to_array(_complete_point(model, p))
                    for p in chain_starts]).astype(floatX())
     _check_bad_init(model, chain_starts[0])
+    # the ranks that share the chains: a population steps whole on each
+    shard = None if getattr(step, "population_based", False) else mesh
+    for m in _members(step):
+        m.mesh = shard
+    seed = random_seed
+    if shard is not None:
+        from .parallel import rank_seed
+        rows = shard.local_rows(chains)
+        q0 = q0[rows]
+        if warm_states is not None:
+            warm_states = warm_states[rows]
+        seed = rank_seed(random_seed, shard)
     trace, trace_vars = _resolve_trace_vars(model, trace)
     if isinstance(trace, BaseTrace) and chains > 1:
         raise ValueError("Cannot reuse a single trace for multiple chains")
 
     keep_from = tune if discard_tuned_samples else 0
     t_start = time.time()
-    result = _device_sample(model, step, q0, draws, tune, random_seed,
-                            progressbar, keep_from, trace_vars, record_stats,
-                            block_size, callback, warm_states)
+    try:
+        result = _device_sample(model, step, q0, draws, tune, seed,
+                                progressbar, keep_from, trace_vars,
+                                record_stats, block_size, callback,
+                                warm_states)
+    finally:
+        for m in _members(step):
+            m.mesh = None
+    result["warm"] = _warmup_checkpoints(step, result["final_state"],
+                                         result["chains"])
+    if shard is not None:
+        result = _gather_chains(shard, result)
     t_sampling = time.time() - t_start
     if result["interrupted"]:
         if result["n_kept"] == 0:
@@ -260,8 +303,15 @@ def sample(draws=500, step=None, init="auto", n_init=200000, start=None,
                      f"{result['n_kept']} of {draws + tune - keep_from} "
                      "draws per chain.")
 
+    # a named file backend is written by rank 0 alone; the other ranks
+    # hold the same draws in memory, and none returns before the files are
+    # whole
+    writes = shard is None or shard.rank == 0 or not isinstance(trace, str)
     mtrace = MultiTrace(_flush_to_traces(model, step, result, chain_idx,
-                                         trace_vars, trace))
+                                         trace_vars,
+                                         trace if writes else None))
+    if shard is not None and isinstance(trace, str):
+        shard.host_gather(None)
     mtrace._report = SamplerReport()
     mtrace.report._n_tune = tune
     mtrace.report._n_draws = draws
@@ -310,6 +360,26 @@ def _resume_points(model, resume_from, chains_requested):
                      "fresh adaptation state")
         warm_states = None
     return resume_from.nchains, chain_starts, warm_states
+
+
+def _gather_chains(mesh, result):
+    """Every rank's host blocks, statistics and checkpoints joined in rank
+    (global chain) order, over the mesh's host group; the draws kept are
+    those every rank kept."""
+    parts = mesh.host_gather({k: result[k] for k in (
+        "values", "stats", "warm", "n_kept", "interrupted")})
+    n_kept = min(p["n_kept"] for p in parts)
+
+    def cat(arrays):
+        return np.concatenate([a[:, :n_kept] for a in arrays], axis=0)
+    values = {k: cat([p["values"][k] for p in parts])
+              for k in parts[0]["values"]}
+    stats = [{k: cat([p["stats"][i][k] for p in parts]) for k in st}
+             for i, st in enumerate(parts[0]["stats"])]
+    return dict(result, values=values, stats=stats, n_kept=n_kept,
+                warm=[w for p in parts for w in p["warm"]],
+                chains=sum(len(p["warm"]) for p in parts),
+                interrupted=any(p["interrupted"] for p in parts))
 
 
 def _members(step):
@@ -517,7 +587,7 @@ def _flush_to_traces(model, step, result, chain_idx, trace_vars,
     # only the statistics that were kept (a record_stats subset trims them)
     dtypes = [{k: dt for k, dt in full.items() if k in kept}
               for full, kept in zip(step.stats_dtypes, stats)]
-    warm = _warmup_checkpoints(step, result["final_state"], chains)
+    warm = result["warm"]
     traces = []
     for ci in range(chains):
         if isinstance(trace_arg, BaseTrace):

@@ -19,9 +19,10 @@ def sample_smc(draws=1000, kernel="metropolis", n_steps=25, parallel=False,
     """Sequential Monte Carlo sampling (cf. ``sample_smc``,
     ``sample_smc.py:19``): stages while β < 1, every particle on the model's
     device. Returns a MultiTrace whose ``report`` carries the accumulated
-    log marginal likelihood. ``devices``/``mesh`` raise: one device only
-    (ROADMAP item 13). ``dist_func`` and ``sum_stat`` are ignored, as in
-    the JAX package (see :class:`SMC`)."""
+    log marginal likelihood. ``devices``/``mesh`` shard the particles over
+    the ranks of a process group, every rank calling ``sample_smc`` alike
+    and returning the same trace of all particles (see :class:`SMC`).
+    ``dist_func`` and ``sum_stat`` are ignored, as in the JAX package."""
     smc = SMC(draws=draws, kernel=kernel, n_steps=n_steps, parallel=parallel,
               start=start, cores=cores, tune_steps=tune_steps,
               p_acc_rate=p_acc_rate, threshold=threshold, epsilon=epsilon,

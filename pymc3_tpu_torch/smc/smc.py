@@ -20,7 +20,19 @@ the proposal covariance has a Cholesky factor, and the mean acceptance.
   proposal noise and the uniforms come from one ``torch.Generator`` on the
   device.
 
-Only one device is used: ``devices=``/``mesh=`` raise.
+``devices=``/``mesh=`` shard the particles over the ranks of a process
+group (``parallel``; cf. ``smc.py:195-209``): each rank holds its block of
+particles on its own device, draws them and their mutations from its own
+generator, and runs the likelihood on them alone. What spans the particles
+is a collective: the β bisection's ESS and the evidence through a global
+logsumexp (a MAX, then a SUM), the proposal covariance (a SUM of the
+particles, then of their centred Gram matrices), the acceptance rate and
+the scalings' mean (a SUM). Systematic resampling gathers the weights
+whole (4 MB at 1M particles), each rank searches its own output rows, and
+the source rows are gathered, as the JAX package replicates the weights
+and the source and keeps the indices sharded (``smc.py:95-153``). The
+offset uniform comes from a generator every rank seeds alike. The host
+reads per stage stay three.
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ from ..config import torch_floatX
 from ..distributions.distribution import make_generator
 from ..model import modelcontext
 from ..node import _ev
+from ..parallel import ChainMesh, make_mesh, rank_seed
 from ..torchf import batched_value
 
 _log = logging.getLogger("pymc3_tpu_torch")
@@ -47,8 +60,11 @@ BISECTION_STEPS = 22
 #: the host (SMC-ABC's host path); a torch simulator never moves it.
 HOST_SIMULATOR_CALLS = 0
 
+#: The mesh of one process: every collective is the identity.
+_ALONE = ChainMesh()
 
-def _beta_stage(ll_raw, old_beta, rN):
+
+def _beta_stage(ll_raw, old_beta, rN, mesh=_ALONE):
     """The next inverse temperature, the normalised importance weights and
     the log-evidence increment (cf. ``_beta_stage``, ``smc.py:51``), all on
     the device.
@@ -58,16 +74,35 @@ def _beta_stage(ll_raw, old_beta, rN):
     package's loop would (``up - low > 1e-6`` and the integer ESS not yet
     ``rN``); afterwards ``torch.where`` keeps the state, so the result is
     that loop's with no host read. The ESS is floored in float32 and cast
-    to int32, as there."""
+    to int32, as there.
+
+    The particles are this rank's of ``mesh`` and the sums span every
+    rank: with ``M`` the global max of the log weights, ``S1`` and ``S2``
+    the global sums of ``exp(lw - M)`` and ``exp(2 (lw - M))`` (float64),
+    the ESS is ``S1^2 / S2`` (one MAX and one SUM a halving) and the
+    weights returned are this rank's rows. One process takes the JAX
+    package's float32 ESS, ``exp(-logsumexp(2 lw))``, whose floor the
+    float64 one can cross."""
     ll = torch.where(torch.isfinite(ll_raw), ll_raw,
                      torch.full_like(ll_raw, -1e30))
-    n = ll.shape[0]
+    n = ll.shape[0] * mesh.world_size
+    alone = mesh.group is None
     rN = torch.tensor(int(rN), dtype=torch.int32, device=ll.device)
+
+    def global_sums(lw_un):
+        m = mesh.max(lw_un.max())
+        d = (lw_un - m).to(torch.float64)
+        return m, mesh.sum(torch.stack([torch.exp(d).sum(),
+                                        torch.exp(2.0 * d).sum()]))
 
     def ess_int(nb):
         lw_un = (nb - old_beta) * ll
-        lw = lw_un - torch.logsumexp(lw_un, 0)
-        return torch.floor(torch.exp(-torch.logsumexp(2.0 * lw, 0))).to(
+        if alone:
+            lw = lw_un - torch.logsumexp(lw_un, 0)
+            return torch.floor(torch.exp(-torch.logsumexp(2.0 * lw, 0))).to(
+                torch.int32)
+        _, sums = global_sums(lw_un)
+        return torch.floor((sums[0] ** 2 / sums[1]).to(ll.dtype)).to(
             torch.int32)
 
     low = old_beta.clone()
@@ -85,19 +120,24 @@ def _beta_stage(ll_raw, old_beta, rN):
 
     new_beta = torch.where(mid >= 1.0, torch.ones_like(mid), mid)
     lw_un = (new_beta - old_beta) * ll
-    lse = torch.logsumexp(lw_un, 0)
-    lml_inc = lse - np.log(n)
+    if alone:
+        lse = torch.logsumexp(lw_un, 0)
+    else:
+        m, sums = global_sums(lw_un)
+        lse = (m + torch.log(sums[0])).to(ll.dtype)
     w = torch.exp(lw_un - lse)
-    return new_beta, w / w.sum(), lml_inc
+    return new_beta, w / mesh.sum(w.sum()), lse - np.log(n)
 
 
-def _systematic_indices(u, weights):
+def _systematic_indices(u, weights, rows=None):
     """Systematic resampling indices from one uniform ``u`` (a scalar
     tensor): positions (u + i) / N against the normalised float32
     cumulative sum, searched from the left as ``jnp.searchsorted``
-    (cf. ``smc.py:99``)."""
+    (cf. ``smc.py:99``); ``rows`` (a slice) picks the output rows to
+    search, all by default."""
     n = weights.shape[0]
-    positions = (u + torch.arange(n, dtype=weights.dtype,
+    rows = rows if rows is not None else slice(0, n)
+    positions = (u + torch.arange(rows.start, rows.stop, dtype=weights.dtype,
                                   device=weights.device)) / n
     cum = torch.cumsum(weights, 0)
     cum = cum / cum[-1]
@@ -105,34 +145,56 @@ def _systematic_indices(u, weights):
     return torch.clamp(idx, 0, n - 1)
 
 
-def _resample_gather(u, weights, arrays):
+def _resample_gather(u, weights, arrays, mesh=_ALONE):
     """Every per-particle array gathered through the systematic indices
-    (cf. ``smc.py:131``)."""
-    idx = _systematic_indices(u, weights)
-    return tuple(a[idx] for a in arrays)
+    (cf. ``smc.py:131``): the weights of every rank of ``mesh`` gathered
+    whole, this rank's output rows searched, and the source rows of every
+    rank gathered (one SUM for all the arrays, packed side by side) before
+    the local gather."""
+    local = weights.shape[0]
+    idx = _systematic_indices(u, mesh.gather_rows(weights),
+                              mesh.local_rows(local * mesh.world_size))
+    packed = torch.cat([a.reshape(local, -1) for a in arrays], 1)
+    src = mesh.gather_rows(packed)[idx]
+    out, start = [], 0
+    for a in arrays:
+        width = int(np.prod(a.shape[1:], dtype=np.int64))
+        out.append(src[:, start:start + width].reshape(a.shape))
+        start += width
+    return tuple(out)
 
 
-def _particle_cov_chol(X):
+def _particle_cov_chol(X, mesh=_ALONE):
     """The particles' covariance (the centred Gram matrix over N, plus 1e-6
     on the diagonal), its lower Cholesky factor, and a flag that both are
     finite and the factorisation succeeded (cf. ``smc.py:158``).
     ``cholesky_ex`` reports a failure in ``info`` where the JAX package's
-    factor holds NaN."""
-    n = X.shape[0]
-    Xc = X - torch.mean(X, dim=0)
-    cov = (Xc.T @ Xc) / n
+    factor holds NaN. The particles of every rank of ``mesh`` count: a SUM
+    of the particles and their count, then one of the Gram matrices."""
+    sums = mesh.sum(torch.cat([X.sum(0), X.new_tensor([X.shape[0]])]))
+    Xc = X - sums[:-1] / sums[-1]
+    cov = mesh.sum(Xc.T @ Xc) / sums[-1]
     cov = cov + 1e-6 * torch.eye(X.shape[1], dtype=X.dtype, device=X.device)
     chol, info = torch.linalg.cholesky_ex(cov, check_errors=False)
     ok = torch.isfinite(cov).all() & torch.isfinite(chol).all() & (info == 0)
     return cov, chol, ok
 
 
-def _tune_scalings(scalings, acc_per_chain):
+def _global_mean(xs, mesh):
+    """The means of the 1-d tensors ``xs`` over the particles of every rank
+    of ``mesh``: one SUM."""
+    n = xs[0].shape[0]
+    sums = mesh.sum(torch.stack([x.sum() for x in xs]
+                                + [xs[0].new_tensor(float(n))]))
+    return sums[:-1] / sums[-1]
+
+
+def _tune_scalings(scalings, acc_per_chain, mesh=_ALONE):
     """Each particle's proposal scale moved toward an acceptance of 0.234
-    (cf. ``smc.py:177``)."""
+    (cf. ``smc.py:177``); the means span every rank of ``mesh``."""
     target = 0.234
-    ave = torch.exp(torch.log(scalings.mean()) + (acc_per_chain.mean()
-                                                  - target))
+    mean_scale, mean_acc = _global_mean([scalings, acc_per_chain], mesh)
+    ave = torch.exp(torch.log(mean_scale) + (mean_acc - target))
     return 0.5 * (ave + torch.exp(torch.log(scalings)
                                   + (acc_per_chain - target)))
 
@@ -160,18 +222,28 @@ class SMC:
     Gaussian kernel over the mean squared difference of the simulated and
     observed data, with no summary statistic (:func:`_make_abc_loglike`).
     ``parallel``, ``cores`` and ``progressbar`` are ignored too: every
-    particle runs in one batch on the model's device."""
+    particle runs in one batch on the model's device, or, with
+    ``devices``/``mesh`` (a ``parallel.ChainMesh`` or the list of every
+    rank's device), each rank's block of them on its own; ``draws`` must
+    be a multiple of the rank count."""
 
     def __init__(self, draws=1000, kernel="metropolis", n_steps=25,
                  parallel=False, start=None, cores=None, tune_steps=True,
                  p_acc_rate=0.99, threshold=0.5, epsilon=1.0, dist_func=None,
                  sum_stat=False, progressbar=False, model=None,
                  random_seed=-1, devices=None, mesh=None):
-        if devices is not None or mesh is not None:
-            raise NotImplementedError(
-                "SMC over several devices (devices=, mesh=) comes with the "
-                "multi-GPU slice (ROADMAP item 13)")
         self.draws = int(draws)
+        if mesh is not None and not isinstance(mesh, ChainMesh):
+            raise TypeError(f"mesh must be a parallel.ChainMesh, not "
+                            f"{type(mesh).__name__}")
+        # without either, this process alone, even inside a process group
+        self.mesh = make_mesh(mesh if mesh is not None else devices) \
+            if devices is not None or mesh is not None else _ALONE
+        if self.draws % self.mesh.world_size != 0:
+            raise ValueError(
+                f"draws ({self.draws}) must be a multiple of the device "
+                f"count ({self.mesh.world_size}) for particle sharding")
+        self.local = self.draws // self.mesh.world_size
         self.kernel = kernel
         self.n_steps = int(n_steps)
         self.start = start
@@ -182,42 +254,52 @@ class SMC:
         self.model = modelcontext(model)
         self.device = self.model.device
         seed = None if random_seed in (-1, None) else int(random_seed)
-        self.gen = make_generator(self.device, seed)
+        self.gen = self.shared_gen = make_generator(self.device, seed)
+        if self.mesh.group is not None:
+            if seed is None:
+                seed = self.mesh.host_broadcast(
+                    int(np.random.randint(0, 2 ** 30)))
+            # this rank's particles from its own generator; the resampling
+            # offset from one every rank seeds alike
+            self.gen = make_generator(self.device,
+                                      rank_seed(seed, self.mesh))
+            self.shared_gen = make_generator(self.device, seed)
 
         self.beta = 0.0
         self.max_steps = n_steps
         self.proposed = self.draws * self.n_steps
         self.acc_rate = 1.0
         dtype = torch_floatX()
-        self.acc_per_chain = torch.ones(self.draws, dtype=dtype,
+        self.acc_per_chain = torch.ones(self.local, dtype=dtype,
                                         device=self.device)
         self.dimension = self.model.ndim
-        self.scalings = torch.full((self.draws,),
+        self.scalings = torch.full((self.local,),
                                    min(1, 2.38 ** 2 / self.dimension),
                                    dtype=dtype, device=self.device)
         self.log_marginal_likelihood = 0.0
 
-    def _uniform(self, shape=()):
-        return torch.rand(shape, generator=self.gen, dtype=torch_floatX(),
-                          device=self.device)
+    def _uniform(self, shape=(), gen=None):
+        return torch.rand(shape, generator=gen or self.gen,
+                          dtype=torch_floatX(), device=self.device)
 
     # -- stages (cf. smc.py:218-405) ----------------------------------------
     def initialize_population(self):
         """The initial particles: prior draws of the free variables from
         the port's forward sampler, on the device, or ``start``
-        (cf. ``smc.py:218``)."""
+        (cf. ``smc.py:218``); this rank's rows of them."""
         model = self.model
         if self.start is not None:
             pts = self.start if isinstance(self.start, list) else \
                 [self.start] * self.draws
+            pts = pts[self.mesh.local_rows(self.draws, "draws")]
             q = np.stack([model.dict_to_array(
                 {k: p[k] for k in model.ordering.by_name}) for p in pts])
             self.posterior = torch.as_tensor(q, dtype=torch_floatX(),
                                              device=self.device)
             return
-        fwd = model.sample_forward(self.draws, gen=self.gen, observed=False)
+        fwd = model.sample_forward(self.local, gen=self.gen, observed=False)
         self.posterior = torch.cat(
-            [fwd[vm.var].reshape(self.draws, -1).to(torch_floatX())
+            [fwd[vm.var].reshape(self.local, -1).to(torch_floatX())
              for vm in model.ordering.vmap], dim=1)
 
     def setup_kernel(self):
@@ -247,7 +329,7 @@ class SMC:
         new_beta, self.weights, lml_inc = _beta_stage(
             self.likelihood_logp,
             torch.tensor(self.beta, dtype=torch_floatX(), device=self.device),
-            rN)
+            rN, self.mesh)
         beta, inc = torch.stack([new_beta, lml_inc]).tolist()
         self.beta = float(beta)
         self.log_marginal_likelihood += float(inc)
@@ -256,14 +338,14 @@ class SMC:
         """Systematic resampling on the device (cf. ``smc.py:303``)."""
         (self.posterior, self.prior_logp, self.likelihood_logp,
          self.acc_per_chain, self.scalings) = _resample_gather(
-            self._uniform(), self.weights,
+            self._uniform(gen=self.shared_gen), self.weights,
             (self.posterior, self.prior_logp, self.likelihood_logp,
-             self.acc_per_chain, self.scalings))
+             self.acc_per_chain, self.scalings), self.mesh)
 
     def update_proposal(self):
         """The proposal covariance and its factor (cf. ``smc.py:314``); one
         host read of the flag."""
-        _, self.chol, ok = _particle_cov_chol(self.posterior)
+        _, self.chol, ok = _particle_cov_chol(self.posterior, self.mesh)
         if not bool(ok):
             raise ValueError('Sample covariances not valid! Likely "draws" '
                              "is too small!")
@@ -271,7 +353,8 @@ class SMC:
     def tune(self):
         """The scalings on the device, ``n_steps`` on the host
         (cf. ``smc.py:322``: acceptance target 0.234)."""
-        self.scalings = _tune_scalings(self.scalings, self.acc_per_chain)
+        self.scalings = _tune_scalings(self.scalings, self.acc_per_chain,
+                                       self.mesh)
         if self.tune_steps:
             acc_rate = max(1.0 / self.proposed, self.acc_rate)
             self.n_steps = min(
@@ -285,22 +368,24 @@ class SMC:
         (cf. ``smc.py:333``); the mean acceptance is the one host read."""
         q, pl, ll = self.posterior, self.prior_logp, self.likelihood_logp
         accs = torch.zeros_like(pl)
-        shape = (self.draws, self.dimension)
+        shape = (self.local, self.dimension)
         for _ in range(self.n_steps):
             z = torch.randn(shape, generator=self.gen, dtype=torch_floatX(),
                             device=self.device)
-            u = self._uniform((self.draws,))
+            u = self._uniform((self.local,))
             q, pl, ll, accept = _mutation_step(
                 q, pl, ll, self.beta, self.chol, self.scalings, z, u,
                 self._logp_fn)
             accs = accs + accept.to(accs.dtype)
         self.posterior, self.prior_logp, self.likelihood_logp = q, pl, ll
         self.acc_per_chain = accs / self.n_steps
-        self.acc_rate = self.acc_per_chain.mean().item()
+        self.acc_rate = _global_mean([self.acc_per_chain],
+                                     self.mesh)[0].item()
 
     def posterior_to_trace(self):
         """The particles decoded into every unobserved variable, copied to
-        the host once, as one ``NDArray`` (cf. ``smc.py:350``)."""
+        the host once, as one ``NDArray`` (cf. ``smc.py:350``); every
+        rank's, in rank order, over the mesh's host group."""
         from ..backends.base import MultiTrace
         from ..backends.ndarray import NDArray
         model = self.model
@@ -315,6 +400,7 @@ class SMC:
             vals = torch.func.vmap(decode)(self.posterior)
         widths = [v.shape[1] for v in vals]
         host = torch.cat([v.to(torch.float64) for v in vals], 1).cpu().numpy()
+        host = np.concatenate(self.mesh.host_gather(host), axis=0)
         out, start = {}, 0
         for v, w in zip(unobserved, widths):
             shape = tuple(np.shape(v.test_value))

@@ -18,3 +18,8 @@ DivergenceInfo = namedtuple("DivergenceInfo", "message, exec_info, state")
 
 class BaseHMC(GradientSharedStep):
     """Superclass of NUTS (cf. ``base_hmc.py:36``)."""
+
+    #: The ranks that pooled statistics and the step-size probe reduce over
+    #: besides the local chains (a ``parallel.ChainMesh``; ``sample(devices=
+    #: ...)`` sets it, ``None`` for this process's chains alone).
+    mesh = None

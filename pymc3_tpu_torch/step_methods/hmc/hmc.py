@@ -122,7 +122,7 @@ class HamiltonianMC(BaseHMC):
                            target=self.target_accept, gamma=self.gamma,
                            k=self.k, t0=self.t0)
         pot_new = kernel_update(self.potential, state.pot, x_new, tune,
-                                self.axis_name is not None)
+                                self.axis_name is not None, self.mesh)
 
         new_state = NutsKernelState(q=x_new, logp=logp_new, grad=grad_new,
                                     da=da_new, pot=pot_new,

@@ -198,9 +198,13 @@ class _Tree(NamedTuple):
 
 
 def nuts_draw(noise, start: IntegrationState, h0, step_size, var,
-              logp_dlogp_fn, max_treedepth: int, emax: float) -> _Tree:
+              logp_dlogp_fn, max_treedepth: int, emax: float,
+              mesh=None) -> _Tree:
     """One NUTS transition per chain from ``start`` (momentum already in
-    it), cf. ``nuts_draw`` (nuts.py:227-307). ``step_size``: ``(chains,)``."""
+    it), cf. ``nuts_draw`` (nuts.py:227-307). ``step_size``: ``(chains,)``.
+    With ``mesh`` the doubling goes on while a lane of any rank grows, as
+    it would in one process over all of them (the ranks of a pooled run
+    wait for each other at every draw anyway)."""
     C = start.q.shape[0]
     device = start.q.device
     zeros = torch.zeros_like(start.energy)
@@ -214,8 +218,12 @@ def nuts_draw(noise, start: IntegrationState, h0, step_size, var,
     diverging = torch.zeros_like(turning)
     for d in range(max_treedepth):
         active = ~turning & ~diverging
-        if d > 0 and not bool(active.any()):   # the one sync of a depth
-            break
+        if d > 0:                               # the one sync of a depth
+            growing = active.any()
+            if mesh is not None:
+                growing = mesh.max(growing.to(torch.int32)) > 0
+            if not bool(growing):
+                break
         n_leaves = 1 << d
         u_dir, u_swap, u_take = noise.depth(d, max(2, n_leaves))
         go_right = u_dir < 0.5
@@ -267,9 +275,10 @@ def nuts_draw(noise, start: IntegrationState, h0, step_size, var,
 def find_reasonable_eps(step, q0, noise):
     """Stan-style step-size probe (cf. ``find_reasonable_eps``,
     nuts.py:310): double or halve eps until the one-leapfrog acceptance,
-    pooled over all chains, lands in [0.25, 0.9]. One host sync per probe
-    (at most 30). A stepper over a subset of the flat vector is probed on
-    its own coordinates, the others held at ``q0``'s values."""
+    pooled over all chains (of every rank of ``step.mesh``), lands in
+    [0.25, 0.9], so that every rank starts from the same eps. One host sync
+    per probe (at most 30). A stepper over a subset of the flat vector is
+    probed on its own coordinates, the others held at ``q0``'s values."""
     pot = step.potential.init_kernel_state(q0.shape[0], q0.device)
     var = kernel_mass(pot)
     logp_fn = step._value_and_grad_at(q0)
@@ -277,6 +286,7 @@ def find_reasonable_eps(step, q0, noise):
     logp0, grad0 = logp_fn(x0)
     p0 = kernel_momentum(pot, noise.normal(step.dim))
     h0 = 0.5 * _dot(p0, mass_velocity(var, p0)) - logp0
+    mesh = getattr(step, "mesh", None)
 
     def accept_at(eps):
         p_half = p0 + 0.5 * eps * grad0
@@ -285,7 +295,11 @@ def find_reasonable_eps(step, q0, noise):
         de = h0 - (0.5 * _dot(p1, mass_velocity(var, p1)) - logp1)
         a = torch.where(torch.isfinite(de),
                         torch.exp(torch.clamp(de, max=0.0)), 0.0)
-        return float(a.mean())
+        total, count = _ranks_sum(torch.stack(
+            [a.to(torch.float64).sum(), torch.tensor(
+                float(a.shape[0]), dtype=torch.float64, device=a.device)]),
+            mesh).tolist()
+        return total / count
 
     eps = float(np.float32(step.step_size))
     a = accept_at(eps)
@@ -297,6 +311,54 @@ def find_reasonable_eps(step, q0, noise):
     if np.isfinite(eps) and 1e-10 < eps < 1e4:
         return eps
     return step.step_size
+
+
+def _ranks_sum(x, mesh):
+    """``x`` summed over the ranks of ``mesh`` (itself without one)."""
+    return x if mesh is None else mesh.sum(x)
+
+
+def _rescue(tctx, diverging, rescue_cnt, q, logp, grad, mesh=None):
+    """Warmup stuck-lane rescue (cf. nuts.py:613-650): at the end of a
+    100-draw tuning window, lanes with >= 90 divergences in it jump to the
+    first lane, by global index over the ranks of ``mesh``, holding the
+    best finite logp. The donor's ``q``/``logp``/``grad`` reach every rank
+    by a SUM in which only the donor's rank writes them."""
+    win, thresh = 100, 90
+    if not tctx.tune:
+        return q, logp, grad, torch.zeros_like(rescue_cnt), \
+            torch.zeros_like(diverging)
+    rescue_cnt = rescue_cnt + diverging.to(torch.int32)
+    if (tctx.step_idx + 1) % win != 0:
+        return q, logp, grad, rescue_cnt, torch.zeros_like(diverging)
+    C = logp.shape[0]
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+    stuck = rescue_cnt >= thresh
+    finite = torch.isfinite(logp)
+    score = torch.where(finite, logp, -torch.inf)
+    best = score.max()
+    if mesh is not None:
+        best = mesh.max(best)
+    lanes = torch.arange(C, device=logp.device, dtype=torch.int64) + rank * C
+    sentinel = C * world
+    donor = torch.where(finite & (score == best), lanes, sentinel).min()
+    if mesh is not None:
+        donor = mesh.min(donor)
+    apply = stuck & torch.isfinite(best) & (donor != sentinel)
+    local = donor - rank * C
+    mine = (local >= 0) & (local < C)
+    take = local.clamp(0, C - 1).reshape(1)
+    row = torch.cat([q.index_select(0, take)[0],
+                     logp.index_select(0, take),
+                     grad.index_select(0, take)[0]])
+    row = torch.where(mine, row, torch.zeros_like(row))
+    if mesh is not None:
+        row = mesh.sum(row)
+    n = q.shape[1]
+    q = _where(apply, row[:n].expand_as(q), q)
+    logp = torch.where(apply, row[n], logp)
+    grad = _where(apply, row[n + 1:].expand_as(grad), grad)
+    return q, logp, grad, torch.zeros_like(rescue_cnt), apply
 
 
 class NutsKernelState(NamedTuple):
@@ -411,25 +473,30 @@ class NUTS(BaseHMC):
                                  model_logp=logp0)
         h0 = start.energy
         tree = nuts_draw(noise, start, h0, eps, var, lp_fn,
-                         self._max_treedepth(tctx), self.Emax)
+                         self._max_treedepth(tctx), self.Emax,
+                         self.mesh if self.pooled else None)
 
         n_leaf = torch.clamp(tree.n_leapfrog, min=1)
         mean_accept = tree.sum_accept / n_leaf.to(eps.dtype)
         da_accept = mean_accept
         if self.pooled:
             # pool over the lanes at the unscaled step size (a lane on the
-            # per-lane fallback reports acceptance at a smaller eps)
+            # per-lane fallback reports acceptance at a smaller eps), in
+            # float64 and over every rank
             unscaled = state.eps_scale >= 1.0
-            n_unscaled = unscaled.to(eps.dtype).sum()
-            masked = torch.where(unscaled, mean_accept, 0.0)
+            acc = mean_accept.to(torch.float64)
+            n_unscaled, masked, total, count = _ranks_sum(torch.stack([
+                unscaled.to(torch.float64).sum(),
+                torch.where(unscaled, acc, 0.0).sum(), acc.sum(),
+                torch.full_like(acc[0], float(acc.shape[0]))]), self.mesh)
             da_accept = torch.where(
-                n_unscaled > 0, masked.sum() / torch.clamp(n_unscaled, min=1.0),
-                mean_accept.mean()).expand_as(mean_accept)
+                n_unscaled > 0, masked / torch.clamp(n_unscaled, min=1.0),
+                total / count).to(eps.dtype).expand_as(mean_accept)
         da_new = da_update(state.da, da_accept, tune and self.adapt_step_size,
                            target=self.target_accept, gamma=self.gamma,
                            k=self.k, t0=self.t0)
         pot_new = kernel_update(self.potential, state.pot, tree.prop.q, tune,
-                                self.pooled)
+                                self.pooled, self.mesh)
 
         new_q, new_logp, new_grad = tree.prop.q, tree.prop.logp, \
             tree.prop.grad
@@ -441,8 +508,9 @@ class NUTS(BaseHMC):
         rescue_cnt = state.rescue_cnt
         rescued = torch.zeros_like(tree.diverging)
         if self.pooled and self.rescue_stuck and not self.is_partial:
-            new_q, new_logp, new_grad, rescue_cnt, rescued = self._rescue(
-                tctx, tree.diverging, rescue_cnt, new_q, new_logp, new_grad)
+            new_q, new_logp, new_grad, rescue_cnt, rescued = _rescue(
+                tctx, tree.diverging, rescue_cnt, new_q, new_logp, new_grad,
+                self.mesh)
 
         new_state = NutsKernelState(q=new_q, logp=new_logp, grad=new_grad,
                                     da=da_new, pot=pot_new,
@@ -464,33 +532,6 @@ class NUTS(BaseHMC):
             "rescued": rescued,
         }
         return self._scatter(q, new_q), new_state, stats
-
-    @staticmethod
-    def _rescue(tctx, diverging, rescue_cnt, q, logp, grad):
-        """Warmup stuck-lane rescue (cf. nuts.py:613-650): at the end of a
-        100-draw tuning window, lanes with >= 90 divergences in it jump to
-        the first lane holding the best finite logp."""
-        win, thresh = 100, 90
-        if not tctx.tune:
-            return q, logp, grad, torch.zeros_like(rescue_cnt), \
-                torch.zeros_like(diverging)
-        rescue_cnt = rescue_cnt + diverging.to(torch.int32)
-        if (tctx.step_idx + 1) % win != 0:
-            return q, logp, grad, rescue_cnt, torch.zeros_like(diverging)
-        stuck = rescue_cnt >= thresh
-        finite = torch.isfinite(logp)
-        score = torch.where(finite, logp, -torch.inf)
-        best = score.max()
-        lanes = torch.arange(logp.shape[0], device=logp.device)
-        sentinel = logp.shape[0]
-        cand = torch.where(finite & (score == best), lanes, sentinel)
-        donor = cand.min()
-        apply = stuck & torch.isfinite(best) & (donor != sentinel)
-        take = donor.clamp(max=sentinel - 1).reshape(1)
-        q = _where(apply, q.index_select(0, take).expand_as(q), q)
-        logp = torch.where(apply, logp.index_select(0, take), logp)
-        grad = _where(apply, grad.index_select(0, take).expand_as(grad), grad)
-        return q, logp, grad, torch.zeros_like(rescue_cnt), apply
 
     @staticmethod
     def competence(var, has_grad=False):

@@ -93,14 +93,28 @@ def welford_add(state: WelfordState, x, weight=1.0) -> WelfordState:
     return WelfordState(w, mean, m2)
 
 
-def welford_merge_pooled(state: WelfordState) -> WelfordState:
-    """Exact pooled merge over all chains (dim 0), broadcast back to every
-    chain (cf. ``welford_merge_psum``, quadpotential.py:93)."""
-    w_tot = state.w.sum(0)
-    mean_tot = (state.w[:, None] * state.mean).sum(0) / w_tot
-    m2_tot = (state.m2 + state.w[:, None]
-              * (state.mean - mean_tot) ** 2).sum(0)
-    return WelfordState(w_tot.expand_as(state.w),
+def _chains_sum(x, mesh=None):
+    """``x`` summed over dim 0 in float64 and, with ``mesh``, over the
+    ranks. Float64 makes the float32 result independent, but in the rare
+    case of a tie at a rounding boundary, of how the chains are split
+    among the ranks."""
+    total = x.to(torch.float64).sum(0)
+    return total if mesh is None else mesh.sum(total)
+
+
+def welford_merge_pooled(state: WelfordState, mesh=None) -> WelfordState:
+    """Exact pooled merge over all chains (dim 0), and over the ranks of
+    ``mesh``, broadcast back to every chain (cf. ``welford_merge_psum``,
+    quadpotential.py:93-101): the global weight and weighted mean first,
+    then ``M2 + w (mean - mean_tot)^2``, each summed."""
+    dtype = state.mean.dtype
+    first = _chains_sum(torch.cat([state.w[:, None],
+                                 state.w[:, None] * state.mean], 1), mesh)
+    w_tot = first[0]
+    mean_tot = (first[1:] / w_tot).to(dtype)
+    m2_tot = _chains_sum(state.m2 + state.w[:, None]
+                       * (state.mean - mean_tot) ** 2, mesh).to(dtype)
+    return WelfordState(w_tot.to(dtype).expand_as(state.w),
                         mean_tot.expand_as(state.mean),
                         m2_tot.expand_as(state.m2))
 
@@ -141,25 +155,25 @@ def diag_adapt_init(initial_mean, initial_diag, initial_weight,
 
 
 def diag_adapt_update(state: DiagAdaptState, sample, tune: bool,
-                      adaptation_window=101,
-                      pooled: bool = False) -> DiagAdaptState:
+                      adaptation_window=101, pooled: bool = False,
+                      mesh=None) -> DiagAdaptState:
     """One adaptation step (cf. ``diag_adapt_update``, quadpotential.py:136):
     add the sample to both estimators, refresh ``var`` from the foreground
-    (pooled over chains with ``pooled``), and at window ends promote the
-    background to the foreground."""
+    (pooled over chains with ``pooled``, and over the ranks of ``mesh``),
+    and at window ends promote the background to the foreground."""
     if not tune:
         return state
     fg = welford_add(state.fg, sample)
     bg = welford_add(state.bg, sample)
-    fg_for_var = welford_merge_pooled(fg) if pooled else fg
+    fg_for_var = welford_merge_pooled(fg, mesh) if pooled else fg
     var = fg_for_var.m2 / fg_for_var.w[:, None]
 
     n = state.n_samples + 1
     window_end = (n % adaptation_window) == 0
     if pooled:
         # early promotions at n = 3/10/25 once the pooled sample count
-        # clears 1024 (as in the JAX package)
-        chains = sample.shape[0]
+        # clears 1024 (as in the JAX package): the global chain count
+        chains = sample.shape[0] * (1 if mesh is None else mesh.world_size)
         early = (n == 3) | (n == 10) | (n == 25)
         window_end = window_end | (early & (chains * n.to(var.dtype) >= 1024.0))
     zero = welford_zeros(*sample.shape, sample.device)
@@ -195,16 +209,21 @@ def welford_cov_add(state: WelfordCovState, x, weight=1.0):
     return WelfordCovState(w, mean, m2)
 
 
-def welford_cov_merge_pooled(state: WelfordCovState) -> WelfordCovState:
-    """Exact pooled covariance merge over all chains (dim 0), with the
-    rank-1 mean-shift term (cf. ``welford_cov_merge_psum``,
-    quadpotential.py:268). Returns one accumulator, a leading dim of 1."""
-    w_tot = state.w.sum(0, keepdim=True)
-    mean_tot = (state.w[:, None] * state.mean).sum(0, keepdim=True) / w_tot
+def welford_cov_merge_pooled(state: WelfordCovState,
+                             mesh=None) -> WelfordCovState:
+    """Exact pooled covariance merge over all chains (dim 0), and over the
+    ranks of ``mesh``, with the rank-1 mean-shift term (cf.
+    ``welford_cov_merge_psum``, quadpotential.py:268-274). Returns one
+    accumulator, a leading dim of 1."""
+    dtype = state.mean.dtype
+    first = _chains_sum(torch.cat([state.w[:, None],
+                                 state.w[:, None] * state.mean], 1), mesh)
+    w_tot = first[:1]
+    mean_tot = (first[1:] / first[0]).to(dtype)[None]
     d = state.mean - mean_tot
-    m2_tot = (state.m2 + state.w[:, None, None] * d[:, :, None]
-              * d[:, None, :]).sum(0, keepdim=True)
-    return WelfordCovState(w_tot, mean_tot, m2_tot)
+    m2_tot = _chains_sum(state.m2 + state.w[:, None, None] * d[:, :, None]
+                       * d[:, None, :], mesh).to(dtype)[None]
+    return WelfordCovState(w_tot.to(dtype), mean_tot, m2_tot)
 
 
 class DenseState(NamedTuple):
@@ -252,13 +271,13 @@ def dense_adapt_init(initial_mean, initial_cov, initial_weight, chains,
 
 
 def dense_adapt_update(state: DenseAdaptState, sample, tune: bool,
-                       window_multiplier=2.0,
-                       pooled: bool = False) -> DenseAdaptState:
+                       window_multiplier=2.0, pooled: bool = False,
+                       mesh=None) -> DenseAdaptState:
     """One dense-adaptation step (cf. ``dense_adapt_update``,
     quadpotential.py:311): add the sample to both covariance estimators,
     refresh ``cov``/``chol`` from the foreground (pooled over chains with
-    ``pooled``), and at window ends promote the background and double the
-    window. Where the estimate is not positive definite, or has weight
+    ``pooled``, and over the ranks of ``mesh``), and at window ends
+    promote the background and double the window. Where the estimate is not positive definite, or has weight
     2 or less, the chain keeps its previous factor."""
     if not tune:
         return state
@@ -266,7 +285,7 @@ def dense_adapt_update(state: DenseAdaptState, sample, tune: bool,
     bg = welford_cov_add(state.bg, sample)
     delta = state.n_samples - state.prev_update
 
-    fg_est = welford_cov_merge_pooled(fg) if pooled else fg
+    fg_est = welford_cov_merge_pooled(fg, mesh) if pooled else fg
     cov_est = fg_est.m2 / torch.clamp(fg_est.w - 1.0, min=1.0)[:, None, None]
     chol_est, info = torch.linalg.cholesky_ex(cov_est)
     ok = (fg_est.w > 2.0) & (info == 0) \
@@ -323,10 +342,12 @@ def kernel_momentum(pot_state, z):
     return pot_state.inv_stds * z
 
 
-def kernel_update(potential, pot_state, sample, tune: bool, pooled: bool):
+def kernel_update(potential, pot_state, sample, tune: bool, pooled: bool,
+                  mesh=None):
     """The potential's adaptation step after a draw at ``sample``: none for
     a fixed potential, the dense or the diagonal update otherwise (cf.
-    ``nuts.py:586-600``)."""
+    ``nuts.py:586-600``); a pooled one reduces over the ranks of ``mesh``
+    too."""
     if not getattr(potential, "adapts", False):
         return pot_state
     if isinstance(pot_state, DenseAdaptState):
@@ -334,11 +355,11 @@ def kernel_update(potential, pot_state, sample, tune: bool, pooled: bool):
             pot_state, sample, tune,
             window_multiplier=getattr(
                 potential, "adaptation_window_multiplier", 2.0),
-            pooled=pooled)
+            pooled=pooled, mesh=mesh)
     return diag_adapt_update(
         pot_state, sample, tune,
         adaptation_window=getattr(potential, "adaptation_window", 101),
-        pooled=pooled)
+        pooled=pooled, mesh=mesh)
 
 
 # -- class wrappers ----------------------------------------------------------

@@ -233,6 +233,40 @@ class ObjectiveFunction:
             return params, opt_state, val
         return step, opt
 
+    def sharded_step_function(self, mesh, obj_n_mc=1, obj_optimizer=None):
+        """Data-parallel step over the ranks of ``mesh`` (a
+        ``parallel.ChainMesh``; cf. ``opvi.py:207-250``): ``step(params,
+        opt_state, noise) -> (params, opt_state, loss)`` and its optimizer.
+
+        Every rank calls ``step`` with the same parameters and its own
+        ``noise`` (its minibatch and Monte-Carlo draws, from its own
+        generator: ``self.draw_noise(gen, obj_n_mc)``). The gradients and
+        the loss are averaged over the ranks in one SUM, so the update, and
+        the parameters after it, are the same on every rank. A non-finite
+        averaged loss zeroes the whole gradient and a non-finite entry its
+        own, as in :meth:`step_function`."""
+        opt = get_optimizer(obj_optimizer if obj_optimizer is not None
+                            else adagrad_window())
+        loss = self.loss_fn(obj_n_mc)
+        world = float(mesh.world_size)
+
+        def step(params, opt_state, noise):
+            val, grads = value_and_grad(loss, params, noise)
+            with torch.no_grad():
+                leaves = tree_leaves(grads)
+                flat = mesh.sum(torch.cat(
+                    [val.reshape(1)] + [g.reshape(-1) for g in leaves])) \
+                    / world
+                val, start, mean = flat[0], 1, []
+                for g in leaves:
+                    mean.append(flat[start:start + g.numel()].reshape(g.shape))
+                    start += g.numel()
+                grads = mask_nonfinite(_unflatten(grads, mean),
+                                       torch.isfinite(val))
+                params, opt_state = opt.update(grads, opt_state, params)
+            return params, opt_state, val
+        return step, opt
+
     def __call__(self, nmc, **kwargs):
         return self.loss_fn(nmc)
 

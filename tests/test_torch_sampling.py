@@ -161,9 +161,12 @@ def test_callback_can_cancel_with_a_partial_trace():
 
 
 @pytest.mark.parametrize("name,value,slice_", [
-    ("devices", [0], "multi-GPU")])
+    ("devices", ["cpu", "cpu"], "one process each")])
 def test_later_keywords_name_their_slice(name, value, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
+    """``devices`` is ported (``test_torch_parallel.py``); outside a
+    process group more than one device raises, naming the way to start one
+    process per device."""
+    with pytest.raises(ValueError, match=slice_):
         pt.sample(draws=5, tune=5, model=_normal_model(pt), progressbar=False,
                   **{name: value})
 

@@ -407,10 +407,14 @@ def test_a_stage_reads_three_numbers_from_the_device(monkeypatch):
 
 
 def test_devices_and_mesh_raise():
+    """Sharded SMC is ported (``test_torch_parallel.py``); outside a
+    process group two devices raise, and a ``mesh`` must be a
+    ``parallel.ChainMesh``."""
     model = beta_binomial(pt)
-    for kw in ({"devices": ["cuda:0"]}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            pt.sample_smc(draws=10, model=model, **kw)
+    with pytest.raises(ValueError, match="one process each"):
+        pt.sample_smc(draws=10, model=model, devices=["cpu", "cpu"])
+    with pytest.raises(TypeError, match="ChainMesh"):
+        pt.sample_smc(draws=10, model=model, mesh=object())
 
 
 def test_stage_state_stays_on_the_model_device():

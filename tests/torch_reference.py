@@ -15,8 +15,8 @@ port on the card. Run from the repository root:
     JAX_PLATFORMS=cpu python tests/torch_reference.py [config ...]
 
 With names (``lkj``, ``stochastic_volatility``, ``garch``, ``advi_logistic``,
-``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``, ``glm_radon``,
-``examples``) it
+``advi_sharded``, ``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``,
+``glm_radon``, ``examples``) it
 runs those
 configurations only and keeps the others already in the file; the file is
 written after each configuration.
@@ -119,6 +119,10 @@ ADVI_GP = {"stages": {"advi": [[1000, 0.01], [1000, 0.001]],
                       "fullrank_advi": [[1500, 0.01], [1000, 0.001]]},
            "obj_n_mc": 50}
 SEEDS = (1, 2)
+# the sharded minibatch-ADVI fits of phase 27: the d = 100 configuration
+# with a batch of 500 on each of two devices
+ADVI_SHARDED = {"devices": 2, "N": 50_000, "d": 100, "batch": 500,
+                "steps": 5_000}
 
 
 def _fit_record(approx, wall):
@@ -150,6 +154,47 @@ def advi_logistic(pm):
         out[name] = {"N": N, "d": d, "batch": batch, "steps": steps,
                      "fits": fits}
     return out
+
+
+def advi_sharded(pm):
+    """The JAX package's ``sharded_step_function`` over ``ADVI_SHARDED``'s
+    devices of the CPU mesh, from the test point with the default
+    optimizer (adagrad_window), once per seed: each device draws its own
+    batch and noise from its key, and the gradients are averaged over the
+    devices. Their average halves the gradient's noise against one batch,
+    so the single-device fits of ``advi_logistic`` are not this
+    computation's reference."""
+    import jax
+    from pymc3_tpu.parallel import make_mesh
+    from pymc3_tpu.variational.approximations import MeanField
+    from pymc3_tpu.variational.operators import KL
+    from pymc3_tpu_torch.examples.suite import (advi_logistic_data,
+                                                 advi_logistic_model)
+    cfg = ADVI_SHARDED
+    n_dev = cfg["devices"]
+    X, y, w_true = advi_logistic_data(cfg["N"], cfg["d"])
+    model = advi_logistic_model(pm, X, y, cfg["batch"])
+    mesh = make_mesh(jax.devices()[:n_dev])
+    fits = []
+    for seed in SEEDS:
+        approx = MeanField(model=model)
+        objective = KL(approx)()
+        step, opt = objective.sharded_step_function(mesh, obj_n_mc=1)
+        params, state = approx.params, opt.init(approx.params)
+        key = jax.random.PRNGKey(seed)
+        losses = []
+        t0 = time.time()
+        for _ in range(cfg["steps"]):
+            key, sub = jax.random.split(key)
+            params, state, loss = step(params, state,
+                                       jax.random.split(sub, n_dev))
+            losses.append(loss)
+        approx.params = jax.tree_util.tree_map(np.asarray, params)
+        approx.hist = np.asarray(jax.device_get(losses))
+        fits.append(_fit_record(approx, time.time() - t0))
+        w = model.array_to_dict(np.asarray(approx.mean))["w"]
+        fits[-1]["coef_rmse"] = float(np.sqrt(np.mean((w - w_true) ** 2)))
+    return dict(cfg, fits=fits)
 
 
 def advi_gp(pm):
@@ -432,13 +477,20 @@ def examples(pm, only=None, out=None):
     return out
 
 
-FITS = {"advi_logistic": advi_logistic, "advi_gp": advi_gp,
+FITS = {"advi_logistic": advi_logistic, "advi_sharded": advi_sharded,
+        "advi_gp": advi_gp,
         "map_radon": map_radon, "smc_gp": smc_gp, "glm_radon": glm_radon,
         "examples": examples}
 
 
 def main():
     sys.path.insert(0, ROOT)
+    # devices of the CPU mesh for advi_sharded (before jax is imported)
+    if "xla_force_host_platform_device_count" not in os.environ.get(
+            "XLA_FLAGS", ""):
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                                   "--xla_force_host_platform_device_count"
+                                   "=8").strip()
     import pymc3_tpu as pm
     from pymc3_tpu.examples import (LKJ_correlation, garch_example,
                                     stochastic_volatility)
