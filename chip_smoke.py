@@ -184,10 +184,28 @@ a non-zero exit and no result line:
    the JAX package's sharded fits of the same setting; then
    ``gelman_schools`` through a one-rank NCCL group at phase 25's settings
    and gate. A rank that fails ends the script with its traceback;
-28. a JSON line describing every kernel, then the result line
+28. AEVB and the model-core surface, in a sixth worker process (in the
+   main process under ``--only aevb``): the amortized fit of
+   ``tests/test_aevb.py::test_vae`` at ``scripts/bench_advi_minibatch.py``'s
+   width (50,000 rows, batches of 500, an encoder ``mu = w x + b`` on the
+   rows ``Minibatch.indices`` gives each sample's draw, Adam at 0.02 for
+   3,000 steps, two samples a step), its steps/s and its ``w``, ``b`` and
+   ``sigma`` against the closed-form optimum (100/101, 0, sqrt(1/101))
+   within a tolerance from five JAX fits of the same settings; trainable
+   local groups through ADVI and full-rank ADVI; a rowwise full-rank group
+   at (4, 3) against N(0, s^2) and its covariance block diagonal; radon
+   with ``coords``/``dims`` and ``Deterministic("a_range", a.max() -
+   a.min())`` at 256 chains (tune 150 + draws 60) into InferenceData,
+   dims and the 85 county names checked, ``mu_a`` gated as phase 6, the
+   factors' ``logp`` summed against the model's, and a ``grad_vars``
+   subset at 2048 chains against the full gradient's columns; 100,000
+   prior draws of a ``DensityDist`` through a host generator
+   (``generate_samples(stats.norm.rvs, ...)``), on the card, against
+   their closed form;
+29. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-27 each print a JSON line of their own (each with the card's name
+Phases 9-28 each print a JSON line of their own (each with the card's name
 and power limit, and its ms per logp+grad or logp-only call or per VI
 step). Every model is built with no device argument and must come out on
 the card: that is the port's default.
@@ -203,10 +221,10 @@ sampling). With ``--against DIR``, a checkout of another commit, it also
 times that commit's forward kernel in the same call, in turns (other, this,
 this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
 (DIR, this, this, DIR) and prints each wall. ``--only NAMES`` runs phases
-1-3 and then the named ones of phases 6-27 (radon, best, mixture, disaster,
+1-3 and then the named ones of phases 6-28 (radon, best, mixture, disaster,
 binary, population, lkj, sv, garch, es, labels, advi_minibatch, advi_gp,
 svgd_map, smc_bimodal, smc_gp, gp_sparse, ode, glm, examples, traces,
-multirank; ``radon`` runs phase 26, which holds phase 6's run).
+multirank, aevb; ``radon`` runs phase 26, which holds phase 6's run).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -241,7 +259,7 @@ LATER_PHASES = ("best", "mixture", "disaster", "binary",
                 "population", "lkj", "sv", "garch", "es", "labels",
                 "advi_minibatch", "advi_gp", "svgd_map", "smc_bimodal",
                 "smc_gp", "gp_sparse", "ode", "glm", "examples", "traces",
-                "multirank")
+                "multirank", "aevb")
 MAIN_SHAPE = (4, 200, 200, 1)
 # the GP's sample(), predict's two widths, ADVI's fifty Monte-Carlo samples
 # a step (phase 18), SMC's 4,096 particles on the GP (phase 21), and FITC's
@@ -2754,10 +2772,11 @@ def _run_example(pm, gp_cov, name, card, ref, chains=256, tune=100,
 
 
 def _worker(args):
-    """A worker process of phases 25-26: ``traces CARD`` runs phase 26 and
-    prints a ``TRACES`` JSON line at its end; otherwise it runs the
-    examples ``args``, one ``EXAMPLE`` JSON line each. Exits 1 if anything
-    failed."""
+    """A worker process of phases 25-28: ``traces CARD``, ``multirank
+    CARD`` and ``aevb CARD`` run phase 26, 27 or 28 and print a
+    ``TRACES``, ``MULTIRANK`` or ``AEVB`` JSON line at its end; otherwise
+    it runs the examples ``args``, one ``EXAMPLE`` JSON line each. Exits 1
+    if anything failed."""
     import pymc3_tpu_torch as pm
     from pymc3_tpu_torch.ops import gp_cov
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2775,6 +2794,11 @@ def _worker(args):
         launches = phase_multirank(pm, args[1])
         print("MULTIRANK " + json.dumps({"finished_at": time.time(),
                                          "launches": launches}), flush=True)
+        sys.exit(0)
+    if args[0] == "aevb":
+        phase_aevb(pm, args[1])
+        print("AEVB " + json.dumps({"finished_at": time.time()}),
+              flush=True)
         sys.exit(0)
     ref = _reference_fits("examples")
     failed = []
@@ -2794,19 +2818,19 @@ _WORKER_CODE = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
 
 def start_workers(card, traces=True):
     """Start phase 25's example workers and, with ``traces``, the workers
-    of phases 26 and 27; :func:`phase_examples`, :func:`read_traces` and
-    :func:`read_multirank` read them. Their output goes to files, not pipes
-    (a full pipe would stall a worker), and they are stopped if the script
-    ends first (SIGTERM, then SIGKILL after 10 s). Returns ``(examples,
-    traces worker or None, multirank worker or None, time started)``, each
-    worker ``(process, out, err, args)``."""
+    of phases 26, 27 and 28; :func:`phase_examples` and
+    :func:`read_worker_phase` read them. Their output goes to files, not
+    pipes (a full pipe would stall a worker), and they are stopped if the
+    script ends first (SIGTERM, then SIGKILL after 10 s). Returns
+    ``(examples, {phase name: worker}, time started)``, each worker
+    ``(process, out, err, args)``."""
     import atexit
     import tempfile
     tmp = tempfile.mkdtemp()
     started_at = time.time()
     jobs = [tuple(g) for g in _example_groups()]
-    if traces:
-        jobs += [("traces", card), ("multirank", card)]
+    named = ("traces", "multirank", "aevb") if traces else ()
+    jobs += [(name, card) for name in named]
     workers = []
     for i, args in enumerate(jobs):
         out = open(os.path.join(tmp, f"{i}.out"), "w+")
@@ -2830,8 +2854,7 @@ def start_workers(card, traces=True):
         shutil.rmtree(tmp, ignore_errors=True)
     atexit.register(stop)
     n = len(_example_groups())
-    return (workers[:n], workers[n] if traces else None,
-            workers[n + 1] if traces else None, started_at)
+    return workers[:n], dict(zip(named, workers[n:])), started_at
 
 
 def _read_worker(worker):
@@ -2852,7 +2875,7 @@ def _finished_during(finished):
     return during[-1] if during else None
 
 
-# (phase name, time.time() at its start) of each of phases 7-27 run so far
+# (phase name, time.time() at its start) of each of phases 7-28 run so far
 PHASE_STARTS = []
 
 
@@ -2928,7 +2951,7 @@ def phase_examples(card, started):
     ``gp_example`` (60 inputs) runs both covariance kernels at (256, 60,
     60, 1): its worker counts their launches in its ``sample()``, which
     are returned for the kernels line."""
-    procs, _, _, started_at = started
+    procs, _, started_at = started
     t0 = time.time()
     rows, failed, launches, workers = {}, [], None, []
     for worker in procs:
@@ -2975,29 +2998,32 @@ def phase_examples(card, started):
     return launches
 
 
-def read_traces(started):
-    """Phase 26 as the full run makes it: read from the worker that
-    :func:`start_workers` started after phase 5 (its lines are printed
-    here), and fail if it failed. Its radon run at 2048 chains is bound by
-    its process's host dispatch, as the examples are, so it runs beside
-    phases 7-24 instead of adding its wall to theirs; its walls are taken
-    beside them."""
-    _, worker, _, started_at = started
+def read_worker_phase(started, name):
+    """Phase 26, 27 or 28 (``name``) as the full run makes it: read from
+    the worker that :func:`start_workers` started after phase 5 (its lines
+    are printed here), and fail if it failed. Each of these runs is bound
+    by its own process's host dispatch, as the examples are, so it runs
+    beside phases 7-24 instead of adding its wall to theirs; its walls are
+    taken beside them. Returns the worker's closing JSON line."""
+    _, workers, started_at = started
+    marker = name.upper() + " "
     t0 = time.time()
-    code, lines = _read_worker(worker)
-    finished = None
+    code, lines = _read_worker(workers[name])
+    result = None
     for line in lines:
-        if line.startswith("TRACES "):
-            finished = json.loads(line[len("TRACES "):])["finished_at"]
+        if line.startswith(marker):
+            result = json.loads(line[len(marker):])
         else:
             print(line, flush=True)
-    print("traces worker: " + json.dumps({
+    finished = None if result is None else result["finished_at"]
+    print(f"{name} worker: " + json.dumps({
         "exit": code, "finished_s": (None if finished is None
                                      else finished - started_at),
         "during": _finished_during(finished),
         "waited_s": time.time() - t0}), flush=True)
-    if code != 0 or finished is None:
-        fail(f"traces: the worker exited {code}")
+    if code != 0 or result is None:
+        fail(f"{name}: the worker exited {code}")
+    return result
 
 
 def _concat_draws(first, second):
@@ -3416,7 +3442,7 @@ def _multirank_advi(pm, mesh, warm=50):
         inference = pm.ADVI()
     objective, approx = inference.objective, inference.approx
     step, opt = objective.sharded_step_function(
-        mesh, obj_n_mc=1, obj_optimizer=adagrad_window())
+        mesh=mesh, obj_n_mc=1, obj_optimizer=adagrad_window())
     gen = torch.Generator(device=model.device)
     gen.manual_seed(rank_seed(1, mesh))
     params = approx.params
@@ -3597,28 +3623,290 @@ def phase_multirank(pm, card):
     return launches
 
 
-def read_multirank(started):
-    """Phase 27 as the full run makes it: read from the worker that
-    :func:`start_workers` started after phase 5 (its lines are printed
-    here); fails if it failed. Returns the ranks' forward and backward
-    launches in SMC on the GP."""
-    _, _, worker, started_at = started
+# phase 28: radon's chains and draws (phase 6's record: split R-hat - 1
+# grows as 1 / draws whatever the chain count, about 1.0057 at 60 draws)
+AEVB_RADON = {"chains": 256, "tune": 150, "draws": 60}
+AEVB_GRAD_CHAINS = 2048
+# the grad_vars subset against the full gradient: the same float32 sums
+AEVB_GRAD_TOL = dict(rtol=1e-5, atol=1e-4)
+# sum of the factors' logp against the model's: the same terms summed in
+# another order, about 2,500 in float32
+AEVB_LOGP_TOL = dict(rtol=1e-5, atol=1e-3)
+AEVB_PRIOR_DRAWS = 100_000
+
+
+def _aevb_tolerance(fits, optimum):
+    """The tolerance of the amortized fit's ``w``, ``b`` and ``sigma``
+    around their optimum, from the JAX package's five seeded fits of the
+    same settings on the CPU: their mean's distance from the optimum (the
+    bias of a constant-rate Adam fit on minibatches) plus 5 of their sds,
+    widened by sqrt(1 + 1/5) for the sd's own error from five fits (as
+    phase 17's ``_fit_gate`` widens by sqrt(1.5) for two)."""
+    out = {}
+    for k in ("w", "b", "sigma"):
+        x = np.array([f[k] for f in fits], np.float64)
+        out[k] = float(abs(x.mean() - optimum[k])
+                       + 5.0 * x.std(ddof=1) * np.sqrt(1.0 + 1.0 / len(x)))
+    return out
+
+
+def _aevb_fit(pm, card):
+    """Part 1: the amortized fit at the benchmark's width."""
+    from pymc3_tpu_torch.examples.suite import (AEVB_OPTIMUM, AEVB_VAE,
+                                                 aevb_vae_data,
+                                                 aevb_vae_model)
+    from pymc3_tpu_torch.model import RNG_ENV_KEY
+    cfg = AEVB_VAE
+    data = aevb_vae_data(cfg["N"])
+    model, zs, x_mini = aevb_vae_model(pm, data, cfg["batch"])
+    _on_card(model, "aevb")
+    rows_all = torch.as_tensor(data, device=model.device)
+
+    def encoder(aux, draw):
+        rows = rows_all[x_mini.indices(draw)]
+        return rows * aux["w"] + aux["b"], aux["rho"].expand(rows.shape)
+
+    def fit(steps, seed):
+        with model:
+            inference = pm.ADVI(local_rv={zs: dict(encoder=encoder,
+                                                   aux=cfg["aux0"])})
+        t0 = time.time()
+        approx = inference.fit(steps, obj_n_mc=cfg["obj_n_mc"],
+                               progressbar=False, random_seed=seed,
+                               obj_optimizer=pm.adam(
+                                   learning_rate=cfg["learning_rate"]))
+        torch.cuda.synchronize()
+        return approx, time.time() - t0
+
+    # the encoder and the likelihood read the same rows of one draw
+    noise = fit(1, 0)[0].draw_noise(torch.Generator(
+        device=model.device).manual_seed(3), 8)["minibatch"]
+    for i in range(8):
+        draw = {k: v[i] for k, v in noise.items()}
+        if not torch.equal(x_mini._eval_default({RNG_ENV_KEY: draw}, {}),
+                           rows_all[x_mini.indices(draw)]):
+            fail(f"aevb: sample {i}'s encoder rows differ from the "
+                 "likelihood's")
+    fit(50, 0)                                   # warm
+    approx, wall = fit(cfg["steps"], 1)
+    if not np.isfinite(approx.hist).all():
+        fail("aevb: a loss of the fit is not finite")
+    aux = {k: float(v) for k, v in approx.params[0]["aux"].items()}
+    got = {"w": aux["w"], "b": aux["b"],
+           "sigma": float(np.logaddexp(aux["rho"], 0.0))}
+    tol = _aevb_tolerance(_reference_fits("aevb_vae")["fits"], AEVB_OPTIMUM)
+    err = {k: abs(got[k] - AEVB_OPTIMUM[k]) for k in got}
+    print(f"aevb: amortized fit N={cfg['N']} batch={cfg['batch']} "
+          f"steps={cfg['steps']}: {cfg['steps'] / wall:.2f} steps/s "
+          f"({wall:.2f} s); " + ", ".join(
+              f"{k} {got[k]:.6f} (optimum {AEVB_OPTIMUM[k]:.6f}, |err| "
+              f"{err[k]:.6f}, tolerance {tol[k]:.6f})" for k in got),
+          flush=True)
+    for k in got:
+        if not err[k] < tol[k]:
+            fail(f"aevb: the encoder's {k} {got[k]:.6f} is {err[k]:.6f} "
+                 f"from its optimum {AEVB_OPTIMUM[k]:.6f}, beyond "
+                 f"{tol[k]:.6f}")
+    return {"steps": cfg["steps"], "wall_s": wall,
+            "steps_per_s": cfg["steps"] / wall, "fit": got,
+            "abs_err": err, "tolerance": tol,
+            "last100_loss": float(np.mean(approx.hist[-100:]))}
+
+
+def _aevb_trainable(pm):
+    """Part 2: ``tests/test_aevb.py::aevb_model``'s trainable local
+    parameters through ADVI and full-rank ADVI."""
+    out = {}
+    for method in ("ADVI", "FullRankADVI"):
+        with pm.Model() as model:
+            x = pm.HalfNormal("x", shape=(2,), total_size=5)
+            pm.Normal("y", shape=(2,))
+        _on_card(model, "aevb trainable")
+        with model:
+            inference = getattr(pm, method)(
+                local_rv={x: dict(mu=np.zeros(2), rho=np.zeros(2))})
+        start = [{k: v.clone() for k, v in p.items()}
+                 for p in inference.approx.params.values()]
+        approx = inference.fit(200, obj_n_mc=2, progressbar=False,
+                               random_seed=1)
+        for i, p in approx.params.items():
+            if all(torch.equal(p[k], start[i][k]) for k in p):
+                fail(f"aevb trainable {method}: group {i} was not trained")
+        draws = np.asarray(approx.sample(1000, random_seed=2)
+                           .get_values("x"))
+        if not (np.isfinite(draws).all() and (draws > 0).all()):
+            fail(f"aevb trainable {method}: a draw of x is not positive")
+        out[method] = {"groups": [type(g).__name__ for g in approx.groups],
+                       "x_mean": draws.mean(0).tolist()}
+    print("aevb: trainable local groups " + json.dumps(out), flush=True)
+    return out
+
+
+def _aevb_rowwise(pm):
+    """Part 3: a rowwise full-rank group at (4, 3): 4,000 draws against
+    N(0, s^2), s = softplus(1), with ``tests/test_aevb.py``'s tolerances,
+    and the covariance exactly zero off its blocks at random factors."""
+    from pymc3_tpu_torch.variational.approximations import FullRankGroup
+    with pm.Model() as model:
+        one = pm.Normal("one", shape=(4, 3))
+    g = FullRankGroup([one], rowwise=True, model=model)
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    z, logq = g.sample_q(g.init_params(), g.draw_noise(gen, 4000))
+    z, logq = z.double().cpu().numpy(), logq.double().cpu().numpy()
+    s = float(np.log1p(np.exp(1.0)))
+    want = (-0.5 * (np.log(2 * np.pi) + 2 * np.log(s)
+                    + (z / s) ** 2)).sum(-1)
+    checks = {"mean": float(np.abs(z.mean(0)).max()),
+              "sd": float(np.abs(z.std(0) - s).max()),
+              "logq": float(np.max(np.abs(logq - want)
+                                   / (2e-3 + 2e-3 * np.abs(want))))}
+    if not (checks["mean"] < 0.1 and checks["sd"] < 0.12
+            and checks["logq"] <= 1.0):
+        fail(f"aevb rowwise: draws or logq off N(0, {s:.4f}^2): {checks}")
+    params = g.init_params()
+    params["L_tril"] = torch.randn(params["L_tril"].shape, generator=gen,
+                                   device=model.device)
+    cov = g.cov(params)
+    L = g._L(params)
+    mask = torch.block_diag(*[torch.ones(3, 3, device=cov.device)] * 4)
+    if bool(cov[mask == 0].ne(0).any()) or not torch.equal(
+            cov[:3, :3], L[0] @ L[0].T):
+        fail("aevb rowwise: the covariance is not block diagonal")
+    print("aevb: rowwise group (4, 3) " + json.dumps(checks), flush=True)
+    return checks
+
+
+def _aevb_radon(pm, card):
+    """Part 4: radon with its county names (``examples/radon.py``,
+    ``coords=True``) at ``AEVB_RADON``'s chains, pooled, into
+    InferenceData; then each factor's logp at a posterior point against
+    the model's, and a ``grad_vars`` subset at ``AEVB_GRAD_CHAINS``
+    chains against the full gradient's columns."""
+    from pymc3_tpu_torch.examples.radon import build_model, county_names
+    from pymc3_tpu_torch.examples.suite import chain_moments, moment_check
+    model = build_model(pm, coords=True)
+    _on_card(model, "aevb radon")
+    cfg = AEVB_RADON
     t0 = time.time()
-    code, lines = _read_worker(worker)
-    result = None
-    for line in lines:
-        if line.startswith("MULTIRANK "):
-            result = json.loads(line[len("MULTIRANK "):])
-        else:
-            print(line, flush=True)
-    print("multirank worker: " + json.dumps({
-        "exit": code, "finished_s": (None if result is None
-                                     else result["finished_at"] - started_at),
-        "during": _finished_during(result and result["finished_at"]),
-        "waited_s": time.time() - t0}), flush=True)
-    if code != 0 or result is None:
-        fail(f"multirank: the worker exited {code}")
-    return result["launches"]
+    idata = pm.sample(draws=cfg["draws"], tune=cfg["tune"],
+                      chains=cfg["chains"], model=model, progressbar=False,
+                      target_accept=0.9, axis_name="chains_local",
+                      random_seed=4, return_inferencedata=True,
+                      compute_convergence_checks=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    post = idata.posterior
+    names = county_names()
+    for v in ("a", "b"):
+        dims = ("chain", "draw") + tuple(str(d) for d in post.dims.get(v,
+                                                                      ()))
+        if dims != ("chain", "draw", "county") or post[v].shape != (
+                cfg["chains"], cfg["draws"], len(names)):
+            fail(f"aevb radon: {v} has dims {dims}, shape {post[v].shape}")
+    if [str(c) for c in post.coords["county"]] != names:
+        fail("aevb radon: the county coordinate is not the 85 names")
+    a_range = post["a_range"]
+    a = (post["mu_a"][..., None] + post["sigma_a"][..., None] * post["a"])
+    if not np.allclose(a_range, a.max(-1) - a.min(-1), rtol=1e-5,
+                       atol=1e-5):
+        fail("aevb radon: a_range is not a.max() - a.min()")
+    check = moment_check(chain_moments(pm, {"mu_a": post["mu_a"]}),
+                         _baseline()["radon"]["moments"])
+    rhat = float(np.max(pm.rhat(np.asarray(post["mu_a"]))["x"]))
+    print(f"aevb radon: chains={cfg['chains']} tune={cfg['tune']} draws="
+          f"{cfg['draws']} into InferenceData, dims (chain, draw, county) "
+          f"with the 85 names; wall {wall:.2f} s, R-hat of mu_a {rhat:.4f}, "
+          f"moment check {check}", flush=True)
+    if not check["pass"]:
+        fail("aevb radon: mu_a disagrees with BASELINE_CPU.json")
+    if not rhat < 1.01:
+        fail(f"aevb radon: R-hat of mu_a {rhat:.4f} >= 1.01")
+
+    point = {rv.orig_name: np.asarray(post[rv.orig_name][0, -1])
+             for rv in model.free_RVs}
+    factors = model.free_RVs + model.observed_RVs
+    total = sum(f.logp(point) for f in factors)
+    want = model.logp(point)
+    logp_err = abs(total - want)
+    if not logp_err <= AEVB_LOGP_TOL["atol"] + AEVB_LOGP_TOL["rtol"] * abs(
+            want):
+        fail(f"aevb radon: the factors' logp sum {total} differs from the "
+             f"model's {want}")
+
+    subset = [model["mu_a"], model["mu_b"], model["a"]]
+    part = model.logp_dlogp_function(grad_vars=subset)
+    full = model.logp_dlogp_function()
+    extra = part.get_extra_values()
+    rng = np.random.RandomState(5)
+    cols = np.concatenate([np.arange(model.ordering[v.name].slc.start,
+                                     model.ordering[v.name].slc.stop)
+                           for v in subset])
+    q = np.tile(model.dict_to_array(dict(model.test_point, **extra)),
+                (AEVB_GRAD_CHAINS, 1))
+    q[:, cols] += 0.5 * rng.randn(AEVB_GRAD_CHAINS, cols.size)
+    q = torch.as_tensor(q, device=model.device)
+    fl, fg = full(q)
+    sl, sg = part(q[:, torch.as_tensor(cols, device=q.device)])
+    grad_err = {
+        "logp": check_close("aevb radon grad_vars logp", sl, fl,
+                            AEVB_GRAD_TOL),
+        "grad": check_close("aevb radon grad_vars gradient", sg,
+                            fg[:, torch.as_tensor(cols, device=q.device)],
+                            AEVB_GRAD_TOL)}
+    print(f"aevb radon: sum of {len(factors)} factors' logp {total:.4f} "
+          f"against the model's {want:.4f} (|err| {logp_err:.2e}); "
+          f"grad_vars={[v.name for v in subset]} at {AEVB_GRAD_CHAINS} "
+          f"chains against the full gradient's columns, max |err| "
+          + json.dumps(grad_err), flush=True)
+    return {"wall_s": wall, "rhat": rhat, "moment_check": check,
+            "logp_sum_err": logp_err, "grad_vars_err": grad_err}
+
+
+def _aevb_host_generator(pm):
+    """Part 5: a ``DensityDist`` whose ``random`` is PyMC3's
+    ``generate_samples(stats.norm.rvs, loc=..., scale=..., size=size)``:
+    ``AEVB_PRIOR_DRAWS`` prior draws, drawn on the host and copied to the
+    card once, against N(2, 0.5^2) within 4 standard errors of the mean
+    and of the sd."""
+    from scipy import stats
+    loc, scale = 2.0, 0.5
+
+    def random(point=None, size=None):
+        return pm.distributions.generate_samples(
+            stats.norm.rvs, loc=loc, scale=scale, size=size)
+
+    with pm.Model() as model:
+        pm.DensityDist("d", lambda v: -0.5 * ((v - loc) / scale) ** 2,
+                       random=random)
+    np.random.seed(7)
+    with model:
+        draws = model.sample_forward(AEVB_PRIOR_DRAWS)["d"]
+    if draws.device.type != "cuda" or tuple(draws.shape) != (
+            AEVB_PRIOR_DRAWS,):
+        fail(f"aevb host generator: draws of shape {tuple(draws.shape)} on "
+             f"{draws.device}, not ({AEVB_PRIOR_DRAWS},) on the card")
+    n = AEVB_PRIOR_DRAWS
+    z = {"mean": abs(float(draws.double().mean()) - loc) / (scale
+                                                            / np.sqrt(n)),
+         "sd": abs(float(draws.double().std()) - scale) / (
+             scale / np.sqrt(2 * n))}
+    print(f"aevb host generator: {n} draws on {draws.device}, z "
+          + json.dumps(z), flush=True)
+    if not (z["mean"] < 4 and z["sd"] < 4):
+        fail(f"aevb host generator: moments off N({loc}, {scale}^2): {z}")
+    return z
+
+
+def phase_aevb(pm, card):
+    """Phase 28 (see the module's docstring): AEVB and the model-core
+    surface on the card. Prints the phase's JSON line."""
+    t0 = time.time()
+    out = {"phase": "aevb", "amortized": _aevb_fit(pm, card),
+           "trainable": _aevb_trainable(pm), "rowwise": _aevb_rowwise(pm),
+           "radon": _aevb_radon(pm, card),
+           "host_generator_z": _aevb_host_generator(pm)}
+    out.update(wall_s=time.time() - t0, card=card)
+    print(json.dumps(out, default=float), flush=True)
 
 
 def _gp_wall(other):
@@ -3647,7 +3935,7 @@ def main():
     parser.add_argument("--gp-wall", metavar="DIR",
                         help="phase 4 alone: DIR, this, this, DIR")
     parser.add_argument("--only", metavar="NAMES",
-                        help="phases 1-3, then only these of phases 6-27 "
+                        help="phases 1-3, then only these of phases 6-28 "
                         "(comma-separated: " + ",".join(LATER_PHASES) + ")")
     args = parser.parse_args()
 
@@ -3695,7 +3983,8 @@ def main():
         "glm": lambda: phase_glm(pm, gp_cov, card),
         "examples": lambda: phase_examples(card, started[0]),
         "traces": lambda: phase_traces(pm, card),
-        "multirank": lambda: phase_multirank(pm, card)}
+        "multirank": lambda: phase_multirank(pm, card),
+        "aevb": lambda: phase_aevb(pm, card)}
     # phase 6's radon run is the first part of phase 26
     runners["radon"] = runners["traces"]
     started = [None]
@@ -3714,10 +4003,12 @@ def main():
                                      _posterior_mean_point(model, trace))
     del model, gp, trace
     # phases 25-26 run in worker processes beside phases 7-24 (see
-    # phase_examples and read_traces)
+    # phase_examples and read_worker_phase)
     started[0] = start_workers(card)
-    runners["traces"] = lambda: read_traces(started[0])
-    runners["multirank"] = lambda: read_multirank(started[0])
+    runners["traces"] = lambda: read_worker_phase(started[0], "traces")
+    runners["multirank"] = lambda: read_worker_phase(
+        started[0], "multirank")["launches"]
+    runners["aevb"] = lambda: read_worker_phase(started[0], "aevb")
     walls = {}
     for name in LATER_PHASES:
         t0 = time.time()
@@ -3737,7 +4028,7 @@ def main():
             example_launches = out
         if name == "multirank":
             multirank_launches = out
-    print(f"phases 1-27: {time.time() - t_start:.1f} s; each of 7-27 "
+    print(f"phases 1-28: {time.time() - t_start:.1f} s; each of 7-28 "
           f"{json.dumps(walls)}", flush=True)
 
     replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",

@@ -22,6 +22,16 @@ minibatches sharded over the ranks of a process group (``parallel``,
 asks for the CPU (``set_config(device="cpu")`` or ``Model(device="cpu")``).
 Imports torch, numpy and scipy only, never jax or pymc3_tpu.
 """
+import logging
+
+_log = logging.getLogger("pymc3_tpu_torch")
+#: The package logger's handler; attached only where logging has no root
+#: handler yet, as the JAX package does.
+handler = logging.StreamHandler()
+if not logging.root.handlers and not _log.handlers:
+    _log.setLevel(logging.INFO)
+    _log.addHandler(handler)
+
 from .config import floatX, intX, get_config, set_config
 from . import node
 from . import math
@@ -31,16 +41,25 @@ from .math import (
 )
 from .model import (
     Model, modelcontext, Point, Deterministic, Potential, FreeRV, ObservedRV,
-    TransformedRV, ValueGradFunction, set_data,
+    MultiObservedRV, TransformedRV, ValueGradFunction, set_data, Factor, fn,
+    fastfn, compilef,
+)
+from .blocking import (
+    ArrayOrdering, DictToArrayBijection, DictToVarBijection,
 )
 from .data import Data, Minibatch, get_data, GeneratorAdapter, align_minibatches
+from . import torchf
 from .torchf import (
     gradient, hessian, hessian_diag, jacobian, inputvars, cont_inputs,
+    smartfloatX, CallableTensor, join_nonshared_inputs,
+    make_shared_replacements, generator, tt_rng, set_tt_rng, take_along_axis,
 )
 from .distributions import *  # noqa: F401,F403
 from .distributions import transforms
 from . import distributions
 from .exceptions import *  # noqa: F401,F403
+from .memoize import memoize, clear_cache
+from .vartypes import *  # noqa: F401,F403
 from . import step_methods
 from .step_methods import (
     NUTS, HamiltonianMC, Metropolis, BinaryMetropolis, BinaryGibbsMetropolis,
@@ -68,11 +87,11 @@ from .sampling import (
 from . import stats
 from .stats import (
     bfmi, compare, ess, geweke, hpd, loo, mcse, r2_score, rhat, summary,
-    waic, rhat_device, ess_device, effective_n, gelman_rubin,
+    waic, rhat_device, ess_device, effective_n, gelman_rubin, map_args,
 )
 from . import gp
 from . import smc
-from .smc import sample_smc
+from .smc import sample_smc, SMC
 from . import tuning
 from .tuning import find_MAP, find_hessian, guess_scaling, trace_cov
 from . import variational
@@ -88,6 +107,23 @@ from .variational.updates import (
     apply_momentum, apply_nesterov_momentum,
 )
 from . import ode
+from .ode import DifferentialEquation
 from . import glm
 from .glm import GLM, LinearComponent
 from . import parallel
+
+# the reference leaks ``theano.tensor.constant`` into pm.* (as
+# ``theano_constant``); here a constant is a wrapped array node
+from .node import as_node as theano_constant  # noqa: E402
+
+
+def test(*args):
+    """Run the port's tests (``tests/test_torch_*.py`` beside the package;
+    cf. ``pymc3/__init__.py:50``); ``args`` go on to pytest."""
+    import glob
+    import os
+    import pytest
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return pytest.main(sorted(glob.glob(os.path.join(
+        here, "tests", "test_torch_*.py"))) + list(args))

@@ -13,7 +13,9 @@ from typing import Dict, List
 
 import numpy as np
 
-__all__ = ["VarMap", "ArrayOrdering", "DictToArrayBijection"]
+__all__ = ["VarMap", "ArrayOrdering", "DictToArrayBijection",
+           "ListArrayOrdering", "ListToArrayBijection", "DictToVarBijection",
+           "Compose"]
 
 VarMap = collections.namedtuple("VarMap", "var, slc, shp, dtyp")
 
@@ -71,3 +73,85 @@ class DictToArrayBijection:
             if name not in dpt:
                 dpt[name] = val
         return dpt
+
+    def mapf(self, f):
+        """A function of a Point as a function of a flat array."""
+        def wrapped(apt, *args, **kwargs):
+            return f(self.rmap(apt), *args, **kwargs)
+        return wrapped
+
+
+class ListArrayOrdering:
+    """An ordering for a list of arrays (cf. ``blocking.py:91``): the
+    ``i``-th array's slot is named by its offset."""
+
+    def __init__(self, list_arrays):
+        self.vmap = []
+        self.size = 0
+        for array in list_arrays:
+            array = np.asarray(array)
+            count = int(np.prod(array.shape, dtype=int))
+            slc = slice(self.size, self.size + count)
+            self.vmap.append(VarMap(str(self.size), slc, array.shape,
+                                    array.dtype.name))
+            self.size += count
+
+
+class ListToArrayBijection:
+    """Map between a list of arrays and one flat array
+    (cf. ``blocking.py:108``)."""
+
+    def __init__(self, ordering: ListArrayOrdering, list_arrays):
+        self.ordering = ordering
+        self.list_arrays = list_arrays
+
+    def fmap(self, list_arrays):
+        out = np.empty(self.ordering.size)
+        for vm, arr in zip(self.ordering.vmap, list_arrays):
+            out[vm.slc] = np.ravel(arr)
+        return out
+
+    def rmap(self, array):
+        return [np.asarray(array)[vm.slc].reshape(vm.shp).astype(vm.dtyp)
+                for vm in self.ordering.vmap]
+
+    def mapf(self, f):
+        def wrapped(array, *args, **kwargs):
+            return f(self.rmap(array), *args, **kwargs)
+        return wrapped
+
+
+class DictToVarBijection:
+    """Map between the entries ``idx`` of one variable and a Point
+    (cf. ``blocking.py:131``)."""
+
+    def __init__(self, var, idx, dpoint):
+        self.var = getattr(var, "name", str(var))
+        self.idx = idx
+        self.dpt = dpoint
+
+    def map(self, dpt):
+        return dpt[self.var][self.idx]
+
+    def rmap(self, apt):
+        dpt = dict(self.dpt)
+        dvar = np.array(dpt[self.var], copy=True)
+        dvar[self.idx] = apt
+        dpt[self.var] = dvar
+        return dpt
+
+    def mapf(self, f):
+        def wrapped(apt, *args, **kwargs):
+            return f(self.rmap(apt), *args, **kwargs)
+        return wrapped
+
+
+class Compose:
+    """``fa(fb(x))``, picklable (cf. ``blocking.py:154``)."""
+
+    def __init__(self, fa, fb):
+        self.fa = fa
+        self.fb = fb
+
+    def __call__(self, x):
+        return self.fa(self.fb(x))

@@ -169,6 +169,9 @@ class MinibatchNode(NamedNode):
         self.device = current_device() if device is None else device
         self._tensor = torch.as_tensor(data, device=self.device)
         self._arange = torch.arange(self.batch_size, device=self.device)
+        # on the device once: an encoder maps every sample's draw through it
+        self._perm_t = None if self._perm is None else torch.as_tensor(
+            self._perm, device=self.device)
 
     @property
     def noise_key(self):
@@ -203,14 +206,15 @@ class MinibatchNode(NamedNode):
 
     def indices(self, r=None):
         """Row indices into the user's original array selected by the entry
-        ``r`` (None: the rows of the test value)."""
+        ``r``, or by this node's entry of a minibatch draw ``r`` (a dict, as
+        an AEVB encoder receives it); None: the rows of the test value."""
+        if isinstance(r, dict):
+            r = r[self.noise_key]
         if r is None:
             pos = self._arange
         else:
             pos = self._positions(torch.as_tensor(r, device=self.device))
-        if self._perm is None:
-            return pos
-        return torch.as_tensor(self._perm, device=self.device)[pos]
+        return pos if self._perm_t is None else self._perm_t[pos]
 
     def _eval_default(self, env, memo):
         draw = env.get(RNG_ENV_KEY)
@@ -273,5 +277,8 @@ def Data(name, value, *, dims=None, export_index_as_coords=False,
     model = modelcontext(model)
     if hasattr(value, "to_numpy"):
         value = value.to_numpy()
-    return SharedDataNode(model.name_for(name), np.asarray(value),
+    node = SharedDataNode(model.name_for(name), np.asarray(value),
                           model=model)
+    if dims is not None:
+        model._RV_dims[node.name] = tuple(np.atleast_1d(dims))
+    return node

@@ -2,7 +2,7 @@
 from . import transforms
 from .distribution import (
     Distribution, Continuous, Discrete, NoDistribution, DensityDist,
-    TransformedDistribution, draw_values, generate_samples,
+    TransformedDistribution, TensorType, draw_values, generate_samples,
 )
 from .continuous import (
     Uniform, Flat, HalfFlat, Normal, TruncatedNormal, HalfNormal, Wald, Beta,
@@ -47,5 +47,5 @@ __all__ = [
     "Bound", "Simulator", "Distribution", "Continuous", "Discrete",
     "NoDistribution",
     "DensityDist", "TransformedDistribution", "draw_values",
-    "generate_samples", "transforms",
+    "generate_samples", "transforms", "TensorType",
 ]

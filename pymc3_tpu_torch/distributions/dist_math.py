@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import floatX, torch_floatX
+from ..node import current_device
 
 __all__ = [
     "bound", "alltrue_elemwise", "alltrue_scalar", "logpow", "factln",
@@ -33,6 +34,7 @@ __all__ = [
     "SplineWrapper", "i0e", "i1e", "incomplete_beta", "betainc",
     "gammainc", "gammaincc",
     "random_choice", "zvalue", "clipped_beta_rvs", "interp",
+    "MvNormal_logp",
 ]
 
 
@@ -520,3 +522,25 @@ def clipped_beta_rvs(a, b, size=None, gen=None, dtype=None):
     dtype = dtype or torch_floatX()
     eps = torch.finfo(dtype).eps
     return torch.clamp(ga / (ga + gb), eps, 1.0 - eps).to(dtype)
+
+
+def MvNormal_logp(cov, delta):
+    """The multivariate normal log-density of residuals ``delta (..., k)``
+    under a covariance ``cov (k, k)`` (cf. ``dist_math.py:158``): one
+    Cholesky factor and one triangular solve against all residuals. A
+    covariance that is not positive definite gives -inf. numpy inputs go to
+    the configured device, in ``floatX``."""
+    cov, delta = (x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        floatX(np.asarray(x)), device=current_device()) for x in (cov, delta))
+    k = cov.shape[-1]
+    chol, info = torch.linalg.cholesky_ex(cov)
+    diag = torch.diagonal(chol, dim1=-2, dim2=-1)
+    ok = (info == 0) & torch.all(diag > 0) & torch.all(torch.isfinite(diag))
+    eye = torch.eye(k, dtype=cov.dtype, device=cov.device)
+    safe = torch.where(ok, chol, eye)
+    sol = torch.linalg.solve_triangular(safe, delta.reshape(-1, k).T,
+                                        upper=False)
+    quad = torch.sum(sol ** 2, dim=0).reshape(delta.shape[:-1])
+    logdet = torch.sum(torch.log(torch.diagonal(safe)))
+    out = -0.5 * (k * np.log(2.0 * np.pi) + quad) - logdet
+    return torch.where(ok, out, torch.full_like(out, -np.inf))

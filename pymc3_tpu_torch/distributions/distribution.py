@@ -23,10 +23,13 @@ on the device:
   ``sampler(gen, shape, *params)`` that returns a tensor of that shape.
 
 A shape that cannot be drawn this way raises; nothing falls back to a
-per-sample loop or to the host.
+per-sample loop or to the host. The one host path is a user's own numpy
+sampler (``generate_samples`` called without ``gen``, as in a PyMC3
+``DensityDist``'s ``random``): its draws are copied to the device once.
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -38,9 +41,19 @@ from .shape_utils import to_tuple
 
 __all__ = [
     "DensityDist", "Distribution", "Continuous", "Discrete", "NoDistribution",
-    "draw_values", "generate_samples", "TransformedDistribution",
+    "TensorType", "draw_values", "generate_samples", "TransformedDistribution",
     "BatchedPoint", "point_lead", "make_generator",
 ]
+
+#: Set while posterior predictive draws are made in one vectorized call
+#: (cf. ``distribution.py:35``); the port's draws always are.
+vectorized_ppc = contextvars.ContextVar("vectorized_ppc", default=None)
+
+
+def TensorType(dtype, shape):
+    """A ``(numpy dtype, shape)`` spec, Theano's ``TensorType`` stand-in
+    (cf. ``distribution.py:45``)."""
+    return (np.dtype(dtype), tuple(shape))
 
 
 def _as_tensor(x, device):
@@ -160,8 +173,10 @@ class Distribution:
             raise TypeError("An observed variable cannot be a distribution "
                             "instance.")
         total_size = kwargs.pop("total_size", None)
+        dims = kwargs.pop("dims", None)
         dist = cls.dist(*args, **kwargs)
-        return model.Var(name, dist, data=data, total_size=total_size)
+        return model.Var(name, dist, data=data, total_size=total_size,
+                         dims=dims)
 
     @classmethod
     def dist(cls, *args, **kwargs):
@@ -428,14 +443,30 @@ def _align(x, lead, n_size, n_core):
 
 
 def generate_samples(sampler, *args, dist_shape=(), size=None, gen=None,
-                     lead=0, broadcast_shape=None):
+                     lead=0, broadcast_shape=None, not_broadcast_kwargs=None,
+                     **kwargs):
     """Draws of shape ``size + core`` (cf. ``distribution.py:344``).
 
     ``core`` is ``dist_shape`` if given, else the parameters' broadcast
-    shape. Each parameter carries ``lead`` leading sample axes that stand
-    under the first axes of ``size``; ``sampler(gen, shape, *params)``
+    shape. With ``gen``, a ``torch.Generator``, the draws are made on its
+    device: each parameter carries ``lead`` leading sample axes that stand
+    under the first axes of ``size``, and ``sampler(gen, shape, *params)``
     receives the parameters reshaped to broadcast against ``shape``.
+
+    Without ``gen``, ``sampler`` is a numpy-style host generator, as
+    PyMC3's: ``sampler(*args, size=shape, **not_broadcast_kwargs,
+    **kwargs)`` (``scipy.stats.norm.rvs``, ``np.random.normal``). It draws
+    on the host, and the draws are copied to the device once: the tensor
+    returned is on the model's device (the configured one outside a
+    model).
     """
+    if gen is None:
+        return _host_samples(sampler, args, dist_shape, size,
+                             broadcast_shape, not_broadcast_kwargs or {},
+                             kwargs)
+    if kwargs or not_broadcast_kwargs:
+        raise TypeError("keyword parameters go to a host generator, which "
+                        "is called without gen=")
     size_t = to_tuple(size)
     if lead > len(size_t):
         raise ValueError(f"parameters with {lead} sample axes need a size "
@@ -453,6 +484,31 @@ def generate_samples(sampler, *args, dist_shape=(), size=None, gen=None,
         raise ValueError(f"a sampler drew shape {tuple(samples.shape)}, "
                          f"expected {out_shape}")
     return samples
+
+
+def _host_samples(generator, args, dist_shape, size, broadcast_shape,
+                  not_broadcast_kwargs, kwargs):
+    """The host path of :func:`generate_samples`: the JAX package's
+    contract (``distribution.py:344-383``), then one copy to the device."""
+    args = [np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor)
+                       else a) for a in args]
+    kwargs = {k: (np.asarray(v.detach().cpu()) if isinstance(v, torch.Tensor)
+                  else v) for k, v in kwargs.items()}
+    if broadcast_shape is None:
+        try:
+            broadcast_shape = np.broadcast_shapes(
+                *[np.shape(a) for a in args]) if args else ()
+        except ValueError:
+            broadcast_shape = dist_shape
+    dist_shape = to_tuple(dist_shape)
+    size_t = to_tuple(size) if size is not None else ()
+    core = dist_shape if dist_shape else tuple(broadcast_shape)
+    out_shape = size_t + core
+    samples = np.asarray(generator(*args, size=out_shape or None,
+                                   **not_broadcast_kwargs, **kwargs))
+    if size is None and samples.shape == (1,) + core:
+        samples = samples.reshape(core)
+    return _as_tensor(samples, current_device())
 
 
 # -- random primitives: every draw from an explicit generator ---------------

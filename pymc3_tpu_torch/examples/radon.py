@@ -3,7 +3,10 @@ read without pandas.
 
 ``build_model(pm)`` reproduces ``bench.py:build_model`` exactly: the same
 non-centred county intercepts and slopes, the same priors, float32
-``log_radon``, for either package passed as ``pm``.
+``log_radon``, for either package passed as ``pm``. With
+``coords=True`` the model also names its counties
+(``coords={"county": ...}``, ``dims="county"`` on the county
+parameters) and adds ``Deterministic("a_range", a.max() - a.min())``.
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ import numpy as np
 
 DATA = Path(__file__).resolve().parent / "data" / "radon.csv"
 
-__all__ = ["load_radon", "load_radon_columns", "build_model"]
+__all__ = ["load_radon", "load_radon_columns", "county_names",
+           "build_model"]
 
 
 def load_radon(path=DATA):
@@ -42,17 +46,32 @@ def load_radon_columns(path=DATA):
             "county": np.array([r["county"].strip() for r in rows])}
 
 
-def build_model(pm):
+def county_names(path=DATA):
+    """The county names in the order of their codes (``a[county_idx]``'s
+    order)."""
+    with open(path, newline="") as f:
+        by_code = {int(r["county_code"]): r["county"].strip()
+                   for r in csv.DictReader(f)}
+    return [by_code[c] for c in sorted(by_code)]
+
+
+def build_model(pm, coords=False):
     floor, county_idx, n_counties, log_radon = load_radon()
-    with pm.Model() as model:
+    dims = "county" if coords else None
+    with pm.Model(coords={"county": county_names()} if coords
+                  else None) as model:
         mu_a = pm.Normal("mu_a", mu=0.0, sigma=100.0 ** 2)
         sigma_a = pm.HalfCauchy("sigma_a", 5)
         mu_b = pm.Normal("mu_b", mu=0.0, sigma=100.0 ** 2)
         sigma_b = pm.HalfCauchy("sigma_b", 5)
-        a_raw = pm.Normal("a", mu=0.0, sigma=1.0, shape=n_counties)
-        b_raw = pm.Normal("b", mu=0.0, sigma=1.0, shape=n_counties)
+        a_raw = pm.Normal("a", mu=0.0, sigma=1.0, shape=n_counties,
+                          dims=dims)
+        b_raw = pm.Normal("b", mu=0.0, sigma=1.0, shape=n_counties,
+                          dims=dims)
         a = mu_a + sigma_a * a_raw
         b = mu_b + sigma_b * b_raw
+        if coords:
+            pm.Deterministic("a_range", a.max() - a.min())
         eps = pm.HalfCauchy("eps", 5)
         radon_est = a[county_idx] + b[county_idx] * floor
         pm.Normal("radon_like", mu=radon_est, sigma=eps, observed=log_radon)

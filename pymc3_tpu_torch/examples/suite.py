@@ -465,6 +465,39 @@ def advi_logistic_model(pm, X, y, batch):
     return model
 
 
+#: The amortized (AEVB) fit of ``tests/test_aevb.py::test_vae`` at the
+#: width of ``scripts/bench_advi_minibatch.py`` (N = 50,000, batches of
+#: 500), its start and its optimizer settings.
+AEVB_VAE = {"N": 50_000, "batch": 500, "steps": 3_000, "obj_n_mc": 2,
+            "learning_rate": 0.02,
+            "aux0": {"w": 0.1, "b": 0.0, "rho": -2.0}}
+#: The optimum of that fit in closed form: each row's posterior is
+#: N(100 x / 101, 1 / 101) (prior sd 1, observation sd 0.1), so the encoder
+#: ``mu = w x + b``, ``sigma = softplus(rho)`` is exact at these values.
+AEVB_OPTIMUM = {"w": 100.0 / 101.0, "b": 0.0, "sigma": float(np.sqrt(
+    1.0 / 101.0))}
+
+
+def aevb_vae_data(N=50_000, seed=0):
+    """``x ~ N(1.5, 0.8)``, ``N`` rows from ``default_rng(seed)``,
+    float32 (``tests/test_aevb.py::test_vae``'s data at another width)."""
+    return np.random.default_rng(seed).normal(1.5, 0.8, size=N).astype(
+        np.float32)
+
+
+def aevb_vae_model(pm, data, batch):
+    """``zs ~ N(0, 1)`` (one per row of a batch) and ``N(zs, 0.1)`` on a
+    minibatch of ``batch`` rows, both scaled to ``total_size = N``. Returns
+    the model, ``zs`` and the minibatch view, whose ``indices`` an encoder
+    reads."""
+    N = data.shape[0]
+    with pm.Model() as model:
+        x_mini = pm.Minibatch(data, batch)
+        zs = pm.Normal("zs", mu=0, sigma=1, shape=batch, total_size=N)
+        pm.Normal("xs_", mu=zs, sigma=0.1, observed=x_mini, total_size=N)
+    return model, zs, x_mini
+
+
 CONJ_PRIOR_SD = 2.0
 CONJ_COV = np.array([[1.0, 0.6], [0.6, 2.0]])
 

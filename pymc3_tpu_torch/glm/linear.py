@@ -12,6 +12,18 @@ from .utils import any_to_tensor_and_labels, design_matrices
 __all__ = ["LinearComponent", "GLM"]
 
 
+class _DefaultPrior:
+    """A class attribute that makes its prior when read, so that it lives
+    on the device of the model in context (a distribution made at import
+    would live on the configured device as the module was imported)."""
+
+    def __init__(self, make):
+        self.make = make
+
+    def __get__(self, obj, cls):
+        return self.make()
+
+
 class LinearComponent(Model):
     """Creates linear component: y_est = X β (cf. ``linear.py:29``).
 
@@ -22,9 +34,14 @@ class LinearComponent(Model):
     intercept : bool - add constant term
     labels : list of column names
     priors : dict of {name: distribution} overrides; 'Intercept' and
-        'Regressor' keys set defaults. The defaults, a flat intercept and
-        Normal(0, tau=1e-6) coefficients, are made on the model's device.
+        'Regressor' keys set defaults. The defaults,
+        ``default_intercept_prior`` (flat) and ``default_regressor_prior``
+        (Normal(0, tau=1e-6)), are made on the model's device.
     """
+
+    default_regressor_prior = _DefaultPrior(
+        lambda: dist.Normal.dist(mu=0, tau=1.0e-6))
+    default_intercept_prior = _DefaultPrior(lambda: dist.Flat.dist())
 
     def __init__(self, x, y, intercept=True, labels=None, priors=None,
                  vars=None, name="", model=None, offset=0.0):
@@ -43,8 +60,8 @@ class LinearComponent(Model):
             labels = ["Intercept"] + labels
         self.x = x
         with self:
-            default_regressor = dist.Normal.dist(mu=0, tau=1.0e-6)
-            default_intercept = dist.Flat.dist()
+            default_regressor = self.default_regressor_prior
+            default_intercept = self.default_intercept_prior
         coeffs = []
         for name_ in labels:
             if name_ in vars:

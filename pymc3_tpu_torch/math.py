@@ -28,6 +28,7 @@ __all__ = [
     "solve_lower", "solve_upper", "matrix_inverse", "batched_diag",
     "block_diagonal", "kronecker", "cartesian", "kron_matrix_op",
     "kron_dot", "kron_solve_lower", "kron_solve_upper", "kron_diag",
+    "flat_outer", "log1mexp_numpy", "largest_common_dtype", "floatX_array",
 ]
 
 
@@ -136,6 +137,16 @@ def _log1mexp(x):
 def log1mexp(x):
     """log(1 - exp(-x)), stable for both small and large x."""
     return apply(_log1mexp, x)
+
+
+def log1mexp_numpy(x):
+    """log(1 - exp(-x)) on the host, in float64 (cf. ``math.py:133``)."""
+    x = np.asarray(x, dtype=float)
+    out = np.empty_like(x)
+    small = x < _LOG2
+    out[small] = np.log(-np.expm1(-x[small]))
+    out[~small] = np.log1p(-np.exp(-x[~small]))
+    return out
 
 
 def logdiffexp(a, b):
@@ -378,3 +389,21 @@ def kron_diag(*diags):
             out = (out[:, None] * d[None, :]).reshape(-1)
         return out
     return apply(_kd, *diags)
+
+
+def flat_outer(a, b):
+    """The outer product of two vectors, flattened (cf. ``math.py:238``)."""
+    return apply(lambda x, y: torch.outer(x, y).reshape(-1), a, b)
+
+
+def floatX_array(x):
+    """``x`` as a numpy array of ``floatX`` (cf. ``math.py:408``)."""
+    from .config import floatX
+    return floatX(np.asarray(x))
+
+
+def largest_common_dtype(tensors):
+    """The numpy dtype every one of ``tensors`` (nodes or arrays) promotes
+    to (cf. ``math.py:413``)."""
+    return np.result_type(*[np.asarray(getattr(t, "test_value", t)).dtype
+                            for t in tensors])

@@ -13,9 +13,11 @@ on the configured device (``config.device``, the card by default).
 """
 from __future__ import annotations
 
+import collections
 import threading
+import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -26,14 +28,17 @@ from .distributions.distribution import (
     BatchedPoint, _as_tensor, make_generator,
 )
 from .memoize import WithMemoization
-from .node import Node, NamedNode, ConstantNode, apply, as_node, _ev
+from .node import Node, NamedNode, ConstantNode, apply, as_node, evaluate, _ev
 from .torchf import batched_value, batched_value_and_grad
 from .util import get_transformed_name, get_var_name
 from .vartypes import continuous_types, discrete_types
 
-__all__ = ["Model", "modelcontext", "Point", "Deterministic", "Potential",
-           "FreeRV", "ObservedRV", "TransformedRV", "DeterministicRV",
-           "ValueGradFunction", "set_data"]
+__all__ = ["Model", "Factor", "modelcontext", "Point", "Deterministic",
+           "Potential", "FreeRV", "ObservedRV", "MultiObservedRV",
+           "TransformedRV", "DeterministicRV", "ValueGradFunction", "set_data",
+           "fn", "fastfn", "compilef"]
+
+FlatView = collections.namedtuple("FlatView", "input, replacements, view")
 
 #: The environment key under which a minibatch draw reaches the model's
 #: ``Minibatch`` views (``data.RNG_ENV_KEY``).
@@ -155,7 +160,25 @@ class ScalarStack(Node):
         return stack_scalars(self.nodes, env, memo)
 
 
-class FreeRV(NamedNode):
+class Factor:
+    """A term of the model's log-density (cf. ``model.py:136``). Each
+    factor has ``logp_env(env, memo, jacobian)``, its summed and scaled
+    term in an environment."""
+
+    def logp_elemwise_env(self, env, memo):
+        """The factor's summed term, the transform's jacobian included."""
+        return self.logp_env(env, memo, True)
+
+    def logp_elemwise_env_nojac(self, env, memo):
+        """The factor's summed term without the transform's jacobian."""
+        return self.logp_env(env, memo, False)
+
+    def logp(self, point):
+        """The factor's term at a Point, as a float."""
+        return float(self.logp_env(self.model._point_to_env(point), {}))
+
+
+class FreeRV(NamedNode, Factor):
     """Unobserved random variable in *unconstrained* space
     (cf. ``model.py:1420``). For transformed distributions this is the
     ``name_{transform}__`` variable the samplers see; its shape is the
@@ -185,6 +208,10 @@ class FreeRV(NamedNode):
     def dtype(self):
         return np.dtype(floatX())
 
+    @property
+    def init_value(self):
+        return self.test_value
+
     def _eval_default(self, env, memo):
         return self._default
 
@@ -200,6 +227,11 @@ class FreeRV(NamedNode):
         else:
             lp = torch.sum(self.distribution.logp(z, env, memo))
         return lp if self.scaling == 1.0 else self.scaling * lp
+
+    def random(self, point=None, size=None, gen=None):
+        """Draws of the distribution, in the constrained space, on the
+        model's device (``gen``: a ``torch.Generator`` there)."""
+        return self.distribution.random(point=point, size=size, gen=gen)
 
 
 class TransformedRV(NamedNode):
@@ -224,8 +256,11 @@ class TransformedRV(NamedNode):
         return self.transform.backward(_ev(self.transformed, env, memo),
                                        env, memo)
 
+    def random(self, point=None, size=None, gen=None):
+        return self.distribution.random(point=point, size=size, gen=gen)
 
-class ObservedRV(NamedNode):
+
+class ObservedRV(NamedNode, Factor):
     """Observed variable (cf. ``model.py:1534``). Constant data lives on the
     model's device; data given as a node (``Data``, ``Minibatch``) is
     evaluated at every logp, so it reads the container's current value or
@@ -320,6 +355,34 @@ class ObservedRV(NamedNode):
                 self.data_node.test_value))
 
 
+class MultiObservedRV(Factor):
+    """A variable observed through a dict of data, the keyword arguments of
+    a ``DensityDist``'s logp (cf. ``model.py:324``). The data live on the
+    model's device; it is not drawn forward."""
+
+    def __init__(self, name, data: Dict[str, Any], distribution, model,
+                 total_size=None):
+        self.name = name
+        self.data = {k: np.asarray(v) for k, v in data.items()}
+        self._data = {k: _as_tensor(v, model.device)
+                      for k, v in self.data.items()}
+        self.distribution = distribution
+        self.model = model
+        self.missing_values = None
+        first = next(iter(self.data.values()))
+        self.scaling = _get_scaling(total_size, first.shape, first.ndim)
+
+    def logp_env(self, env, memo, jacobian=True):
+        out = self.distribution._logp_fn(**self._data)
+        if isinstance(out, Node):
+            out = evaluate(out, env, memo)
+        lp = torch.sum(out)
+        return lp if self.scaling == 1.0 else self.scaling * lp
+
+    def refresh_shape(self):
+        pass
+
+
 class DeterministicRV(NamedNode):
     """A named deterministic quantity (cf. ``model.py:1667``)."""
 
@@ -348,8 +411,10 @@ class Model(WithMemoization, metaclass=ContextMeta):
             error_if_none=False)
         return instance
 
-    def __init__(self, name="", model=None, device=None):
+    def __init__(self, name="", model=None, coords=None, device=None):
         self.name = name
+        self.coords = dict(coords) if coords else {}
+        self._RV_dims: Dict[str, tuple] = {}
         if device is None:
             device = (self.parent.device if self.parent is not None
                       else default_device())
@@ -375,6 +440,17 @@ class Model(WithMemoization, metaclass=ContextMeta):
     def parent(self):
         return self._parent
 
+    @property
+    def root(self):
+        model = self
+        while model.parent is not None:
+            model = model.parent
+        return model
+
+    @property
+    def isroot(self):
+        return self.parent is None
+
     def __enter__(self):
         type(self).get_contexts().append(self)
         return self
@@ -392,6 +468,11 @@ class Model(WithMemoization, metaclass=ContextMeta):
             return f"{self.prefix}{name}"
         return name
 
+    def name_of(self, name):
+        if self.prefix and name.startswith(self.prefix):
+            return name[len(self.prefix):]
+        return name
+
     def __getitem__(self, key):
         try:
             return self.named_vars[key]
@@ -402,11 +483,20 @@ class Model(WithMemoization, metaclass=ContextMeta):
         return key in self.named_vars or self.name_for(key) in self.named_vars
 
     # -- registration -------------------------------------------------------
-    def Var(self, name, dist, data=None, total_size=None):
-        """Create and register a variable (cf. ``model.py:975``)."""
+    def Var(self, name, dist, data=None, total_size=None, dims=None):
+        """Create and register a variable (cf. ``model.py:460``). ``dims``
+        names the variable's axes, as keys of ``coords``."""
         name = self.name_for(name)
         if name in self.named_vars:
             raise ValueError(f"Variable name {name} already exists.")
+        if dims is not None:
+            self._RV_dims[name] = tuple(np.atleast_1d(dims))
+        if isinstance(data, dict):
+            var = MultiObservedRV(name, data, dist, self,
+                                  total_size=total_size)
+            self.observed_RVs.append(var)
+            self._factor_order.append(var)
+            return var
         if data is not None:
             var = ObservedRV(name, data, dist, self, total_size=total_size)
             self.add_named_variable(var)
@@ -438,11 +528,22 @@ class Model(WithMemoization, metaclass=ContextMeta):
             raise ValueError(f"Variable name {var.name} already exists.")
         self.named_vars[var.name] = var
 
+    add_random_variable = add_named_variable
+
+    def add_coords(self, coords):
+        """Add named coordinates (``{dim: labels}``) for ``dims``."""
+        if coords:
+            self.coords.update(coords)
+
     # -- variable views -----------------------------------------------------
     @property
     def vars(self):
         """Sampling-space (unconstrained) free variables."""
         return list(self.free_RVs)
+
+    @property
+    def basic_RVs(self):
+        return self.free_RVs + self.observed_RVs
 
     @property
     def unobserved_RVs(self):
@@ -488,12 +589,14 @@ class Model(WithMemoization, metaclass=ContextMeta):
         return self.bijection.rmap(q)
 
     # -- logp construction --------------------------------------------------
-    def _env_from_q(self, q, ordering=None):
+    def _env_from_q(self, q, ordering=None, fixed=None):
         """Decode one flat unconstrained point into an env holding both the
         transformed and the constrained values. A caller that decodes many
-        points passes the ``ordering`` it computed once. Scalar variables
-        are recorded under ``SCALARS_ENV_KEY`` for :func:`stack_scalars`."""
-        env, scalars = {}, {}
+        points passes the ``ordering`` it computed once; ``fixed`` holds the
+        values of free variables that ``ordering`` leaves out. Scalar
+        variables are recorded under ``SCALARS_ENV_KEY`` for
+        :func:`stack_scalars`."""
+        env, scalars = dict(fixed or {}), {}
         for vm in (self.ordering if ordering is None else ordering).vmap:
             if vm.shp == ():
                 v = env[vm.var] = q[vm.slc.start]
@@ -581,9 +684,22 @@ class Model(WithMemoization, metaclass=ContextMeta):
             return self.logp_point(q, ordering, jacobian, draw)
         return logp
 
-    def logp_dlogp_function(self):
-        """cf. ``model.py:885`` — returns a :class:`ValueGradFunction`."""
-        return ValueGradFunction(self)
+    def logp_dlogp_function(self, grad_vars=None):
+        """cf. ``model.py:627`` — returns a :class:`ValueGradFunction`."""
+        return ValueGradFunction(self, grad_vars=grad_vars)
+
+    def make_logp_dlogp_fn(self, jacobian=True):
+        """``q: (n,) -> (logp, dlogp)`` for one flat point, on the model's
+        device (cf. ``model.py:623``)."""
+        ordering = self.ordering
+        vag = batched_value_and_grad(
+            lambda q: self.logp_point(q, ordering, jacobian))
+
+        def logp_dlogp(q):
+            q = torch.as_tensor(q, dtype=torch_floatX(), device=self.device)
+            logp, grad = vag(q[None])
+            return logp[0], grad[0]
+        return logp_dlogp
 
     def make_logp_fn(self):
         """Batched logp without a gradient, ``q: (chains, n) -> (chains,)``
@@ -674,8 +790,16 @@ class Model(WithMemoization, metaclass=ContextMeta):
 
     # -- host-side conveniences ---------------------------------------------
     def _point_to_env(self, point):
+        """A Point as an env on the device. A transformed variable given in
+        either space is added in the other, in declaration order
+        (cf. ``model.py:713``)."""
         env = {k: torch.as_tensor(np.asarray(v), device=self.device)
                for k, v in point.items()}
+        for rv in self.free_RVs:
+            if rv.transform is not None and rv.orig_name in env \
+                    and rv.name not in env:
+                env[rv.name] = rv.transform.forward(env[rv.orig_name], env,
+                                                    {})
         return self._decode_transformed(env)
 
     def logp(self, point=None):
@@ -683,11 +807,29 @@ class Model(WithMemoization, metaclass=ContextMeta):
         point = point if point is not None else self.test_point
         return float(self.logp_from_env(self._point_to_env(point)))
 
+    fastlogp = logp
+
     def logp_nojac(self, point=None):
         """Host-side logp without the transforms' jacobians."""
         point = point if point is not None else self.test_point
         return float(self.logp_from_env(self._point_to_env(point),
                                         jacobian=False))
+
+    def dlogp(self, point=None):
+        """The gradient of the logp at a Point, over the flat point in
+        ``ordering``'s order, as numpy (cf. ``model.py:740``)."""
+        point = point if point is not None else self.test_point
+        _, grad = self.make_logp_dlogp_fn()(self.dict_to_array(point))
+        return grad.cpu().numpy()
+
+    def logp_elemwise(self, point=None):
+        """Each factor's term at a Point, ``{name: numpy}``
+        (cf. ``model.py:746``)."""
+        env = self._point_to_env(point if point is not None
+                                 else self.test_point)
+        memo = {}
+        return {f.name: f.logp_env(env, memo).detach().cpu().numpy()
+                for f in self._factor_order}
 
     def set_data(self, name, values):
         """Replace a ``Data`` container's value (cf. ``model.py:973``)."""
@@ -718,6 +860,38 @@ class Model(WithMemoization, metaclass=ContextMeta):
             return vals[0] if single else vals
         return f
 
+    def fn(self, outs):
+        return self.makefn(outs)
+
+    fastfn = fn
+
+    def profile(self, outs, n=1000, point=None):
+        """Host-clock time of ``n`` evaluations of ``outs`` at a Point
+        after a first one, each copied to the host (cf. ``model.py:786``):
+        ``{"n_calls", "compile_time_s", "total_time_s", "per_call_us"}``."""
+        point = point if point is not None else self.test_point
+        f = self.makefn(outs)
+        t0 = time.perf_counter()
+        f(point)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f(point)
+        total = time.perf_counter() - t0
+        return {"n_calls": n, "compile_time_s": first,
+                "total_time_s": total, "per_call_us": total / n * 1e6}
+
+    def flatten(self, vars=None, order=None):
+        """``FlatView(input, replacements, view)`` over the free variables
+        (cf. ``model.py:806``): their test values concatenated, each
+        variable's slot, and the ordering."""
+        vars = self.free_RVs if vars is None else vars
+        order = ArrayOrdering(vars) if order is None else order
+        flat = np.concatenate([np.ravel(v.test_value) for v in vars]) \
+            if vars else np.array([])
+        return FlatView(flat, {v.name: order.by_name[v.name] for v in vars},
+                        order)
+
     # -- forward (predictive) sampling ---------------------------------------
     # Draws come from an explicit ``torch.Generator`` on the model's device
     # and stay there: these methods return tensors.
@@ -732,7 +906,8 @@ class Model(WithMemoization, metaclass=ContextMeta):
                  for k, v in (point or {}).items()}
         for factor in self._factor_order:
             orig = getattr(factor, "orig_name", factor.name)
-            if orig in point or factor.name in point:
+            if orig in point or factor.name in point or isinstance(
+                    factor, MultiObservedRV):
                 continue
             val = factor.distribution.random(point=point, gen=gen)
             point[orig] = val
@@ -787,7 +962,8 @@ class Model(WithMemoization, metaclass=ContextMeta):
         bp = BatchedPoint(vals, batched, samples)
         for factor in self._factor_order:
             orig = getattr(factor, "orig_name", factor.name)
-            if orig in bp or factor.name in bp or (
+            if orig in bp or factor.name in bp or isinstance(
+                    factor, MultiObservedRV) or (
                     not observed and isinstance(factor, ObservedRV)):
                 continue
             bp.add(orig, self._batched_random(factor.distribution, bp,
@@ -861,12 +1037,14 @@ def Point(*args, model=None, **kwargs) -> Dict[str, np.ndarray]:
             for k, v in dict(*args, **kwargs).items()}
 
 
-def Deterministic(name, var, model=None):
-    """Register a named deterministic (cf. ``model.py:1667``)."""
+def Deterministic(name, var, model=None, dims=None):
+    """Register a named deterministic (cf. ``model.py:1010``)."""
     model = modelcontext(model)
     det = DeterministicRV(model.name_for(name), var, model)
     model.add_named_variable(det)
     model.deterministics.append(det)
+    if dims is not None:
+        model._RV_dims[det.name] = tuple(np.atleast_1d(dims))
     return det
 
 
@@ -887,6 +1065,19 @@ def set_data(new_data: Dict, model=None):
         model.set_data(name, values)
 
 
+def fn(outs, model=None):
+    """A Point -> numpy values function of the model in context
+    (cf. ``model.py:1038``)."""
+    return modelcontext(model).fn(outs)
+
+
+def fastfn(outs, model=None):
+    return modelcontext(model).fastfn(outs)
+
+
+compilef = fastfn
+
+
 class ValueGradFunction:
     """Batched ``q: (chains, n) -> (logp (chains,), dlogp (chains, n))``
     (cf. ``model.py:1052``).
@@ -895,18 +1086,65 @@ class ValueGradFunction:
     the chain dimension through every op (see ``torchf``), and a
     hand-written kernel on the path (the GP covariance) receives the whole
     chain batch in one launch through its ``vmap`` rule.
+
+    ``grad_vars`` (the free variables by default; a transformed variable
+    stands for its unconstrained one) are the columns of ``q``, in the
+    order given; every other free variable is held at a fixed value shared
+    by all chains, its test value until ``set_extra_values`` replaces it
+    (cf. ``model.py:1062-1141``).
     """
 
-    def __init__(self, model):
+    def __init__(self, model, grad_vars=None):
         self.model = model
-        self.ordering = model.ordering
+        grad_vars = model.free_RVs if grad_vars is None else [
+            getattr(v, "transformed", v) for v in grad_vars]
+        self._grad_vars = list(grad_vars)
+        self.ordering = ArrayOrdering(self._grad_vars)
         self.size = self.ordering.size
         self.dtype = torch_floatX()
+        grad_names = {v.name for v in self._grad_vars}
+        self._extra_values = {v.name: np.asarray(v.test_value)
+                              for v in model.free_RVs
+                              if v.name not in grad_names}
+        self._fixed = {}
         self._vag = batched_value_and_grad(
-            lambda q: model.logp_point(q, self.ordering))
+            lambda q: model.logp_from_env(model._env_from_q(
+                q, self.ordering, self._fixed)))
+        self.set_extra_values({})
 
-    def __call__(self, q):
+    def set_extra_values(self, extra_values):
+        """Replace the fixed values of variables outside ``grad_vars``
+        (``{name: array}``); they are copied to the model's device once."""
+        self._extra_values.update({k: np.asarray(v)
+                                   for k, v in extra_values.items()})
+        self._fixed = {k: torch.as_tensor(v, dtype=self.dtype,
+                                          device=self.model.device)
+                       for k, v in self._extra_values.items()}
+
+    def get_extra_values(self):
+        return dict(self._extra_values)
+
+    def __call__(self, q, extra_vars=None):
+        if extra_vars is not None:
+            self.set_extra_values(extra_vars)
         if q.ndim != 2 or q.shape[1] != self.size:
             raise ValueError(f"expected q of shape (chains, {self.size}), "
                              f"got {tuple(q.shape)}")
         return self._vag(q)
+
+    def dict_to_array(self, point) -> np.ndarray:
+        """A Point's values of ``grad_vars``, flat, as numpy."""
+        vals = [np.ravel(np.asarray(point[vm.var]))
+                for vm in self.ordering.vmap]
+        return np.concatenate(vals).astype(floatX()) if vals else \
+            np.array([], dtype=floatX())
+
+    def array_to_dict(self, q) -> Dict[str, np.ndarray]:
+        q = np.asarray(q)
+        return {vm.var: q[vm.slc].reshape(vm.shp) for vm in self.ordering.vmap}
+
+    def array_to_full_dict(self, q) -> Dict[str, np.ndarray]:
+        """:meth:`array_to_dict` with the fixed values added."""
+        out = self.array_to_dict(q)
+        out.update(self._extra_values)
+        return out

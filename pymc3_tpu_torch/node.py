@@ -24,7 +24,7 @@ import torch
 from .config import default_device, floatX
 
 __all__ = ["Node", "ConstantNode", "OpNode", "NamedNode", "apply", "as_node",
-           "evaluate", "current_device"]
+           "evaluate", "evaluate_many", "constant_fold", "current_device"]
 
 
 def current_device() -> torch.device:
@@ -64,6 +64,49 @@ def _reduce(fn, x, axis, keepdims):
     return fn(x, dim=axis, keepdim=keepdims)
 
 
+def _prod(x, dim=None, keepdim=False):
+    """``torch.prod`` over one axis or several (it takes one)."""
+    if dim is None:
+        return torch.prod(x)
+    for d in sorted((d % x.ndim for d in np.atleast_1d(dim)), reverse=True):
+        x = torch.prod(x, dim=int(d), keepdim=keepdim)
+    return x
+
+
+def _std(x, dim=None, keepdim=False):
+    """numpy's ``std``: the population sd (``ddof=0``)."""
+    if dim is None:
+        return torch.std(x, correction=0)
+    return torch.std(x, dim=dim, correction=0, keepdim=keepdim)
+
+
+def _cumsum(x, axis):
+    """numpy's ``cumsum``: over the flattened value when ``axis`` is
+    None."""
+    return torch.cumsum(x.reshape(-1), 0) if axis is None else \
+        torch.cumsum(x, axis)
+
+
+def _clip(x, lo, hi):
+    """numpy's ``clip``: either bound may be None, a number or a tensor."""
+    def bound(b):
+        return None if b is None else torch.as_tensor(b, dtype=x.dtype,
+                                                      device=x.device)
+    return torch.clamp(x, bound(lo), bound(hi))
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype (or its name)."""
+    return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+
+
+def _transpose(x, axes):
+    """numpy's ``transpose``: the axes reversed when ``axes`` is None, so
+    a 1-D value is its own transpose."""
+    axes = tuple(range(x.ndim))[::-1] if axes is None else axes
+    return x.permute(*axes)
+
+
 class Node:
     """Base class for symbolic expression nodes.
 
@@ -89,6 +132,11 @@ class Node:
         if self._test_value is None:
             raise ValueError(f"node {self!r} has no test value")
         return self._test_value
+
+    @property
+    def tag(self):
+        """The node itself: ``var.tag.test_value`` reads as in Theano."""
+        return self
 
     @property
     def shape(self):
@@ -143,6 +191,18 @@ class Node:
     def __rtruediv__(self, other):
         return apply(operator.truediv, other, self)
 
+    def __floordiv__(self, other):
+        return apply(operator.floordiv, self, other)
+
+    def __rfloordiv__(self, other):
+        return apply(operator.floordiv, other, self)
+
+    def __mod__(self, other):
+        return apply(operator.mod, self, other)
+
+    def __rmod__(self, other):
+        return apply(operator.mod, other, self)
+
     def __pow__(self, other):
         return apply(operator.pow, self, other)
 
@@ -164,6 +224,9 @@ class Node:
     def __abs__(self):
         return apply(torch.abs, self)
 
+    def __invert__(self):
+        return apply(torch.logical_not, self)
+
     def __lt__(self, other):
         return apply(operator.lt, self, other)
 
@@ -175,6 +238,12 @@ class Node:
 
     def __ge__(self, other):
         return apply(operator.ge, self, other)
+
+    def eq(self, other):
+        return apply(torch.eq, self, other)
+
+    def neq(self, other):
+        return apply(torch.ne, self, other)
 
     def __getitem__(self, idx):
         if isinstance(idx, (np.ndarray, list)):
@@ -189,9 +258,19 @@ class Node:
         return apply(lambda x: x[idx], self)
 
     # -- tensor-method conveniences -----------------------------------------
+    # Reductions and shapes follow numpy, as the JAX package's do: ``std``
+    # is the population sd, ``axis=None`` reduces (or flattens) everything,
+    # ``//`` and ``%`` take the sign of the divisor.
     @property
     def T(self):
-        return apply(lambda x: x.transpose(-1, -2), self)
+        """The axes reversed, as numpy's ``.T``: a 1-D node is its own
+        transpose, a matrix is swapped."""
+        return self.transpose()
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        return apply(lambda x: _transpose(x, axes or None), self)
 
     def reshape(self, *shape):
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
@@ -206,11 +285,38 @@ class Node:
     def sum(self, axis=None, keepdims=False):
         return apply(lambda x: _reduce(torch.sum, x, axis, keepdims), self)
 
+    def prod(self, axis=None, keepdims=False):
+        return apply(lambda x: _reduce(_prod, x, axis, keepdims), self)
+
     def mean(self, axis=None, keepdims=False):
         return apply(lambda x: _reduce(torch.mean, x, axis, keepdims), self)
 
+    def std(self, axis=None, keepdims=False):
+        return apply(lambda x: _reduce(_std, x, axis, keepdims), self)
+
+    def max(self, axis=None, keepdims=False):
+        return apply(lambda x: _reduce(torch.amax, x, axis, keepdims), self)
+
+    def min(self, axis=None, keepdims=False):
+        return apply(lambda x: _reduce(torch.amin, x, axis, keepdims), self)
+
+    def cumsum(self, axis=None):
+        return apply(lambda x: _cumsum(x, axis), self)
+
     def dot(self, other):
         return apply(operator.matmul, self, other)
+
+    def astype(self, dtype):
+        dt = torch_dtype(dtype)
+        return apply(lambda x: x.to(dt), self)
+
+    def clip(self, a_min, a_max):
+        return apply(_clip, self, a_min, a_max)
+
+    def squeeze(self, axis=None):
+        if axis is None:
+            return apply(torch.squeeze, self)
+        return apply(lambda x: torch.squeeze(x, axis), self)
 
     def exp(self):
         return apply(torch.exp, self)
@@ -365,3 +471,20 @@ def _ev(x, env, memo):
 def evaluate(node, env: Dict[str, Any], memo: Optional[Dict[int, Any]] = None):
     """Evaluate one node against ``env`` (dict of name -> tensor)."""
     return _ev(node, env, {} if memo is None else memo)
+
+
+def evaluate_many(nodes: Sequence[Any], env: Dict[str, Any]):
+    """Evaluate several nodes with one memo, so a shared subgraph is
+    evaluated once (cf. ``node.py:392``)."""
+    memo: Dict[int, Any] = {}
+    return [_ev(n, env, memo) for n in nodes]
+
+
+def constant_fold(node):
+    """The node's value as numpy when it needs no named variable from the
+    environment (free variables read their test values), else None
+    (cf. ``node.py:398``)."""
+    try:
+        return _to_numpy(evaluate(node, {}))
+    except KeyError:
+        return None

@@ -78,11 +78,13 @@ class ChainMesh:
     ``group`` is ``None`` outside a process group (one rank, every
     collective the identity). ``calls`` counts the collectives issued and
     ``host_s`` the host seconds spent in them (under gloo a collective on
-    CUDA tensors waits for the device)."""
+    CUDA tensors waits for the device). ``axis_name`` names the chain axis
+    the ranks share, as the JAX package's ``Mesh`` does."""
 
     def __init__(self, group=None, rank=0, world_size=1, device=None,
-                 host_group=None, backend=None):
+                 host_group=None, backend=None, axis_name=CHAIN_AXIS):
         self.group = group
+        self.axis_name = axis_name
         self.rank = int(rank)
         self.world_size = int(world_size)
         self.device = torch.device(device) if device is not None else None
@@ -90,6 +92,10 @@ class ChainMesh:
         self.backend = backend
         self.calls = 0
         self.host_s = 0.0
+
+    @property
+    def axis_names(self):
+        return (self.axis_name,)
 
     def __repr__(self):
         return (f"ChainMesh(rank={self.rank}, world_size={self.world_size}, "
@@ -176,12 +182,18 @@ class ChainMesh:
         self.host_s = 0.0
 
 
-def initialize_distributed(backend=None, init_method=None, world_size=None,
-                           rank=None, device=None) -> ChainMesh:
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None, backend=None,
+                           device=None) -> ChainMesh:
     """Join this process to the ranks' process group and return its mesh
-    (cf. the JAX package's ``jax.distributed.initialize``).
+    (cf. the JAX package's ``initialize_distributed``, which calls
+    ``jax.distributed.initialize``).
 
-    Without arguments it reads ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` as
+    The JAX parameters map onto ``torch.distributed``'s:
+    ``coordinator_address`` ("host:port") is the TCP store
+    ``init_method="tcp://host:port"``, ``num_processes`` the world size and
+    ``process_id`` the rank. Without arguments it reads ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` as
     ``torchrun`` sets them (``env://``), or the variables :func:`launch`
     sets. The device defaults to ``cuda:LOCAL_RANK``, the backend to
     ``"nccl"`` for a CUDA device and ``"gloo"`` for the CPU; the port's
@@ -190,17 +202,21 @@ def initialize_distributed(backend=None, init_method=None, world_size=None,
     device, and nothing switches the backend quietly. Installs
     :func:`install_worker_excepthook`."""
     env = os.environ
-    rank = int(env.get("RANK", 0)) if rank is None else int(rank)
-    world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None \
-        else int(world_size)
+    rank = int(env.get("RANK", 0)) if process_id is None else int(process_id)
+    world_size = int(env.get("WORLD_SIZE", 1)) if num_processes is None \
+        else int(num_processes)
     local_rank = int(env.get("LOCAL_RANK", rank))
     device = torch.device(device or env.get(DEVICE_ENV)
                           or f"cuda:{local_rank}")
     if backend is None:
         backend = env.get(BACKEND_ENV) or (
             "nccl" if device.type == "cuda" else "gloo")
-    if init_method is None:
+    if coordinator_address is None:
         init_method = env.get(INIT_ENV, "env://")
+    elif "://" in coordinator_address:
+        init_method = coordinator_address
+    else:
+        init_method = f"tcp://{coordinator_address}"
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method,
@@ -239,8 +255,9 @@ def _leave_group():
     _GROUP_STATE.clear()
 
 
-def make_mesh(devices: Optional[Sequence] = None) -> ChainMesh:
-    """The mesh of this process.
+def make_mesh(devices: Optional[Sequence] = None,
+              axis_name: str = CHAIN_AXIS) -> ChainMesh:
+    """The mesh of this process, its chain axis named ``axis_name``.
 
     In a process group: its ranks, with this rank's device; ``devices``,
     when given, must list one device per rank. Outside one: ``devices`` of
@@ -263,7 +280,7 @@ def make_mesh(devices: Optional[Sequence] = None) -> ChainMesh:
                 if backend != "gloo" else dist.group.WORLD)
         return ChainMesh(dist.group.WORLD, dist.get_rank(), world,
                          _GROUP_STATE["device"], _GROUP_STATE["host_group"],
-                         _GROUP_STATE["backend"])
+                         _GROUP_STATE["backend"], axis_name)
     if devices is not None and len(devices) > 1:
         raise ValueError(
             f"{len(devices)} devices need one process each: start the ranks "
@@ -271,7 +288,7 @@ def make_mesh(devices: Optional[Sequence] = None) -> ChainMesh:
             "parallel.initialize_distributed() in each, and pass "
             "devices=parallel.make_mesh() or the list of all ranks' devices")
     dev = devices[0] if devices else get_config().device
-    return ChainMesh(device=dev)
+    return ChainMesh(device=dev, axis_name=axis_name)
 
 
 def rank_seed(seed, mesh):
@@ -332,26 +349,40 @@ def _on_local_rows(fn, mesh, shared):
     return run
 
 
-def shard_chain_fn(chain_fn: Callable, mesh: Optional[ChainMesh] = None
-                   ) -> Callable:
+def _mesh_of(devices, mesh, axis_name=CHAIN_AXIS):
+    if axis_name is not None and not isinstance(axis_name, (str, tuple)):
+        raise TypeError(f"axis_name must be a name, got {axis_name!r}: "
+                        "pass a mesh as mesh=")
+    if mesh is not None:
+        return make_mesh(mesh)
+    return make_mesh(devices, axis_name or CHAIN_AXIS)
+
+
+def shard_chain_fn(chain_fn: Callable, axis_name: Optional[str] = None,
+                   devices: Optional[Sequence] = None,
+                   mesh: Optional[ChainMesh] = None) -> Callable:
     """Lift a batched chain function to the ranks (cf. the JAX package's
-    ``shard_chain_fn``): ``chain_fn(*args)`` takes tensors with a leading
-    chain dimension and returns a pytree of them; the returned
-    ``run(*args)`` takes the global chains, runs ``chain_fn`` on this
-    rank's rows, and returns the rows of every rank, in rank order. The
-    chain count must be a multiple of the rank count."""
-    return _on_local_rows(chain_fn, make_mesh(mesh), shared=0)
+    ``shard_chain_fn``, whose parameters it takes): ``chain_fn(*args)``
+    takes tensors with a leading chain dimension and returns a pytree of
+    them; the returned ``run(*args)`` takes the global chains, runs
+    ``chain_fn`` on this rank's rows, and returns the rows of every rank,
+    in rank order. The chain count must be a multiple of the rank count.
+    ``mesh``, else ``make_mesh(devices, axis_name)``, gives the ranks."""
+    return _on_local_rows(chain_fn, _mesh_of(devices, mesh, axis_name),
+                          shared=0)
 
 
-def shard_block_fn(chain_block: Callable, mesh: Optional[ChainMesh] = None
-                   ) -> Callable:
+def shard_block_fn(chain_block: Callable,
+                   devices: Optional[Sequence] = None,
+                   mesh: Optional[ChainMesh] = None) -> Callable:
     """Lift a block function to the ranks (cf. the JAX package's
-    ``shard_block_fn``): ``chain_block(carry, idxs) -> (carry, outputs)``
-    advances a batch of chains by ``len(idxs)`` draws; ``carry`` and the
-    outputs have a leading chain dimension, ``idxs`` is shared. The
-    returned ``run(carry, idxs)`` takes the global carry and returns the
-    global carry and outputs; each rank runs its own rows."""
-    return _on_local_rows(chain_block, make_mesh(mesh), shared=1)
+    ``shard_block_fn``, whose parameters it takes): ``chain_block(carry,
+    idxs) -> (carry, outputs)`` advances a batch of chains by ``len(idxs)``
+    draws; ``carry`` and the outputs have a leading chain dimension,
+    ``idxs`` is shared. The returned ``run(carry, idxs)`` takes the global
+    carry and returns the global carry and outputs; each rank runs its own
+    rows. ``mesh``, else ``make_mesh(devices)``, gives the ranks."""
+    return _on_local_rows(chain_block, _mesh_of(devices, mesh), shared=1)
 
 
 class GlobalNoise:

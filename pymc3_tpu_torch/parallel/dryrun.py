@@ -61,7 +61,7 @@ def _rank():
 
     q0 = torch.as_tensor(model.dict_to_array(model.test_point),
                          device=mesh.device)
-    qs, lps = shard_chain_fn(chain_fn, mesh)(q0.expand(chains, -1).clone())
+    qs, lps = shard_chain_fn(chain_fn, mesh=mesh)(q0.expand(chains, -1).clone())
     if qs.shape != (chains, tune + draws, q0.shape[0]):
         raise RuntimeError(f"shard_chain_fn gave {tuple(qs.shape)}")
     if not bool(torch.isfinite(lps).all()):
@@ -88,7 +88,7 @@ def _rank():
                   total_size=N)
     approx = pm.MeanField(model=vi_model)
     objective = pm.variational.operators.KL(approx)()
-    step_fn, opt = objective.sharded_step_function(mesh, obj_n_mc=2)
+    step_fn, opt = objective.sharded_step_function(mesh=mesh, obj_n_mc=2)
     params = approx.params
     opt_state = opt.init(params)
     vi_gen = torch.Generator(device=mesh.device)

@@ -77,7 +77,7 @@ def child():
             eps.append(stats["step_size_bar"])
         return (q, st), (torch.stack(qs, 1), torch.stack(eps, 1))
 
-    run = shard_block_fn(chain_block, mesh)
+    run = shard_block_fn(chain_block, mesh=mesh)
     carry = (Q0, step.kernel_init(Q0))
     half = (tune + draws) // 2
     carry, (qs_a, eps_a) = run(carry, range(half))

@@ -382,6 +382,7 @@ class NUTS(BaseHMC):
     """
 
     name = "nuts"
+    default_blocked = True
     generates_stats = True
     stats_dtypes = [{
         "depth": np.int64,
@@ -541,3 +542,8 @@ class NUTS(BaseHMC):
         if str(np.dtype(dtype)) in continuous_types and has_grad:
             return Competence.IDEAL
         return Competence.INCOMPATIBLE
+
+    def warnings(self):
+        """cf. ``nuts.py:684``: the per-chain warnings go to the trace's
+        report, none are kept here."""
+        return []

@@ -1,12 +1,14 @@
 """Naming/startpoint utilities, mirroring ``pymc3/util.py``."""
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
 
 __all__ = ["get_transformed_name", "is_transformed_name",
-           "get_default_varnames", "get_var_name", "update_start_vals"]
+           "get_untransformed_name", "get_default_varnames", "get_var_name",
+           "update_start_vals", "biwrap"]
 
 
 def get_transformed_name(name: str, transform) -> str:
@@ -17,6 +19,13 @@ def get_transformed_name(name: str, transform) -> str:
 def is_transformed_name(name: str) -> bool:
     """Does ``name`` look like ``x_log__``?"""
     return name.endswith("__") and name.count("_") >= 3
+
+
+def get_untransformed_name(name: str) -> str:
+    """``x_log__`` -> ``x``; a name that is not transformed raises."""
+    if not is_transformed_name(name):
+        raise ValueError(f"{name} does not appear to be a transformed name")
+    return "_".join(name.split("_")[:-3])
 
 
 def get_default_varnames(var_iterator, include_transformed: bool):
@@ -45,3 +54,15 @@ def update_start_vals(a: Dict, b: Dict, model) -> None:
     for k, v in b.items():
         if k not in a:
             a[k] = v
+
+
+def biwrap(wrapper):
+    """Let a decorator be used with arguments or without
+    (cf. ``pymc3_tpu/util.py:64``)."""
+    @functools.wraps(wrapper)
+    def enhanced(*args, **kwargs):
+        count = 1 if args and hasattr(args[0], wrapper.__name__) else 0
+        if len(args) > count and callable(args[count]):
+            return wrapper(*args, **kwargs)
+        return functools.partial(wrapper, *args, **kwargs)
+    return enhanced

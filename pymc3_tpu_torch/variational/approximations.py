@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from ..config import floatX
 from ..model import modelcontext
 from .opvi import Approximation, Group
+from .updates import tree_map
 
 __all__ = ["MeanField", "FullRank", "Empirical", "NormalizingFlow",
            "MeanFieldGroup", "FullRankGroup", "EmpiricalGroup",
@@ -33,11 +34,36 @@ def _std_normal_logq(eps):
 
 class MeanFieldGroup(Group):
     """Fully factorized Gaussian q, ``sigma = softplus(rho)``
-    (cf. ``approximations.py:42``)."""
+    (cf. ``approximations.py:42``).
+
+    With ``local=True`` it is the AEVB group (cf. ``approximations.py:
+    40-135``): its parameters come from the user, either trainable arrays,
+    ``params=dict(mu=..., rho=...)``, or an amortizing encoder,
+    ``params=dict(encoder=fn, aux={name: array})``. The optimizer trains
+    ``aux`` as a dict of tensors. The encoder is called once for each
+    Monte-Carlo sample, under ``torch.func.vmap``, as ``fn(aux, draw) ->
+    (mu, rho)``: ``draw`` is that sample's minibatch draw, ``{noise_key:
+    tensor}``, the very entry from which the model's ``Minibatch`` views
+    take their rows, so ``x_mini.indices(draw)`` gives the rows that the
+    likelihood sees in that sample (the port's counterpart of the JAX
+    package's ``fn(aux, mb_key)``). Outside a step (``mean``, ``std``,
+    ``logq``) ``draw`` is None: the rows of the test value. A local group's
+    logq is scaled by ``scale_vec``, as the model's logp term of its
+    variables is.
+    """
 
     short_name = "mean_field"
 
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        encoder = (self.user_params or {}).get("encoder")
+        self._encoder = encoder if self.local and callable(encoder) else None
+        self._scale = self._tensor(self.scale_vec)
+
     def init_params(self, start=None):
+        if self._encoder is not None:
+            return {"aux": tree_map(self._tensor,
+                                    self.user_params.get("aux", {}))}
         if self.user_params is not None:
             mu = np.asarray(self.user_params["mu"], floatX()).ravel()
             rho = np.asarray(self.user_params["rho"], floatX()).ravel()
@@ -50,73 +76,136 @@ class MeanFieldGroup(Group):
             rho = np.full(self.ndim, _sigma2rho(1.0), dtype=floatX())
         return {"mu": self._tensor(mu), "rho": self._tensor(rho)}
 
-    def sample_q(self, params, eps):
-        sigma = F.softplus(params["rho"])
-        z = params["mu"] + sigma * eps
-        logq = torch.sum(-0.5 * (_LOG2PI + 2 * torch.log(sigma) + eps ** 2),
-                         dim=-1)
-        return z, logq
+    def _encode(self, aux, draw):
+        mu, rho = self._encoder(aux, draw)
+        return mu.reshape(-1), rho.reshape(-1)
+
+    def _mu_rho(self, params, draws=None, size=None):
+        """``(mu, rho)``: the trainable ones, or the encoder's, one row a
+        sample when ``draws`` is given."""
+        if self._encoder is None:
+            return params["mu"], params["rho"]
+        if draws:
+            return torch.func.vmap(lambda d: self._encode(params["aux"], d))(
+                draws)
+        mu, rho = self._encode(params["aux"], None)
+        if size is None:
+            return mu, rho
+        return mu.expand(size, -1), rho.expand(size, -1)
+
+    def _reduce_logq(self, elem):
+        """Sum the elementwise logq, scaled for a local group."""
+        if self.local:
+            return elem @ self._scale
+        return torch.sum(elem, dim=-1)
+
+    def sample_q(self, params, eps, draws=None):
+        mu, rho = self._mu_rho(params, draws, eps.shape[0])
+        sigma = F.softplus(rho)
+        z = mu + sigma * eps
+        return z, self._reduce_logq(
+            -0.5 * (_LOG2PI + 2 * torch.log(sigma) + eps ** 2))
 
     def logq(self, params, z):
-        sigma = F.softplus(params["rho"])
-        return torch.sum(-0.5 * (_LOG2PI + 2 * torch.log(sigma)
-                                 + ((z - params["mu"]) / sigma) ** 2))
+        mu, rho = self._mu_rho(params)
+        sigma = F.softplus(rho)
+        return self._reduce_logq(-0.5 * (_LOG2PI + 2 * torch.log(sigma)
+                                         + ((z - mu) / sigma) ** 2))
 
     def mean(self, params):
-        return params["mu"]
+        return self._mu_rho(params)[0]
 
     def std(self, params):
-        return F.softplus(params["rho"])
+        return F.softplus(self._mu_rho(params)[1])
 
 
 class FullRankGroup(Group):
     """Full-rank Gaussian q with a packed lower-triangular factor ``L``
     whose diagonal is ``softplus`` of its packed entries
-    (cf. ``approximations.py:140``)."""
+    (cf. ``approximations.py:140``).
+
+    ``rowwise=True`` factorizes q over the leading axis of its one
+    variable (cf. ``approximations.py:144-245``): one full-rank Gaussian
+    of ``row_dim`` dimensions for each of ``rows`` rows, so the covariance
+    is block diagonal, exactly zero off the blocks."""
 
     short_name = "full_rank"
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        ii, jj = np.tril_indices(self.ndim)
+        d = self.ndim
+        if self.rowwise:
+            if len(self.group_vars) != 1:
+                raise ValueError("rowwise groups take exactly one variable")
+            shape = np.shape(self.group_vars[0].test_value)
+            if len(shape) < 1 or shape[0] < 1:
+                raise ValueError("rowwise groups need a leading batch axis")
+            self.rows = int(shape[0])
+            d = self.row_dim = self.ndim // self.rows
+        ii, jj = np.tril_indices(d)
         self._tril = (torch.as_tensor(ii, device=self.device),
                       torch.as_tensor(jj, device=self.device))
+        self._tril_flat = torch.as_tensor(ii * d + jj, device=self.device)
 
     def init_params(self, start=None):
+        mu = self._tensor(self._start_vector(start))
+        if self.rowwise:
+            d = self.row_dim
+            tril = np.tile(np.eye(d, dtype=floatX())[np.tril_indices(d)],
+                           (self.rows, 1))
+            return {"mu": mu, "L_tril": self._tensor(tril)}
         tril = np.eye(self.ndim, dtype=floatX())[np.tril_indices(self.ndim)]
-        return {"mu": self._tensor(self._start_vector(start)),
-                "L_tril": self._tensor(tril)}
+        return {"mu": mu, "L_tril": self._tensor(tril)}
 
     def _L(self, params):
-        """``L`` from the packed vector, with a positive diagonal."""
+        """``L`` from the packed vector, with a positive diagonal: one
+        ``(row_dim, row_dim)`` factor for each row when ``rowwise``."""
         tril = params["L_tril"]
-        L = tril.new_zeros((self.ndim, self.ndim)).index_put(self._tril, tril)
-        diag = torch.diagonal(L)
-        return L - torch.diag(diag) + torch.diag(F.softplus(diag))
+        if self.rowwise:
+            d = self.row_dim
+            L = tril.new_zeros((self.rows, d * d)).index_copy(
+                1, self._tril_flat, tril).reshape(self.rows, d, d)
+        else:
+            L = tril.new_zeros((self.ndim, self.ndim)).index_put(self._tril,
+                                                                 tril)
+        diag = torch.diagonal(L, dim1=-2, dim2=-1)
+        return L - torch.diag_embed(diag) + torch.diag_embed(F.softplus(diag))
 
     def _logdet(self, L):
-        return torch.sum(torch.log(torch.diagonal(L)))
+        return torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)))
 
-    def sample_q(self, params, eps):
+    def sample_q(self, params, eps, draws=None):
         L = self._L(params)
-        return params["mu"] + eps @ L.T, \
-            _std_normal_logq(eps) - self._logdet(L)
+        if self.rowwise:
+            size = eps.shape[0]
+            eps_r = eps.reshape(size, self.rows, self.row_dim)
+            z = params["mu"].reshape(self.rows, self.row_dim) + torch.einsum(
+                "rij,srj->sri", L, eps_r)
+            z = z.reshape(size, self.ndim)
+        else:
+            z = params["mu"] + eps @ L.T
+        return z, _std_normal_logq(eps) - self._logdet(L)
 
     def logq(self, params, z):
         """The density at ``z`` through a triangular solve."""
         L = self._L(params)
-        w = torch.linalg.solve_triangular(L, (z - params["mu"])[:, None],
-                                          upper=False)
+        dz = z - params["mu"]
+        dz = dz.reshape(self.rows, self.row_dim, 1) if self.rowwise \
+            else dz[:, None]
+        w = torch.linalg.solve_triangular(L, dz, upper=False)
         return torch.sum(-0.5 * (_LOG2PI + w ** 2)) - self._logdet(L)
 
     def mean(self, params):
         return params["mu"]
 
     def std(self, params):
-        return torch.sqrt(torch.sum(self._L(params) ** 2, dim=-1))
+        return torch.sqrt(torch.sum(self._L(params) ** 2, dim=-1)).reshape(
+            self.ndim)
 
     def cov(self, params):
         L = self._L(params)
+        if self.rowwise:
+            return torch.block_diag(*(Li @ Li.T for Li in L))
         return L @ L.T
 
 
@@ -144,7 +233,7 @@ class EmpiricalGroup(Group):
         return torch.randint(0, self.size, (size,), generator=gen,
                              device=self.device)
 
-    def sample_q(self, params, idx):
+    def sample_q(self, params, idx, draws=None):
         particles = params["particles"]
         return particles[idx], particles.new_zeros(idx.shape[0])
 
@@ -198,7 +287,7 @@ class NormalizingFlowGroup(Group):
             logdet = logdet + ld
         return z, logdet
 
-    def sample_q(self, params, eps):
+    def sample_q(self, params, eps, draws=None):
         z, logdet = self._apply_flows(params, eps)
         return z, _std_normal_logq(eps) - logdet
 

@@ -17,7 +17,8 @@ import torch
 
 from ..config import torch_floatX
 from ..model import modelcontext
-from .approximations import Empirical, FullRank, MeanField, NormalizingFlow
+from .approximations import (Empirical, FullRank, FullRankGroup, MeanField,
+                             MeanFieldGroup, NormalizingFlow)
 from .operators import KL, KSD
 from .opvi import Approximation
 from .updates import adagrad_window
@@ -26,9 +27,6 @@ _log = logging.getLogger("pymc3_tpu_torch")
 
 __all__ = ["ADVI", "FullRankADVI", "SVGD", "ASVGD", "NFVI", "Inference",
            "ImplicitGradient", "KLqp", "fit"]
-
-_AEVB = ("local_rv (AEVB) comes with a later slice of the port: ROADMAP "
-         "item 10 lists it as left")
 
 
 class Inference:
@@ -155,28 +153,55 @@ class KLqp(Inference):
         super().__init__(KL, approx, None, beta=beta)
 
 
+def _build_local_approx(model, local_rv, global_family, start=None):
+    """One local (AEVB) mean-field group for each entry of ``local_rv``
+    (``{var: dict(mu=..., rho=...)}``, ``{var: (mu, rho)}`` or ``{var:
+    dict(encoder=fn, aux=...)}``), then one group of ``global_family``
+    over the other free variables, started at ``start``
+    (cf. ``inference.py:188``)."""
+    groups, local_names = [], set()
+    for var, spec in local_rv.items():
+        if isinstance(spec, (tuple, list)):
+            spec = dict(mu=spec[0], rho=spec[1])
+        g = MeanFieldGroup([var], local=True, params=dict(spec), model=model)
+        groups.append(g)
+        local_names.update(v.name for v in g.group_vars)
+    rest = [v for v in model.free_RVs if v.name not in local_names]
+    if rest:
+        family = {"mean_field": MeanFieldGroup,
+                  "full_rank": FullRankGroup}[global_family]
+        groups.append(family(rest, model=model))
+    approx = Approximation(groups, model=model)
+    if rest and start is not None:
+        approx.params[len(groups) - 1] = groups[-1].init_params(start)
+    return approx
+
+
 class ADVI(KLqp):
     """Automatic differentiation VI with a mean-field Gaussian
-    (cf. ``inference.py:210``)."""
+    (cf. ``inference.py:210``). ``local_rv={var: params}`` adds local
+    (AEVB) groups: see :func:`_build_local_approx` and
+    ``MeanFieldGroup``."""
 
     def __init__(self, *args, model=None, random_seed=None, start=None,
                  local_rv=None, **kwargs):
-        if local_rv:
-            raise NotImplementedError(_AEVB)
         model = modelcontext(model)
-        super().__init__(MeanField(model=model, start=start),
+        approx = _build_local_approx(model, local_rv, "mean_field", start) \
+            if local_rv else MeanField(model=model, start=start)
+        super().__init__(approx,
                          **{k: v for k, v in kwargs.items() if k == "beta"})
 
 
 class FullRankADVI(KLqp):
-    """ADVI with a full-rank Gaussian (cf. ``inference.py:228``)."""
+    """ADVI with a full-rank Gaussian (cf. ``inference.py:228``), with
+    local groups as :class:`ADVI` has them."""
 
     def __init__(self, *args, model=None, random_seed=None, start=None,
                  local_rv=None, **kwargs):
-        if local_rv:
-            raise NotImplementedError(_AEVB)
         model = modelcontext(model)
-        super().__init__(FullRank(model=model, start=start),
+        approx = _build_local_approx(model, local_rv, "full_rank", start) \
+            if local_rv else FullRank(model=model, start=start)
+        super().__init__(approx,
                          **{k: v for k, v in kwargs.items() if k == "beta"})
 
 
@@ -242,9 +267,14 @@ def fit(n=10000, local_rv=None, method="advi", model=None, random_seed=None,
     ``method``: 'advi', 'fullrank_advi', 'svgd', 'asvgd', 'nfvi',
     'nfvi=<formula>' or an :class:`Inference`.
     """
-    if local_rv is not None:
-        raise NotImplementedError(_AEVB)
     inf_kwargs = dict(inf_kwargs or {})
+    if local_rv is not None:
+        if not (isinstance(method, str)
+                and method in ("advi", "fullrank_advi")):
+            raise NotImplementedError(
+                "local_rv (AEVB) is supported for advi and fullrank_advi "
+                "only")
+        inf_kwargs["local_rv"] = local_rv
     if random_seed is not None:
         inf_kwargs["random_seed"] = random_seed
     if start is not None:

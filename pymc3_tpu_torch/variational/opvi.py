@@ -84,9 +84,16 @@ def mask_nonfinite(grads, finite=None):
 class Group:
     """A variational family over a subset of the free variables
     (cf. ``opvi.py:53``): a contiguous index set into the model's flat
-    unconstrained vector, all free variables by default."""
+    unconstrained vector, all free variables by default.
+
+    A ``local`` group (AEVB) takes its variational parameters from the
+    user (``params``), trainable arrays or an encoder, and scales its logq
+    like the model's logp term of its variables (``scale_vec``, from their
+    ``total_size``). A ``rowwise`` group factorizes over the leading axis
+    of its one variable (``FullRankGroup``)."""
 
     has_logq = True
+    supports_batched = False
     short_name = ""
 
     def __init__(self, group=None, vfam=None, params=None, model=None,
@@ -94,12 +101,16 @@ class Group:
         model = modelcontext(model)
         self.model = model
         self.device = model.device
-        if local or rowwise:
-            raise NotImplementedError(
-                "local (AEVB) and rowwise groups come with a later slice of "
-                "the port (ROADMAP item 10, left)")
-        self.local = False
+        self.local = bool(local)
+        self.rowwise = bool(rowwise)
+        if self.local and params is None:
+            raise ValueError(
+                "Local (AEVB) groups need user-provided params: trainable "
+                "dict(mu=..., rho=...) or an encoder dict(encoder=fn, "
+                "aux=...)")
         if group is None:
+            if self.local:
+                raise ValueError("Local groups must name their variables")
             self.group_vars = model.free_RVs
         else:
             def resolve(v):
@@ -110,11 +121,14 @@ class Group:
         self.ordering = ArrayOrdering(self.group_vars)
         self.ndim = self.ordering.size
         glob = model.ordering
-        idx = []
+        idx, scale = [], []
         for vm in self.ordering.vmap:
             g = glob.by_name[vm.var]
             idx.extend(range(g.slc.start, g.slc.stop))
+            scale += [float(getattr(model.named_vars.get(vm.var), "scaling",
+                                    1.0))] * (g.slc.stop - g.slc.start)
         self.q_indices = np.asarray(idx, dtype=np.int64)
+        self.scale_vec = np.asarray(scale, dtype=floatX())
         self.user_params = params
 
     def _start_vector(self, start=None):
@@ -127,6 +141,8 @@ class Group:
             for vm in self.ordering.vmap]).astype(floatX())
 
     def _tensor(self, x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().to(dtype=torch_floatX(), device=self.device)
         return torch.as_tensor(np.asarray(x), dtype=torch_floatX(),
                                device=self.device)
 
@@ -143,8 +159,10 @@ class Group:
         ``(size, ndim)`` unless the family says otherwise)."""
         return self._normal(gen, size)
 
-    def sample_q(self, params, noise):
-        """``(z (size, ndim), logq (size,))``, reparameterized."""
+    def sample_q(self, params, noise, draws=None):
+        """``(z (size, ndim), logq (size,))``, reparameterized. ``draws``
+        is the minibatch draw of the samples (``noise["minibatch"]``), which
+        a local group's encoder reads."""
         raise NotImplementedError
 
     def mean(self, params):
@@ -319,13 +337,15 @@ class Approximation:
             noise = self.draw_noise(gen, size)
         if len(self.groups) == 1 and np.array_equal(
                 self.groups[0].q_indices, np.arange(self.ndim)):
-            return self.groups[0].sample_q(params[0], noise["groups"][0])
+            return self.groups[0].sample_q(params[0], noise["groups"][0],
+                                           noise["minibatch"])
         z = torch.zeros((size, self.ndim), dtype=torch_floatX(),
                         device=self.model.device)
         logq = torch.zeros((size,), dtype=torch_floatX(),
                            device=self.model.device)
         for i, g in enumerate(self.groups):
-            zi, lqi = g.sample_q(params[i], noise["groups"][i])
+            zi, lqi = g.sample_q(params[i], noise["groups"][i],
+                                 noise["minibatch"])
             z = z.index_copy(1, self._index[i], zi)
             logq = logq + lqi
         return z, logq

@@ -286,3 +286,75 @@ def test_one_device_outside_a_process_group_is_this_process():
     a = pt.sample(devices=["cpu"], **kw)
     b = pt.sample(**kw)
     assert np.array_equal(a.get_values("mu"), b.get_values("mu"))
+
+
+# -- the JAX package's signatures ----------------------------------------------
+@pytest.mark.parametrize("name", ["initialize_distributed", "make_mesh",
+                                  "shard_chain_fn", "shard_block_fn"])
+def test_parameters_start_with_the_jax_packages(name):
+    """The JAX parameters come first, in order, under the same names; the
+    port's own ``torch.distributed`` ones follow."""
+    import inspect
+    from pymc3_tpu import parallel as jparallel
+    want = list(inspect.signature(getattr(jparallel, name)).parameters)
+    got = list(inspect.signature(getattr(parallel, name)).parameters)
+    assert got[:len(want)] == want
+
+
+def test_make_mesh_names_its_axis_as_the_jax_packages():
+    from pymc3_tpu import parallel as jparallel
+    want = jparallel.make_mesh(jax.devices()[:1], axis_name="rows")
+    got = parallel.make_mesh(["cpu"], axis_name="rows")
+    assert got.axis_names == tuple(want.axis_names)
+    assert parallel.make_mesh(["cpu"]).axis_names == (CHAIN_AXIS,)
+
+
+@pytest.mark.parametrize("call", [
+    lambda f: parallel.shard_chain_fn(f, "chains"),
+    lambda f: parallel.shard_chain_fn(f, axis_name="chains",
+                                      devices=["cpu"]),
+    lambda f: parallel.shard_chain_fn(f, mesh=parallel.make_mesh(["cpu"])),
+], ids=["axis_name", "devices", "mesh"])
+def test_shard_chain_fn_with_the_jax_arguments_in_one_process(call):
+    """``shard_chain_fn(f, "chains")`` is the JAX call: one process is
+    every chain."""
+    q = torch.arange(12.0).reshape(4, 3)
+    out = call(lambda x: (x * 2, x.sum(1)))(q)
+    torch.testing.assert_close(out[0], q * 2)
+    torch.testing.assert_close(out[1], q.sum(1))
+
+
+def test_shard_block_fn_with_the_jax_arguments_in_one_process():
+    carry = torch.arange(6.0).reshape(3, 2)
+    idxs = torch.arange(4)
+    for run in (parallel.shard_block_fn(lambda c, i: (c + len(i), c * 0)),
+                parallel.shard_block_fn(lambda c, i: (c + len(i), c * 0),
+                                        ["cpu"]),
+                parallel.shard_block_fn(lambda c, i: (c + len(i), c * 0),
+                                        mesh=parallel.make_mesh())):
+        new, out = run(carry, idxs)
+        torch.testing.assert_close(new, carry + 4)
+        assert out.shape == carry.shape
+
+
+def test_a_mesh_in_the_axis_name_slot_raises():
+    with pytest.raises(TypeError, match="mesh="):
+        parallel.shard_chain_fn(lambda x: x, parallel.make_mesh(["cpu"]))
+
+
+def test_initialize_distributed_takes_the_jax_arguments():
+    """``initialize_distributed(coordinator_address, num_processes,
+    process_id)`` joins a one-rank gloo group through a TCP store on
+    localhost, in a fresh process."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = ("from pymc3_tpu_torch import parallel\n"
+            f"m = parallel.initialize_distributed('127.0.0.1:{port}', 1, 0, "
+            "backend='gloo', device='cpu')\n"
+            "print('mesh', m.world_size, m.rank, m.backend, m.axis_names)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=TIMEOUT)
+    assert out.returncode == 0, out.stderr
+    assert "mesh 1 0 gloo ('chains',)" in out.stdout

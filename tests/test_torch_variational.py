@@ -383,8 +383,11 @@ def test_fit_dispatch_raises(conjugate):
     model, _, _ = conjugate
     with pytest.raises(KeyError):
         tv.fit(10, method="bogus_method", model=model)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tv.fit(10, model=model, local_rv={model["mu"]: (0.0, 1.0)})
+    # local_rv (AEVB) is for advi and fullrank_advi only, as in the JAX
+    # package (tests/test_torch_aevb.py covers the methods that take it)
+    with pytest.raises(NotImplementedError, match="advi and fullrank_advi"):
+        tv.fit(10, method="svgd", model=model,
+               local_rv={model["mu"]: (0.0, 1.0)})
 
 
 def test_tracker_and_convergence(conjugate):

@@ -178,7 +178,7 @@ def pair(mesh, where):
 
     approx = pm.MeanField(model=minibatch_model(pm))
     objective = pm.variational.operators.KL(approx)()
-    step_fn, opt = objective.sharded_step_function(mesh, obj_n_mc=2)
+    step_fn, opt = objective.sharded_step_function(mesh=mesh, obj_n_mc=2)
     params = approx.params
     opt_state = opt.init(params)
     gen = torch.Generator()

@@ -15,7 +15,7 @@ port on the card. Run from the repository root:
     JAX_PLATFORMS=cpu python tests/torch_reference.py [config ...]
 
 With names (``lkj``, ``stochastic_volatility``, ``garch``, ``advi_logistic``,
-``advi_sharded``, ``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``,
+``advi_sharded``, ``aevb_vae``, ``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``,
 ``glm_radon``, ``examples``) it
 runs those
 configurations only and keeps the others already in the file; the file is
@@ -477,7 +477,52 @@ def examples(pm, only=None, out=None):
     return out
 
 
+AEVB_SEEDS = (1, 2, 3, 4, 5)
+
+
+def aevb_vae(pm):
+    """The amortized fit of ``examples/suite.py``'s ``AEVB_VAE`` by the JAX
+    package, once per seed of ``AEVB_SEEDS``: the encoder ``mu = w x + b``,
+    ``rho`` one scalar, on the rows that ``Minibatch.indices`` gives for
+    each sample's key. Writes ``w``, ``b`` and ``sigma = softplus(rho)`` of
+    each fit, whose spread around ``AEVB_OPTIMUM`` sets phase 28's
+    tolerance."""
+    import jax.numpy as jnp
+    from pymc3_tpu.variational.updates import adam
+    from pymc3_tpu_torch.examples.suite import (AEVB_VAE, aevb_vae_data,
+                                                 aevb_vae_model)
+    cfg = AEVB_VAE
+    data = aevb_vae_data(cfg["N"])
+    model, zs, x_mini = aevb_vae_model(pm, data, cfg["batch"])
+    rows_all = jnp.asarray(data)
+
+    def encoder(aux, key):
+        rows = rows_all[x_mini.indices(key)]
+        return rows * aux["w"] + aux["b"], jnp.broadcast_to(aux["rho"],
+                                                            rows.shape)
+
+    fits = []
+    for seed in AEVB_SEEDS:
+        aux0 = {k: np.float32(v) for k, v in cfg["aux0"].items()}
+        with model:
+            inference = pm.ADVI(local_rv={zs: dict(encoder=encoder,
+                                                   aux=aux0)})
+        t0 = time.time()
+        approx = inference.fit(cfg["steps"], obj_n_mc=cfg["obj_n_mc"],
+                               progressbar=False, random_seed=seed,
+                               obj_optimizer=adam(
+                                   learning_rate=cfg["learning_rate"]))
+        aux = {k: float(np.asarray(v))
+               for k, v in approx.params[0]["aux"].items()}
+        fits.append({"w": aux["w"], "b": aux["b"],
+                     "sigma": float(np.logaddexp(aux["rho"], 0.0)),
+                     "last100_loss": float(np.mean(approx.hist[-100:])),
+                     "wall_s": time.time() - t0})
+    return dict(cfg, seeds=list(AEVB_SEEDS), fits=fits)
+
+
 FITS = {"advi_logistic": advi_logistic, "advi_sharded": advi_sharded,
+        "aevb_vae": aevb_vae,
         "advi_gp": advi_gp,
         "map_radon": map_radon, "smc_gp": smc_gp, "glm_radon": glm_radon,
         "examples": examples}
