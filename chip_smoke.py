@@ -20,8 +20,9 @@ a non-zero exit and no result line:
    version's device time, and the bound from the bytes moved; then the
    shapes of phases 21-22, FITC's (64, 20, 2000, 1) and (64, 20, 20, 1)
    matern52 both ways, SMC's (4096, 200, 200, 1), (4096, 20, 2000, 1) and
-   (4096, 20, 20, 1) forward, ``gp_example``'s (256, 60, 60, 1) both ways
-   (phase 25), and a batch of 70,000 that the wrappers cut into two
+   (4096, 20, 20, 1) forward, the conditional's (500, 200, 200, 1) forward
+   (phase 5's ``plot_gp_dist`` data), ``gp_example``'s (256, 60, 60, 1)
+   both ways (phase 25), and a batch of 70,000 that the wrappers cut into two
    launches, each checked the same way;
 4. GP marginal regression (``pymc3_tpu_torch/examples/suite.py``, n = 200,
    200 tune + 500 draws, 4 chains; tune cut from 500, then 300) sampled by NUTS
@@ -32,7 +33,11 @@ a non-zero exit and no result line:
    16,384 launch) and ``predict(diag=False)`` at 4,096 (200 x 4,096 and
    4,096 x 4,096 launches); launch counts, finiteness, positive variance,
    symmetry, the two calls' variances against each other, the same calls
-   through the plain version, and the fit at the training inputs;
+   through the plain version, and the fit at the training inputs; then
+   ``plot_gp_dist``'s data: 500 draws of ``gp.conditional("f_pred",
+   Xnew)`` at 200 new inputs through ``sample_posterior_predictive`` over
+   phase 4's trace (forward launches > 0, backward 0), and the 40 pairs of
+   percentile ribbons computed on the card against ``np.percentile``;
 6. the radon model of ``bench.py`` at 2048 chains with pooled adaptation,
    150 tune + 60 draws (tune cut from 1000 and draws from 500, then 120
    and 90, to keep the whole run inside its limit as phases were added;
@@ -162,8 +167,8 @@ a non-zero exit and no result line:
    tune 150 + draws 30 with every free variable recorded, saved by
    ``save_trace``, read by ``load_trace`` and continued by
    ``sample(tune=0, draws=30, resume_from=...)``: the step sizes and the
-   mass matrix carried exactly, the 60 draws gated as phase 6, the save
-   and load walls and bytes; then ``gelman_schools`` at 256 chains by
+   mass matrix carried exactly, the 60 draws (their energies recorded
+   for phase 29) gated as phase 6, the save and load walls and bytes; then ``gelman_schools`` at 256 chains by
    ``Metropolis`` into NDArray, ``trace="text"`` and ``trace="sqlite"``,
    read back equal; all in a fourth worker process started with phase
    25's (in the main process under ``--only``);
@@ -202,10 +207,21 @@ a non-zero exit and no result line:
    prior draws of a ``DensityDist`` through a host generator
    (``generate_samples(stats.norm.rvs, ...)``), on the card, against
    their closed form;
-29. a JSON line describing every kernel, then the result line
+29. the plots and the model graph, in phase 26's worker right after it
+   (after it in the main process under ``--only plots``), on its radon
+   trace (2048 chains, 60 draws, 175 scalars), no new sampling: the data
+   function of ``traceplot`` (a KDE for each of 358,400 chains and
+   scalars), ``plot_posterior``, ``forestplot``, ``densityplot`` and
+   ``autocorrplot`` over every scalar, ``energyplot``'s over the chains'
+   energies and ``pairplot``'s over the five hyper-parameters, each timed
+   (wall, series per second) and run again on 64 chains on the card and
+   on the CPU, equal within the CPU tests' tolerance; ``ModelGraph`` of the
+   model built on the card, its parents and plates against a literal.
+   Nothing is drawn: the card's machine has no matplotlib;
+30. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-28 each print a JSON line of their own (each with the card's name
+Phases 9-29 each print a JSON line of their own (each with the card's name
 and power limit, and its ms per logp+grad or logp-only call or per VI
 step). Every model is built with no device argument and must come out on
 the card: that is the port's default.
@@ -221,10 +237,11 @@ sampling). With ``--against DIR``, a checkout of another commit, it also
 times that commit's forward kernel in the same call, in turns (other, this,
 this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
 (DIR, this, this, DIR) and prints each wall. ``--only NAMES`` runs phases
-1-3 and then the named ones of phases 6-28 (radon, best, mixture, disaster,
+1-3 and then the named ones of phases 6-29 (radon, best, mixture, disaster,
 binary, population, lkj, sv, garch, es, labels, advi_minibatch, advi_gp,
 svgd_map, smc_bimodal, smc_gp, gp_sparse, ode, glm, examples, traces,
-multirank, aevb; ``radon`` runs phase 26, which holds phase 6's run).
+multirank, aevb, plots; ``radon`` runs phase 26, which holds phase 6's
+run; ``plots`` runs phase 26, then phase 29).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -272,11 +289,14 @@ SMC_SHAPE = (4096, 200, 200, 1)
 EXAMPLE_SHAPE = (256, 60, 60, 1)
 # phase 27: each of two ranks holds half of SMC's 4,096 particles
 MULTIRANK_SHAPE = (2048, 200, 200, 1)
+# phase 5's plot_gp_dist data: the conditional's covariances over 500
+# posterior draws at the 200 training and 200 new inputs
+GP_DIST_SHAPE = (500, 200, 200, 1)
 FITC_SHAPES = (FITC_SHAPE, (64, 20, 20, 1), (4096, 20, 2000, 1),
                (4096, 20, 20, 1))
 TIMED_SHAPES = (MAIN_SHAPE, (1, 4096, 4096, 4), (1, 200, 16384, 1),
                 (1, 200, 4096, 1), VI_SHAPE, SMC_SHAPE,
-                EXAMPLE_SHAPE, MULTIRANK_SHAPE) + FITC_SHAPES
+                EXAMPLE_SHAPE, MULTIRANK_SHAPE, GP_DIST_SHAPE) + FITC_SHAPES
 TIMED_KIND = {shape: "matern52" for shape in FITC_SHAPES}
 # a batch above the 65,535 blocks of gridDim.z: the wrappers cut it
 CHUNKED_SHAPE = (70_000, 8, 8, 1)
@@ -501,7 +521,8 @@ def phase_kernel(gp_cov, card, other=None):
     # the shapes of phases 21-22 and 27 (SMC's particles run the forward
     # only): FITC's Kuf and Kuu at 64 points both ways and at 4,096
     # particles forward (Kuu there takes the tiled kernel); the GP's at
-    # 4,096 particles and at 2,048 a rank forward; gp_example's of phase 25
+    # 4,096 particles and at 2,048 a rank forward; the conditional's of
+    # phase 5's plot_gp_dist data forward; gp_example's of phase 25
     # both ways; and a batch above 65,535, cut into two launches that count
     # as one call
     for i, (kind, shape, backward) in enumerate((
@@ -509,6 +530,7 @@ def phase_kernel(gp_cov, card, other=None):
             ("matern52", FITC_SHAPES[1], True),
             ("expquad", SMC_SHAPE, False),
             ("expquad", MULTIRANK_SHAPE, False),
+            ("expquad", GP_DIST_SHAPE, False),
             ("matern52", FITC_SHAPES[2], False),
             ("matern52", FITC_SHAPES[3], False),
             ("expquad", EXAMPLE_SHAPE, True),
@@ -779,6 +801,53 @@ def phase_predict(gp_cov, model, gp, point, label="predict"):
     if not inside >= 0.95:
         fail(f"{label}: only {100 * inside:.1f}% of y within 3 noise sd")
     return 5
+
+
+def phase_gp_dist(pm, gp_cov, model, gp, trace, samples=500, points=200):
+    """``plot_gp_dist``'s data, the rest of phase 5: ``samples`` draws of
+    ``gp.conditional("f_pred", Xnew)`` at ``points`` new inputs through
+    ``sample_posterior_predictive`` over phase 4's trace, which launches the
+    forward kernel and never the backward; then the 40 pairs of percentile
+    ribbons computed on the card from them (``gp.util._gp_dist_data``, one
+    sort), held against ``np.percentile`` on the same samples (rtol 1e-10:
+    the same sorted values and float64 interpolation). Returns the forward
+    launches and the samples' shape."""
+    from pymc3_tpu_torch.examples.suite import gp_data
+    from pymc3_tpu_torch.gp.util import GP_DIST_PERCENTILES, _gp_dist_data
+    X, _ = gp_data()
+    Xnew = np.linspace(X.min(), X.max(), points, dtype=np.float32)[:, None]
+    with model:
+        gp.conditional("f_pred", Xnew)
+    gp_cov.LAUNCHES = gp_cov.BACKWARD_LAUNCHES = 0
+    t0 = time.time()
+    draws = pm.sample_posterior_predictive(
+        trace, samples=samples, model=model, var_names=["f_pred"],
+        random_seed=4, progressbar=False)["f_pred"]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = gp_cov.LAUNCHES
+    if launches <= 0 or gp_cov.BACKWARD_LAUNCHES != 0:
+        fail(f"gp_dist: {launches} forward and {gp_cov.BACKWARD_LAUNCHES} "
+             "backward launches, expected some and 0")
+    if draws.shape != (samples, points) or not np.isfinite(draws).all():
+        fail(f"gp_dist: draws of shape {draws.shape}, expected "
+             f"{(samples, points)}, or not finite")
+    t0 = time.time()
+    upper, lower = _gp_dist_data(draws)
+    ribbon_wall = time.time() - t0
+    worst = 0.0
+    for i, p in enumerate(GP_DIST_PERCENTILES[::-1]):
+        for got, q in ((upper[i], p), (lower[i], 100 - p)):
+            want = np.percentile(draws.T, q, axis=1)
+            worst = max(worst, float(np.max(np.abs(got - want))))
+            if not np.allclose(got, want, rtol=1e-10, atol=0.0):
+                fail(f"gp_dist: the {q:g}th percentile ribbon differs from "
+                     f"np.percentile's by {worst:.3e}")
+    print(f"gp_dist: {samples} draws of f_pred at {points} inputs in "
+          f"{wall:.3f} s, {launches} forward launches and 0 backward; 40 "
+          f"ribbon pairs on the card in {ribbon_wall:.4f} s, max |card - "
+          f"np.percentile| {worst:.1e}", flush=True)
+    return launches, list(draws.shape)
 
 
 def _posterior_mean_point(model, trace):
@@ -2772,8 +2841,8 @@ def _run_example(pm, gp_cov, name, card, ref, chains=256, tune=100,
 
 
 def _worker(args):
-    """A worker process of phases 25-28: ``traces CARD``, ``multirank
-    CARD`` and ``aevb CARD`` run phase 26, 27 or 28 and print a
+    """A worker process of phases 25-29: ``traces CARD`` (phases 26 and
+    29), ``multirank CARD`` and ``aevb CARD`` run phase 26, 27 or 28 and print a
     ``TRACES``, ``MULTIRANK`` or ``AEVB`` JSON line at its end; otherwise
     it runs the examples ``args``, one ``EXAMPLE`` JSON line each. Exits 1
     if anything failed."""
@@ -2786,7 +2855,7 @@ def _worker(args):
     # so that parallel.launch stops phase 27's ranks
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     if args[0] == "traces":
-        phase_traces(pm, args[1])
+        phase_plots(pm, args[1], *phase_traces(pm, args[1]))
         print("TRACES " + json.dumps({"finished_at": time.time()}),
               flush=True)
         sys.exit(0)
@@ -3096,7 +3165,10 @@ def phase_traces(pm, card, tune=150, draws=(30, 30), chains=2048,
     card repeats a seed exactly, so every recorded value of the three runs
     must be equal. The text files hold each float's shortest repr, which
     reads back to the same float32: the tolerance is 0, as for SQLite's
-    raw bytes."""
+    raw bytes.
+
+    Returns radon's model and its 60 draws (with their energies), which
+    phase 29 plots."""
     import tempfile
     from pymc3_tpu_torch.backends import sqlite as sqlite_backend
     from pymc3_tpu_torch.backends import text as text_backend
@@ -3105,7 +3177,7 @@ def phase_traces(pm, card, tune=150, draws=(30, 30), chains=2048,
     _on_card(model, "traces")
     kw = dict(chains=chains, model=model, progressbar=False,
               target_accept=0.9, axis_name="chains_local",
-              record_stats=["diverging", "step_size"],
+              record_stats=["diverging", "step_size", "energy"],
               compute_convergence_checks=False)
     t0 = time.time()
     first = pm.sample(draws=draws[0], tune=tune, random_seed=2, **kw)
@@ -3214,6 +3286,126 @@ def phase_traces(pm, card, tune=150, draws=(30, 30), chains=2048,
                       "first_part_s": t_first, "resumed_part_s": t_second,
                       "step_size_rel_err": eps_err,
                       "small_walls_s": walls, "card": card}), flush=True)
+    return model, both
+
+
+# phase 29: the plots' numbers and the model graph ------------------------
+# radon's five scalar hyper-parameters (pairplot) and its graph
+RADON_HYPER = ["mu_a", "sigma_a", "mu_b", "sigma_b", "eps"]
+RADON_GRAPH = {"mu_a": set(), "sigma_a": set(), "mu_b": set(),
+               "sigma_b": set(), "a": set(), "b": set(), "eps": set(),
+               "radon_like": {"mu_a", "sigma_a", "mu_b", "sigma_b", "a", "b",
+                              "eps"}}
+RADON_PLATES = {(): {"mu_a", "sigma_a", "mu_b", "sigma_b", "eps"},
+                (85,): {"a", "b"}, (919,): {"radon_like"}}
+# chains of the card-against-CPU check; the CPU tests' tolerance
+PLOTS_CHECK_CHAINS = 64
+PLOTS_RTOL = 1e-4
+
+
+def _plot_data_calls():
+    """{plot: (data function of (trace, device), series it computes)}."""
+    from pymc3_tpu_torch import plots
+    return {
+        "traceplot": (lambda tr, dev: plots._trace_data(tr, device=dev),
+                      lambda d: d["x"].shape[0] * d["x"].shape[1]),
+        "plot_posterior": (
+            lambda tr, dev: plots._posterior_data(tr, device=dev),
+            lambda d: d["x"].shape[0]),
+        "forestplot": (lambda tr, dev: plots._forest_data(tr, device=dev),
+                       lambda d: d["hpd"].shape[0]),
+        "densityplot": (lambda tr, dev: plots._density_data(tr, device=dev),
+                        lambda d: d["x"].shape[0]),
+        "autocorrplot": (
+            lambda tr, dev: plots._autocorr_data(tr, device=dev),
+            lambda d: d["acf"].shape[0] * d["acf"].shape[1]),
+        "energyplot": (lambda tr, dev: plots._energy_data(tr, device=dev),
+                       lambda d: 2),
+        "pairplot": (lambda tr, dev: plots._pair_data(
+            tr, RADON_HYPER, divergences=True, device=dev),
+            lambda d: d["x"].shape[0]),
+    }
+
+
+def _plot_data_err(what, got, want):
+    """The largest difference of two data functions' results, relative to
+    each array's largest magnitude; fails where labels or flags differ."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            fail(f"plots: {what} has fields {sorted(got)}, expected "
+                 f"{sorted(want)}")
+        return max([0.0] + [_plot_data_err(f"{what}.{k}", got[k], want[k])
+                            for k in want])
+    if isinstance(want, tuple):
+        return max(_plot_data_err(f"{what}[{i}]", a, b)
+                   for i, (a, b) in enumerate(zip(got, want)))
+    if isinstance(want, np.ndarray) and want.dtype.kind == "f":
+        if got.shape != want.shape:
+            fail(f"plots: {what} of shape {got.shape}, expected {want.shape}")
+        scale = max(float(np.max(np.abs(want))), 1e-300) if want.size else 1.0
+        return float(np.max(np.abs(got - want))) / scale if want.size \
+            else 0.0
+    if not np.array_equal(np.asarray(got), np.asarray(want)):
+        fail(f"plots: {what} differs between the card and the CPU")
+    return 0.0
+
+
+def phase_plots(pm, card, model, trace):
+    """The numbers behind every plot, on the card, from phase 26's radon
+    trace (2048 chains, 60 draws, 175 scalars): each plot's data function
+    over every scalar (``pairplot``'s over the five hyper-parameters),
+    timed, its arrays checked for shape and finiteness; then each run on
+    the first 64 chains both on the card and on the CPU, their arrays equal
+    within the CPU tests' tolerance (rtol 1e-4 of each array's largest
+    magnitude). The card's machine has no matplotlib: nothing is drawn.
+    Then ``ModelGraph`` of the model built on the card: its parents and
+    plates against ``RADON_GRAPH``/``RADON_PLATES``."""
+    from pymc3_tpu_torch.backends.base import MultiTrace
+    from pymc3_tpu_torch.model_graph import ModelGraph
+    calls = _plot_data_calls()
+    rows, labels = {}, []
+    for name, (data, series) in calls.items():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        d = data(trace, None)
+        wall = time.time() - t0
+        rows[name] = {"wall_s": wall, "series": series(d),
+                      "series_per_s": series(d) / wall}
+        arrays = [d[k] for k in ("x", "y", "hpd", "mean", "acf") if k in d]
+        arrays += list(d.get("marginal", ())[:2]) + list(
+            d.get("transition", ())[:2])
+        if not all(np.isfinite(a).all() for a in arrays):
+            fail(f"plots: {name}'s data not finite")
+        if name == "forestplot":
+            labels = d["labels"]
+    if len(labels) != 175:
+        fail(f"plots: {len(labels)} scalars, expected radon's 175")
+    if rows["traceplot"]["series"] != 175 * trace.nchains:
+        fail("plots: traceplot did not compute a KDE a chain and scalar")
+    sub = MultiTrace([trace._straces[c]
+                      for c in trace.chains[:PLOTS_CHECK_CHAINS]])
+    for name, (data, _) in calls.items():
+        err = _plot_data_err(name, data(sub, None), data(sub, "cpu"))
+        rows[name]["card_vs_cpu"] = err
+        if not err <= PLOTS_RTOL:
+            fail(f"plots: {name} on the card differs from the CPU by {err:.2e}"
+                 f" of the largest value (rtol {PLOTS_RTOL})")
+    t0 = time.time()
+    graph = ModelGraph(model)
+    parents, plates = graph.make_compute_graph(), graph.get_plates()
+    graph_wall = time.time() - t0
+    if parents != RADON_GRAPH or plates != RADON_PLATES:
+        fail(f"plots: radon's graph {parents} / plates {plates} differ from "
+             "the literal")
+    for name, row in rows.items():
+        print(f"plots: {name} data {row['wall_s']:.3f} s, {row['series']} "
+              f"series, {row['series_per_s']:.1f} series/s, card vs CPU at "
+              f"{PLOTS_CHECK_CHAINS} chains {row['card_vs_cpu']:.1e}",
+              flush=True)
+    print(json.dumps({"phase": "plots", "chains": trace.nchains,
+                      "draws": len(trace), "scalars": len(labels),
+                      "data": rows, "graph_s": graph_wall,
+                      "card": card}), flush=True)
 
 
 # phase 27: several ranks on the card ------------------------------------
@@ -3935,8 +4127,9 @@ def main():
     parser.add_argument("--gp-wall", metavar="DIR",
                         help="phase 4 alone: DIR, this, this, DIR")
     parser.add_argument("--only", metavar="NAMES",
-                        help="phases 1-3, then only these of phases 6-28 "
-                        "(comma-separated: " + ",".join(LATER_PHASES) + ")")
+                        help="phases 1-3, then only these of phases 6-29 "
+                        "(comma-separated: " + ",".join(
+                            LATER_PHASES + ("plots",)) + ")")
     args = parser.parse_args()
 
     t_start = time.time()
@@ -3983,6 +4176,7 @@ def main():
         "glm": lambda: phase_glm(pm, gp_cov, card),
         "examples": lambda: phase_examples(card, started[0]),
         "traces": lambda: phase_traces(pm, card),
+        "plots": lambda: phase_plots(pm, card, *phase_traces(pm, card)),
         "multirank": lambda: phase_multirank(pm, card),
         "aevb": lambda: phase_aevb(pm, card)}
     # phase 6's radon run is the first part of phase 26
@@ -4001,6 +4195,8 @@ def main():
     launches, (model, gp, trace) = phase_gp(pm, gp_cov)
     predict_launches = phase_predict(gp_cov, model, gp,
                                      _posterior_mean_point(model, trace))
+    gp_dist_launches, gp_dist_shape = phase_gp_dist(pm, gp_cov, model, gp,
+                                                    trace)
     del model, gp, trace
     # phases 25-26 run in worker processes beside phases 7-24 (see
     # phase_examples and read_worker_phase)
@@ -4028,7 +4224,7 @@ def main():
             example_launches = out
         if name == "multirank":
             multirank_launches = out
-    print(f"phases 1-28: {time.time() - t_start:.1f} s; each of 7-28 "
+    print(f"phases 1-29: {time.time() - t_start:.1f} s; each of 7-28 "
           f"{json.dumps(walls)}", flush=True)
 
     replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",
@@ -4044,6 +4240,10 @@ def main():
             # predict, es and smc_gp fail unless their backward count was 0
             "launches_predict": predict_launches if direction == "forward"
             else 0,
+            # gp_dist fails unless its backward count was 0
+            "launches_gp_dist": gp_dist_launches if direction == "forward"
+            else 0,
+            "gp_dist_samples_shape": gp_dist_shape,
             "launches_es": es_launches if direction == "forward" else 0,
             "launches_advi_gp": vi_launches[direction],
             "launches_smc_gp": smc_launches if direction == "forward"

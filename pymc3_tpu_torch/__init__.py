@@ -18,9 +18,12 @@ comparison (``loo``, ``waic``, ``compare``), ODEs (``ode``), GLMs
 ADVI, full-rank ADVI, SVGD, ASVGD, normalizing flows), ``SGLD``, and the MAP
 and Hessian tools of ``tuning``, and chains, SMC particles and ADVI
 minibatches sharded over the ranks of a process group (``parallel``,
-``sample(devices=...)``). Models build on the card unless the caller
+``sample(devices=...)``); and the plots (their numbers computed on the
+device, drawn by matplotlib on the host) and ``model_to_graphviz``.
+Models build on the card unless the caller
 asks for the CPU (``set_config(device="cpu")`` or ``Model(device="cpu")``).
-Imports torch, numpy and scipy only, never jax or pymc3_tpu.
+Imports torch, numpy and scipy only, never jax or pymc3_tpu; matplotlib
+and graphviz when a plot or a graph is drawn.
 """
 import logging
 
@@ -111,6 +114,13 @@ from .ode import DifferentialEquation
 from . import glm
 from .glm import GLM, LinearComponent
 from . import parallel
+from . import plots
+from .plots import (
+    traceplot, plot_posterior, forestplot, energyplot, autocorrplot,
+    densityplot, kdeplot, pairplot, compareplot,
+    plot_posterior_predictive_glm,
+)
+from .model_graph import model_to_graphviz
 
 # the reference leaks ``theano.tensor.constant`` into pm.* (as
 # ``theano_constant``); here a constant is a wrapped array node

@@ -24,11 +24,16 @@ class Config:
     by default, as on the card); ``intX`` follows it (int32 or int64).
     ``device`` is where a model is built, and so where it is sampled, when
     ``Model(device=...)`` names none: the card by default.
+    ``compute_test_value`` is the JAX package's field of that name (the
+    analog of Theano's ``compute_test_value='raise'``), which neither
+    package reads: the port computes an operation's test value when it is
+    first asked for, and a shape error raises there.
     """
 
     floatX: str = "float32"
     intX: str = "int32"
     device: str = "cuda"
+    compute_test_value: str = "raise"
 
 
 _config = Config()

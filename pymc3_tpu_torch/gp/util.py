@@ -4,11 +4,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import floatX, torch_floatX
+from ..config import default_device, floatX, torch_floatX
 from ..node import Node, apply as node_apply
 
 __all__ = ["stabilize", "cholesky", "infer_shape", "conditioned_vars",
-           "solve_lower", "solve_upper", "kmeans_inducing_points"]
+           "solve_lower", "solve_upper", "kmeans_inducing_points",
+           "plot_gp_dist"]
 
 JITTER_DEFAULT = 1e-6
 
@@ -105,3 +106,62 @@ def conditioned_vars(varnames):
                                         make_setter("_" + name)))
         return cls
     return gp_wrapper
+
+
+#: The percentiles of ``plot_gp_dist``'s ribbons' upper edges.
+GP_DIST_PERCENTILES = np.linspace(51, 99, 40)
+
+
+def _gp_dist_data(samples, device=None):
+    """The ribbons ``plot_gp_dist`` fills, widest first: ``(upper,
+    lower)``, each ``(40, points)`` float64, the percentiles ``p`` and ``100
+    - p`` of ``samples: (draws, points)`` over the draws at each point, by
+    ``np.percentile``'s linear rule, from one sort on ``device`` (the
+    configured device if None)."""
+    device = default_device() if device is None else torch.device(device)
+    s = torch.sort(torch.as_tensor(samples).to(device), dim=0).values
+    n = s.shape[0]
+    percs = GP_DIST_PERCENTILES[::-1]
+    q = np.concatenate([np.true_divide(percs, 100),
+                        np.true_divide(100 - percs, 100)])
+    virtual = (n - 1) * q
+    below = np.floor(virtual).astype(np.int64)
+    above = np.minimum(below + 1, n - 1)
+    gamma = torch.as_tensor(virtual - below, device=device)[:, None]
+    a, b = s[below], s[above]
+    # numpy's _lerp: the difference in the samples' dtype, then float64
+    diff = (b - a).to(torch.float64)
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    out = torch.where(gamma >= 0.5, b - diff * (1 - gamma), a + diff * gamma)
+    out = out.cpu().numpy()
+    return out[:len(percs)], out[len(percs):]
+
+
+def plot_gp_dist(ax, samples, x, plot_samples=True, palette="Reds",
+                 fill_alpha=0.8, samples_alpha=0.1, fill_kwargs=None,
+                 samples_kwargs=None):
+    """Plot percentile ribbons of GP samples (cf. ``gp/util.py:103``).
+    ``samples: (draws, points)``, numpy or a tensor. The ribbons are
+    computed on the configured device; the 30 draws drawn as lines are
+    picked by numpy's global generator, as in the JAX package."""
+    import matplotlib.pyplot as plt
+    if fill_kwargs is None:
+        fill_kwargs = {}
+    if samples_kwargs is None:
+        samples_kwargs = {}
+
+    cmap = plt.get_cmap(palette)
+    percs = GP_DIST_PERCENTILES
+    colors = (percs - np.min(percs)) / (np.max(percs) - np.min(percs))
+    upper, lower = _gp_dist_data(samples)
+    x = np.asarray(x).flatten()
+    for i in range(len(percs)):
+        ax.fill_between(x, upper[i], lower[i], color=cmap(colors[i]),
+                        alpha=fill_alpha, **fill_kwargs)
+    if plot_samples:
+        samples = (samples.cpu().numpy() if torch.is_tensor(samples)
+                   else np.asarray(samples)).T
+        idx = np.random.permutation(samples.shape[1])[:30]
+        ax.plot(x, samples[:, idx], color=cmap(0.9), lw=1,
+                alpha=samples_alpha, **samples_kwargs)
+    return ax

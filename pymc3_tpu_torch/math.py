@@ -20,7 +20,8 @@ __all__ = [
     "arctan", "arctan2", "arcsinh", "arccosh", "arctanh",
     "dot", "matmul", "outer", "maximum", "minimum", "where", "switch",
     "clip", "stack", "concatenate", "sum", "prod", "mean", "cumsum",
-    "cumprod", "flatten", "ones_like", "zeros_like", "eye", "diag",
+    "cumprod", "flatten", "ones_like", "zeros_like", "full_like", "eye",
+    "diag",
     "extract_diag", "tril", "triu", "constant", "sigmoid", "softmax",
     "log_softmax", "logsumexp", "logaddexp", "logdiffexp", "logit",
     "invlogit", "probit", "invprobit", "expand_packed_triangular",
@@ -226,6 +227,7 @@ def cumprod(x, axis=0):
 
 ones_like = _wrap(torch.ones_like)
 zeros_like = _wrap(torch.zeros_like)
+full_like = _wrap(torch.full_like)
 diag = _wrap(torch.diag)
 tril = _wrap(torch.tril)
 triu = _wrap(torch.triu)

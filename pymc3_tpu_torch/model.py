@@ -1107,6 +1107,7 @@ class ValueGradFunction:
                               for v in model.free_RVs
                               if v.name not in grad_names}
         self._fixed = {}
+        self._n_eval = 0
         self._vag = batched_value_and_grad(
             lambda q: model.logp_from_env(model._env_from_q(
                 q, self.ordering, self._fixed)))
@@ -1130,7 +1131,14 @@ class ValueGradFunction:
         if q.ndim != 2 or q.shape[1] != self.size:
             raise ValueError(f"expected q of shape (chains, {self.size}), "
                              f"got {tuple(q.shape)}")
+        self._n_eval += 1
         return self._vag(q)
+
+    @property
+    def profile(self):
+        """The number of evaluations so far (cf. ``model.py:1144``): one a
+        call, whatever the chain count."""
+        return {"n_eval": self._n_eval}
 
     def dict_to_array(self, point) -> np.ndarray:
         """A Point's values of ``grad_vars``, flat, as numpy."""

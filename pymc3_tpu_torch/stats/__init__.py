@@ -283,33 +283,39 @@ def mcse(data, var_names=None, **kwargs):
 
 def hpd(x, alpha=0.05, credible_interval=None, **kwargs):
     """Highest posterior density interval (pymc3 3.8 convention:
-    ``alpha`` is the tail mass; interval has prob ``1-alpha``)."""
+    ``alpha`` is the tail mass; interval has prob ``1-alpha``).
+
+    ``x`` is one sample, ``(draws, k)`` (an interval per column) or
+    ``(chains, draws, ...)`` (an interval per element). A tensor is reduced
+    on its own device, one sort for all columns, and the intervals come
+    back as a tensor; numpy in gives numpy out."""
     if credible_interval is not None:
         alpha = 1 - credible_interval
-    x = np.asarray(x)
+    if torch.is_tensor(x):
+        return _hpd(x, alpha)
+    return _hpd(torch.tensor(np.asarray(x)), alpha).numpy()
+
+
+def _hpd(x, alpha):
+    if x.ndim == 1:
+        return _hpd_columns(x[:, None], alpha)[0]
     if x.ndim == 2:
-        # (draws, k): interval per column
-        return np.array([_hpd_1d(x[:, i], alpha)
-                         for i in range(x.shape[1])])
-    if x.ndim > 2:
-        flat = x.reshape(x.shape[0] * x.shape[1], -1)
-        return np.array([_hpd_1d(flat[:, i], alpha)
-                         for i in range(flat.shape[1])]).reshape(
-            x.shape[2:] + (2,))
-    return _hpd_1d(x, alpha)
+        return _hpd_columns(x, alpha)
+    flat = x.reshape(x.shape[0] * x.shape[1], -1)
+    return _hpd_columns(flat, alpha).reshape(tuple(x.shape[2:]) + (2,))
 
 
-def _hpd_1d(x, alpha):
-    x = np.sort(np.asarray(x).ravel())
-    n = len(x)
-    cred_mass = 1.0 - alpha
-    interval_idx_inc = int(np.floor(cred_mass * n))
-    n_intervals = n - interval_idx_inc
-    if n_intervals <= 0:
-        return np.array([x[0], x[-1]])
-    interval_width = x[interval_idx_inc:] - x[:n_intervals]
-    min_idx = np.argmin(interval_width)
-    return np.array([x[min_idx], x[min_idx + interval_idx_inc]])
+def _hpd_columns(x, alpha):
+    """The narrowest interval holding ``floor((1 - alpha) n)`` steps of the
+    sorted draws of each column of ``x: (n, k)``, the first of equal
+    widths; ``(k, 2)``."""
+    x = torch.sort(x, dim=0).values
+    n = x.shape[0]
+    inc = int(np.floor((1.0 - alpha) * n))
+    if n - inc <= 0:
+        return torch.stack([x[0], x[-1]], -1)
+    lo = torch.argmin(x[inc:] - x[:n - inc], dim=0)[None]
+    return torch.stack([x.gather(0, lo)[0], x.gather(0, lo + inc)[0]], -1)
 
 
 def geweke(ary, first=0.1, last=0.5, intervals=20):
@@ -600,7 +606,7 @@ def summary(trace, var_names=None, round_to=2, alpha=0.05, batches=None,
         for i in range(k):
             a = flat[:, :, i]
             combined = a.ravel()
-            lo, hi = _hpd_1d(combined, 1 - credible_interval)
+            lo, hi = hpd(combined, 1 - credible_interval)
             e = _ess_single(a)
             r = _rhat_rank(a) if c > 1 else np.nan
             m = a.std(ddof=1) / np.sqrt(e) if np.isfinite(e) and e > 0 \

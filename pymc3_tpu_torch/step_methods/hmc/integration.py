@@ -2,6 +2,7 @@
 
 One step for a whole batch of chains: ``q, p, v, q_grad`` are ``(chains,
 n)``, ``energy, model_logp`` and the step size ``(chains,)``.
+``CpuLeapfrogIntegrator`` keeps the reference's class API for one chain.
 """
 from __future__ import annotations
 
@@ -9,9 +10,15 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .quadpotential import mass_velocity
+from ...config import default_device, torch_floatX
+from .quadpotential import kernel_mass, mass_velocity
 
-__all__ = ["IntegrationState", "leapfrog", "compute_state"]
+__all__ = ["IntegrationState", "leapfrog", "compute_state",
+           "IntegrationError", "CpuLeapfrogIntegrator"]
+
+
+class IntegrationError(RuntimeError):
+    pass
 
 
 class IntegrationState(NamedTuple):
@@ -50,3 +57,51 @@ def leapfrog(logp_dlogp_fn: Callable, var, epsilon,
     return IntegrationState(q=q_new, p=p_new, v=v_new, q_grad=q_grad_new,
                             energy=_kinetic(p_new, v_new) - logp,
                             model_logp=logp)
+
+
+class CpuLeapfrogIntegrator:
+    """The reference's integrator API for one chain (cf.
+    ``integration.py:69``) over :func:`leapfrog`: ``potential`` is a
+    quadpotential, ``logp_dlogp_func`` maps one flat point ``q: (n,)`` to
+    ``(logp, dlogp)`` (``Model.make_logp_dlogp_fn()``). States hold one
+    chain's ``(n,)`` tensors."""
+
+    def __init__(self, potential, logp_dlogp_func):
+        self._potential = potential
+        self._logp_dlogp_func = logp_dlogp_func
+
+    def _batched(self, q):
+        logp, grad = self._logp_dlogp_func(q[0])
+        return logp[None], grad[None]
+
+    def _var(self, device):
+        # an adaptive diagonal potential's host state holds its adapted
+        # mass; the JAX package's init_kernel_state returns that state
+        state = getattr(self._potential, "_state", None)
+        if state is None:
+            state = self._potential.init_kernel_state(1, device)
+        return kernel_mass(state).to(device)
+
+    def _one_chain(self, state):
+        return IntegrationState(*(t[0] for t in state))
+
+    def compute_state(self, q, p):
+        device = q.device if torch.is_tensor(q) else default_device()
+        q, p = (torch.as_tensor(a, dtype=torch_floatX(),
+                                device=device)[None] for a in (q, p))
+        return self._one_chain(compute_state(self._batched,
+                                             self._var(device), q, p))
+
+    def step(self, epsilon, state):
+        """One leapfrog step of size ``epsilon``; raises
+        :class:`IntegrationError` when the energy is not finite."""
+        device = state.q.device
+        eps = torch.as_tensor(epsilon, dtype=state.q.dtype,
+                              device=device).reshape(1)
+        batched = IntegrationState(*(t[None] for t in state))
+        out = self._one_chain(leapfrog(self._batched, self._var(device),
+                                       eps, batched))
+        if not bool(torch.isfinite(out.energy)):
+            raise IntegrationError(
+                f"Energy is not finite after leapfrog: {out.energy}")
+        return out

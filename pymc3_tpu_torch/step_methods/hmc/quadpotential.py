@@ -32,15 +32,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...config import floatX, torch_floatX
+from ...config import default_device, floatX, torch_floatX
 
 __all__ = [
     "QuadPotential", "QuadPotentialDiag", "QuadPotentialDiagAdapt",
     "QuadPotentialDiagAdaptGrad", "QuadPotentialFull", "QuadPotentialFullInv", "QuadPotentialFullAdapt",
     "quad_potential", "PositiveDefiniteError", "isquadpotential",
-    "WelfordState", "welford_add", "welford_merge_pooled",
+    "WelfordState", "welford_init", "welford_add", "welford_var",
+    "welford_merge_pooled", "welford_merge_psum",
     "DiagAdaptState", "diag_adapt_init", "diag_adapt_update",
-    "WelfordCovState", "welford_cov_add", "welford_cov_merge_pooled",
+    "diag_velocity", "diag_kinetic", "diag_random",
+    "WelfordCovState", "welford_cov_init", "welford_cov_add",
+    "welford_cov_merge_pooled", "welford_cov_merge_psum",
     "DenseState", "DenseAdaptState", "dense_adapt_init",
     "dense_adapt_update", "mass_velocity", "dense_random", "kernel_mass",
     "kernel_momentum", "kernel_update",
@@ -78,15 +81,39 @@ class WelfordState(NamedTuple):
 
 
 def welford_zeros(chains, n, device):
-    z = torch.zeros((chains, n), dtype=torch_floatX(), device=device)
-    return WelfordState(torch.zeros(chains, dtype=z.dtype, device=device),
-                        z, z.clone())
+    return welford_init(n, torch.zeros((chains, n), dtype=torch_floatX(),
+                                       device=device))
+
+
+def _init_tensors(n, init_mean, init_m2, init_weight, shape):
+    """``(w, mean, m2)``: ``mean`` of ``(n,)`` (one chain) or ``(chains,
+    n)``, on ``init_mean``'s device or the configured one."""
+    dt = torch_floatX()
+    device = init_mean.device if torch.is_tensor(init_mean) \
+        else default_device()
+    mean = torch.zeros(n, dtype=dt, device=device) if init_mean is None \
+        else torch.as_tensor(init_mean, dtype=dt, device=device).clone()
+    batch = tuple(mean.shape[:-1])
+    m2 = torch.zeros(batch + shape, dtype=dt, device=device) \
+        if init_m2 is None else (torch.as_tensor(
+            init_m2, dtype=dt, device=device) * init_weight).expand(
+                batch + shape).clone()
+    return (torch.full(batch, float(init_weight), dtype=dt, device=device),
+            mean, m2)
+
+
+def welford_init(n, init_mean=None, init_var=None, init_weight=0.0):
+    """A Welford variance state of ``n`` coordinates (cf.
+    ``quadpotential.py:68``): of one chain, as in the JAX package, or of
+    ``chains`` when ``init_mean`` is ``(chains, n)``."""
+    return WelfordState(*_init_tensors(n, init_mean, init_var, init_weight,
+                                       (n,)))
 
 
 def welford_add(state: WelfordState, x, weight=1.0) -> WelfordState:
     """cf. ``_WeightedVariance.add_sample`` (``quadpotential.py:336-342``)."""
     w = state.w + weight
-    prop = (weight / w)[:, None]
+    prop = (weight / w)[..., None]
     delta = x - state.mean
     mean = state.mean + prop * delta
     m2 = state.m2 + weight * delta * (x - mean)
@@ -119,6 +146,30 @@ def welford_merge_pooled(state: WelfordState, mesh=None) -> WelfordState:
                         m2_tot.expand_as(state.m2))
 
 
+def welford_var(state: WelfordState):
+    """The variance estimate ``m2 / w`` (cf. ``quadpotential.py:88``)."""
+    return state.m2 / state.w[..., None]
+
+
+def _axis_mesh(axis_name):
+    """The mesh that a merge over ``axis_name`` reduces over besides the
+    chains of dim 0: a name other than ``parallel.LOCAL_CHAIN_AXIS`` (see
+    ``parallel.pooled_axes``) is this process's chain axis over its ranks
+    (the identity outside a process group)."""
+    from ...parallel import LOCAL_CHAIN_AXIS, make_mesh
+    names = axis_name if isinstance(axis_name, (tuple, list)) \
+        else (axis_name,)
+    ranks = [n for n in names if n != LOCAL_CHAIN_AXIS]
+    return make_mesh(axis_name=ranks[0]) if ranks else None
+
+
+def welford_merge_psum(state: WelfordState, axis_name) -> WelfordState:
+    """The JAX package's exact pooled merge over the named axis (cf.
+    ``quadpotential.py:93``): every chain of dim 0, and with a rank axis
+    every rank's, gets the pooled state (:func:`welford_merge_pooled`)."""
+    return welford_merge_pooled(state, _axis_mesh(axis_name))
+
+
 def _promote(window_end, a, b):
     """Lane-wise ``window_end ? a : b`` over the fields of two states."""
     def sel(x, y):
@@ -143,14 +194,12 @@ def diag_adapt_init(initial_mean, initial_diag, initial_weight,
     ``initial_mean``/``initial_diag``: ``(n,)`` tensors."""
     n = initial_mean.shape[-1]
     device = initial_mean.device
-    mean = initial_mean.expand(chains, n).clone()
-    m2 = (initial_diag * initial_weight).expand(chains, n).clone()
-    w = torch.full((chains,), float(initial_weight), dtype=mean.dtype,
-                   device=device)
-    var = m2 / w[:, None]
+    fg = welford_init(n, initial_mean.expand(chains, n), initial_diag,
+                      initial_weight)
+    var = welford_var(fg)
     return DiagAdaptState(
         var=var, inv_stds=1.0 / torch.sqrt(var),
-        fg=WelfordState(w, mean, m2), bg=welford_zeros(chains, n, device),
+        fg=fg, bg=welford_zeros(chains, n, device),
         n_samples=torch.zeros(chains, dtype=torch.int32, device=device))
 
 
@@ -182,6 +231,25 @@ def diag_adapt_update(state: DiagAdaptState, sample, tune: bool,
                           bg=_promote(window_end, zero, bg), n_samples=n)
 
 
+def diag_velocity(var, p):
+    """v = M^{-1} p for the diagonal ``var`` (cf. ``quadpotential.py:191``)."""
+    return var * p
+
+
+def diag_kinetic(var, p):
+    """0.5 pᵀ M^{-1} p for the diagonal ``var`` (cf.
+    ``quadpotential.py:196``)."""
+    return 0.5 * torch.sum(p * (var * p), dim=-1)
+
+
+def diag_random(gen, inv_stds):
+    """Momentum p ~ N(0, M) (cf. ``quadpotential.py:200``), drawn by the
+    ``torch.Generator`` ``gen`` (the JAX package takes a key)."""
+    return inv_stds * torch.randn(inv_stds.shape, generator=gen,
+                                  dtype=inv_stds.dtype,
+                                  device=inv_stds.device)
+
+
 # -- dense -------------------------------------------------------------------
 class WelfordCovState(NamedTuple):
     """Weighted covariance accumulator (cf. ``_WeightedCovariance``,
@@ -193,19 +261,24 @@ class WelfordCovState(NamedTuple):
 
 
 def welford_cov_zeros(chains, n, device):
-    dt = torch_floatX()
-    return WelfordCovState(
-        torch.zeros(chains, dtype=dt, device=device),
-        torch.zeros((chains, n), dtype=dt, device=device),
-        torch.zeros((chains, n, n), dtype=dt, device=device))
+    return welford_cov_init(n, torch.zeros((chains, n), dtype=torch_floatX(),
+                                           device=device))
+
+
+def welford_cov_init(n, init_mean=None, init_cov=None, init_weight=0.0):
+    """A weighted covariance state of ``n`` coordinates (cf.
+    ``quadpotential.py:251``): of one chain, or of ``chains`` when
+    ``init_mean`` is ``(chains, n)``."""
+    return WelfordCovState(*_init_tensors(n, init_mean, init_cov,
+                                          init_weight, (n, n)))
 
 
 def welford_cov_add(state: WelfordCovState, x, weight=1.0):
     """cf. ``welford_cov_add`` (``quadpotential.py:260``)."""
     w = state.w + weight
     delta = x - state.mean
-    mean = state.mean + (weight / w)[:, None] * delta
-    m2 = state.m2 + weight * delta[:, :, None] * (x - mean)[:, None, :]
+    mean = state.mean + (weight / w)[..., None] * delta
+    m2 = state.m2 + weight * delta[..., :, None] * (x - mean)[..., None, :]
     return WelfordCovState(w, mean, m2)
 
 
@@ -224,6 +297,16 @@ def welford_cov_merge_pooled(state: WelfordCovState,
     m2_tot = _chains_sum(state.m2 + state.w[:, None, None] * d[:, :, None]
                        * d[:, None, :], mesh).to(dtype)[None]
     return WelfordCovState(w_tot.to(dtype), mean_tot, m2_tot)
+
+
+def welford_cov_merge_psum(state: WelfordCovState,
+                           axis_name) -> WelfordCovState:
+    """The JAX package's exact pooled covariance merge over the named axis
+    (cf. ``welford_cov_merge_psum``): :func:`welford_cov_merge_pooled`
+    over :func:`welford_merge_psum`'s axes, its one accumulator given to
+    every chain."""
+    merged = welford_cov_merge_pooled(state, _axis_mesh(axis_name))
+    return WelfordCovState(*(m.expand_as(s) for m, s in zip(merged, state)))
 
 
 class DenseState(NamedTuple):
@@ -254,11 +337,8 @@ def dense_adapt_init(initial_mean, initial_cov, initial_weight, chains,
     ``initial_mean: (n,)``, ``initial_cov: (n, n)`` tensors."""
     n = initial_mean.shape[-1]
     device = initial_mean.device
-    w = torch.full((chains,), float(initial_weight),
-                   dtype=initial_mean.dtype, device=device)
-    fg = WelfordCovState(w, initial_mean.expand(chains, n).clone(),
-                         (initial_cov * initial_weight).expand(
-                             chains, n, n).clone())
+    fg = welford_cov_init(n, initial_mean.expand(chains, n), initial_cov,
+                          initial_weight)
 
     def ints(v):
         return torch.full((chains,), int(v), dtype=torch.int32,

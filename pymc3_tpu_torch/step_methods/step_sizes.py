@@ -1,16 +1,21 @@
 """Step-size adaptation (cf. ``pymc3_tpu/step_methods/step_sizes.py``).
 
 Nesterov dual averaging as a NamedTuple of ``(chains,)`` tensors, one value
-per chain, updated in place of the JAX package's per-chain pytree.
+per chain, updated in place of the JAX package's per-chain pytree;
+``DualAverageAdaptation`` keeps the reference's class API for one chain.
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-__all__ = ["DAState", "da_init", "da_update", "da_current"]
+from ..config import torch_floatX
+
+__all__ = ["DAState", "da_init", "da_update", "da_current",
+           "DualAverageAdaptation"]
 
 
 class DAState(NamedTuple):
@@ -58,3 +63,62 @@ def da_current(state: DAState, tune: bool):
     """Step size of this draw: the adapting value while tuning, then the
     dual-averaged one (cf. ``step_sizes.py:34-38``)."""
     return torch.exp(state.log_step if tune else state.log_bar_step)
+
+
+class DualAverageAdaptation:
+    """Dual averaging of one chain's step size with the reference's class
+    API (cf. ``step_sizes.py:91``), over :func:`da_init`,
+    :func:`da_update` and :func:`da_current`; ``warnings()`` reports an
+    acceptance rate after tuning that misses ``target``."""
+
+    def __init__(self, initial_step, target, gamma=0.05, k=0.75, t0=10):
+        self._target = float(target)
+        self._gamma = gamma
+        self._k = k
+        self._t0 = t0
+        self.reset(initial_step)
+
+    def reset(self, initial_step):
+        self._state = da_init(torch.as_tensor(initial_step,
+                                              dtype=torch_floatX()))
+        self._tuned_accepts = []
+
+    def current(self, tune):
+        return float(da_current(self._state, tune))
+
+    def update(self, accept_stat, tune):
+        self._state = da_update(
+            self._state, torch.as_tensor(accept_stat, dtype=torch_floatX()),
+            tune, target=self._target, gamma=self._gamma, k=self._k,
+            t0=self._t0)
+        if not tune:
+            self._tuned_accepts.append(float(accept_stat))
+
+    def stats(self):
+        return {"step_size": float(torch.exp(self._state.log_step)),
+                "step_size_bar": float(torch.exp(self._state.log_bar_step))}
+
+    def warnings(self):
+        from scipy import stats as st
+        from ..backends.report import SamplerWarning, WarningType
+        accept = np.asarray(self._tuned_accepts)
+        if len(accept) == 0:
+            return []
+        mean_accept = accept.mean()
+        target_accept = self._target
+        # a reasonable interval of acceptance rates, from the reference
+        # (found mostly by trial and error)
+        n_bound = min(100, len(accept))
+        n_good, n_bad = mean_accept * n_bound, (1 - mean_accept) * n_bound
+        lower, upper = st.beta(n_good + 1, n_bad + 1).interval(0.95)
+        if target_accept < lower or target_accept > upper:
+            msg = (
+                f"The acceptance probability does not match the target. It is "
+                f"{mean_accept:g}, but should be close to {target_accept:g}. "
+                "Try to increase the number of tuning steps."
+            )
+            info = {"target": target_accept, "actual": mean_accept,
+                    "lower": lower, "upper": upper}
+            return [SamplerWarning(WarningType.BAD_ACCEPTANCE, msg, "warn",
+                                   None, None, info)]
+        return []

@@ -20,7 +20,7 @@ from ..util import update_start_vals
 
 _log = logging.getLogger("pymc3_tpu_torch")
 
-__all__ = ["find_MAP"]
+__all__ = ["find_MAP", "allinmodel"]
 
 
 def find_MAP(start=None, vars=None, method="L-BFGS-B", return_raw=False,
@@ -42,9 +42,7 @@ def find_MAP(start=None, vars=None, method="L-BFGS-B", return_raw=False,
         vars = model.cont_vars
     if not vars:
         raise ValueError("Model has no unobserved continuous variables.")
-    notin = [v for v in vars if v not in model.free_RVs]
-    if notin:
-        raise ValueError(f"Some variables not in the model: {notin}")
+    allinmodel(vars, model)
     if set(model.free_RVs) - set(vars) or not all_continuous(vars):
         _log.warning("Warning: gradient not available. (E.g. vars contains "
                      "discrete variables). MAP estimates may not be accurate "
@@ -108,3 +106,11 @@ def find_MAP(start=None, vars=None, method="L-BFGS-B", return_raw=False,
     if return_raw:
         return mx, opt_result
     return mx
+
+
+def allinmodel(vars, model):
+    """Raise unless every variable of ``vars`` is a free variable of
+    ``model`` (cf. ``starting.py:120``)."""
+    notin = [v for v in vars if v not in model.free_RVs]
+    if notin:
+        raise ValueError(f"Some variables not in the model: {notin}")

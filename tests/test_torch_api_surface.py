@@ -1,10 +1,11 @@
 """Every public name of the JAX package exists in the port.
 
 The names are ``dir(pymc3_tpu)`` less the private ones and the
-submodules, as ``import pymc3_tpu as pm`` offers them to a user. The one
-exclusion list holds the plotting functions and the model graph, which
-need matplotlib and graphviz (not on the card's machine) and are the
-port's next slice.
+submodules, as ``import pymc3_tpu as pm`` offers them to a user. The
+exclusion list is empty: the plots and the model graph, its last names,
+are ported (``tests/test_torch_plots.py``,
+``tests/test_torch_model_graph.py``); ``tests/test_torch_submodule_surface.py``
+holds every submodule's names.
 """
 import types
 
@@ -15,11 +16,7 @@ import pymc3_tpu_torch as pt
 
 from . import torch_models  # noqa: F401  (the port on the CPU)
 
-NOT_YET_PORTED = {
-    "autocorrplot", "compareplot", "densityplot", "energyplot", "forestplot",
-    "kdeplot", "pairplot", "plot_posterior", "plot_posterior_predictive_glm",
-    "traceplot", "model_to_graphviz",
-}
+NOT_YET_PORTED = set()
 
 # ``handler`` exists in the JAX package only where logging had no root
 # handler when it was imported; it has a case of its own, so that every

@@ -458,3 +458,37 @@ def test_density_dist_random_from_a_host_generator():
     assert draws.device == model.device and tuple(draws.shape) == (4000,)
     assert abs(float(draws.mean()) - 2.0) < 4 * 0.5 / np.sqrt(4000)
     assert abs(float(draws.std()) - 0.5) < 0.05
+
+
+def test_value_grad_function_profile_counts_evaluations():
+    """``profile`` is the JAX package's evaluation count: one a call, at
+    any chain count."""
+    jf = _x_model(pj).logp_dlogp_function()
+    tf = _x_model(pt).logp_dlogp_function()
+    q = np.zeros(12, np.float32)
+    for _ in range(3):
+        jf(q)
+        tf(torch.from_numpy(np.stack([q, q])))
+    assert tf.profile == jf.profile == {"n_eval": 3}
+
+
+def test_allinmodel_raises_as_the_jax_packages():
+    from pymc3_tpu.tuning.starting import allinmodel as jax_allinmodel
+    from pymc3_tpu_torch.tuning.starting import allinmodel
+    errors = []
+    for pm, check in ((pj, jax_allinmodel), (pt, allinmodel)):
+        model, other = _x_model(pm), _x_model(pm)
+        check(model.free_RVs, model)
+        with pytest.raises(ValueError) as e:
+            check(other.free_RVs, model)
+        errors.append(str(e.value).split(":")[0])
+    assert errors[0] == errors[1] == "Some variables not in the model"
+
+
+def test_config_has_the_jax_packages_fields():
+    assert pt.get_config().compute_test_value == \
+        pj.config.get_config().compute_test_value == "raise"
+    from pymc3_tpu import ops as jops
+    from pymc3_tpu_torch import ops as tops
+    assert tops.STATIONARY_KINDS == jops.STATIONARY_KINDS
+    assert tops.stationary_cov is tops.gp_cov.stationary_cov

@@ -76,12 +76,15 @@ def _jax_merged(kind):
     return jax.tree_util.tree_map(np.asarray, jax.jit(run)(data))
 
 
-@pytest.mark.parametrize("kind", ["diag", "dense"])
+@pytest.mark.parametrize("kind", ["diag", "dense", "diag_psum",
+                                  "dense_psum"])
 def test_welford_merge_over_ranks_matches_jax_psum(pair, kind):
     """2 ranks x 4 chains merged over the group equal the JAX psum over
     2 devices x 4 vmapped chains, on every chain (float32; rtol 2e-5,
-    atol 1e-5: the port sums in float64, JAX in float32)."""
-    want = _jax_merged(kind)
+    atol 1e-5: the port sums in float64, JAX in float32). ``_psum``: the
+    port's ``welford_merge_psum``/``welford_cov_merge_psum`` over
+    ``pooled_axes(CHAIN_AXIS)``, the JAX package's names."""
+    want = _jax_merged(kind.split("_")[0])
     for field in ("w", "mean", "m2"):
         got = np.concatenate([np.broadcast_to(
             getattr(r[kind], field).numpy(),

@@ -137,6 +137,18 @@ def pair(mesh, where):
         tqp.WelfordState(*[x[rows] for x in diag]), mesh)
     out["dense"] = tqp.welford_cov_merge_pooled(
         tqp.WelfordCovState(*[x[rows] for x in dense]), mesh)
+    # the same through the JAX package's names: welford_init/_cov_init of
+    # this rank's chains and the psum merges over pooled_axes(CHAIN_AXIS)
+    local = welford_data()[rows]
+    chains, draws, n = local.shape
+    diag = tqp.welford_init(n, init_mean=torch.zeros(chains, n))
+    dense = tqp.welford_cov_init(n, init_mean=torch.zeros(chains, n))
+    for t in range(draws):
+        x = torch.from_numpy(local[:, t])
+        diag, dense = tqp.welford_add(diag, x), tqp.welford_cov_add(dense, x)
+    axes = parallel.pooled_axes(parallel.CHAIN_AXIS)
+    out["diag_psum"] = tqp.welford_merge_psum(diag, axes)
+    out["dense_psum"] = tqp.welford_cov_merge_psum(dense, axes)
     tctx, diverging, cnt, q, logp, grad = rescue_inputs()
     out["rescue"] = tnuts._rescue(tctx, diverging[rows], cnt[rows], q[rows],
                                   logp[rows], grad[rows], mesh)
