@@ -218,10 +218,17 @@ a non-zero exit and no result line:
    on the CPU, equal within the CPU tests' tolerance; ``ModelGraph`` of the
    model built on the card, its parents and plates against a literal.
    Nothing is drawn: the card's machine has no matplotlib;
-30. a JSON line describing every kernel, then the result line
+30. the JAX package's call forms, in the main process after phase 19
+   (``phase_api``): ``random()`` as numpy float64 at 1,000,000 draws, radon's
+   ``logp_dlogp_function()`` at one numpy point against row 0 of the batched
+   call, scipy's L-BFGS-B through ``f(q, grad_out=g)`` against the JAX
+   package's optimum, ``make_logp_fn(jacobian=False)``, the dtypes of
+   ``sample_prior_predictive`` and ``draw_values`` with a distribution; its
+   wall within 10 s;
+31. a JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-29 each print a JSON line of their own (each with the card's name
+Phases 9-30 each print a JSON line of their own (each with the card's name
 and power limit, and its ms per logp+grad or logp-only call or per VI
 step). Every model is built with no device argument and must come out on
 the card: that is the port's default.
@@ -237,9 +244,9 @@ sampling). With ``--against DIR``, a checkout of another commit, it also
 times that commit's forward kernel in the same call, in turns (other, this,
 this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
 (DIR, this, this, DIR) and prints each wall. ``--only NAMES`` runs phases
-1-3 and then the named ones of phases 6-29 (radon, best, mixture, disaster,
+1-3 and then the named ones of phases 6-30 (radon, best, mixture, disaster,
 binary, population, lkj, sv, garch, es, labels, advi_minibatch, advi_gp,
-svgd_map, smc_bimodal, smc_gp, gp_sparse, ode, glm, examples, traces,
+svgd_map, api, smc_bimodal, smc_gp, gp_sparse, ode, glm, examples, traces,
 multirank, aevb, plots; ``radon`` runs phase 26, which holds phase 6's
 run; ``plots`` runs phase 26, then phase 29).
 
@@ -274,9 +281,9 @@ PEAK_F32_FLOPS = 67e12
 SOURCE = "pymc3_tpu_torch/csrc/gp_cov.cu"
 LATER_PHASES = ("best", "mixture", "disaster", "binary",
                 "population", "lkj", "sv", "garch", "es", "labels",
-                "advi_minibatch", "advi_gp", "svgd_map", "smc_bimodal",
-                "smc_gp", "gp_sparse", "ode", "glm", "examples", "traces",
-                "multirank", "aevb")
+                "advi_minibatch", "advi_gp", "svgd_map", "api",
+                "smc_bimodal", "smc_gp", "gp_sparse", "ode", "glm",
+                "examples", "traces", "multirank", "aevb")
 MAIN_SHAPE = (4, 200, 200, 1)
 # the GP's sample(), predict's two widths, ADVI's fifty Monte-Carlo samples
 # a step (phase 18), SMC's 4,096 particles on the GP (phase 21), and FITC's
@@ -1766,6 +1773,170 @@ def phase_svgd_map(pm, card, particles=256, svgd_steps=500, chains=64,
                  f"draws={draws}", against="the closed form")
     print(json.dumps({"phase": "svgd_map", "svgd": svgd, "radon": radon_out,
                       "init_map": gate, "card": card}), flush=True)
+
+
+#: ``sample_prior_predictive``'s dtypes on radon: the JAX package's, which
+#: ``tests/test_torch_call_parity.py`` holds both packages to on the CPU
+RADON_PRIOR_DTYPES = {
+    "mu_a": "float64", "sigma_a": "float64", "sigma_a_log__": "float32",
+    "mu_b": "float64", "sigma_b": "float64", "sigma_b_log__": "float32",
+    "a": "float64", "b": "float64", "eps": "float64", "eps_log__": "float32",
+    "radon_like": "float64"}
+
+
+def _median_ms(fn, reps):
+    """The median host wall of ``reps`` calls of ``fn``, in ms."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(walls))
+
+
+def phase_api(pm, card, draws=1_000_000, reps=20):
+    """30. The JAX package's call forms on the card (each is held against
+    the JAX package on the CPU by ``tests/test_torch_call_parity.py``):
+
+    (a) ``Normal.dist(0, 1).random(size=1_000_000)`` is a numpy float64
+        array whose mean and sd are within 5 Monte-Carlo standard errors
+        of 0 and 1 (1/sqrt(n) and 1/sqrt(2n)); its host ms beside the same
+        draws left on the card (``_random`` and a synchronize): the
+        difference is the one copy back and the cast;
+    (b) radon's ``logp_dlogp_function()`` at one flat numpy point gives
+        ``(float, numpy array)`` equal bit for bit to row 0 of the batched
+        call on the same point; the host ms of each (the batched call with
+        a synchronize);
+    (c) scipy's L-BFGS-B driven through ``f(q, grad_out=g)``
+        (``examples.suite.lbfgs_through_grad_out``) takes the same
+        iterates as the same run through the batched call at one chain,
+        and reaches the JAX package's optimum of the same function
+        (``reference_moments.json``'s ``lbfgs_radon``): -logp within 1e-3
+        of the port's -logp at the JAX package's optimum, and the point
+        within 0.02 (the flat ridge of phase 19). ``find_MAP`` maximizes
+        the logp without the jacobians, so its point is another one;
+    (d) ``make_logp_fn(jacobian=False)`` at one point equals the logp with
+        the jacobians less the log-jacobians of ``sigma_a``, ``sigma_b``
+        and ``eps``, to 1e-6 relative (two float32 sums of about 1e3 in
+        different orders);
+    (e) ``sample_prior_predictive`` on radon gives ``RADON_PRIOR_DTYPES``;
+    (f) ``draw_values`` with a distribution among the parameters draws
+        from it at ``size`` on the card.
+
+    The phase fails if its wall passes 10 s."""
+    from scipy.optimize import minimize
+    from pymc3_tpu_torch.distributions import draw_values
+    from pymc3_tpu_torch.examples.radon import build_model
+    from pymc3_tpu_torch.examples.suite import lbfgs_through_grad_out
+    t_phase = time.time()
+    out = {"phase": "api", "card": card}
+
+    dist = pm.Normal.dist(0.0, 1.0)
+    device = dist.device
+    gen = torch.Generator(device=device).manual_seed(30)
+    x = dist.random(size=draws, gen=gen)
+    ok = isinstance(x, np.ndarray) and x.dtype == np.float64 \
+        and x.shape == (draws,)
+    mean, sd = float(x.mean()), float(x.std())
+
+    def drawn_on_card():
+        dist._random(size=draws, gen=gen)
+        torch.cuda.synchronize()
+    random_ms = _median_ms(lambda: dist.random(size=draws, gen=gen), 5)
+    card_ms = _median_ms(drawn_on_card, 5)
+    out["random"] = {"draws": draws, "type": type(x).__name__,
+                     "dtype": str(x.dtype), "mean": mean, "sd": sd,
+                     "host_ms": random_ms, "on_card_ms": card_ms,
+                     "copy_and_cast_ms": random_ms - card_ms}
+    if not (ok and abs(mean) < 5 / np.sqrt(draws)
+            and abs(sd - 1) < 5 / np.sqrt(2 * draws)):
+        fail(f"api: Normal.dist(0, 1).random(): {out['random']}")
+
+    radon = build_model(pm)
+    _on_card(radon, "api radon")
+    f = radon.logp_dlogp_function()
+    q0 = f.dict_to_array(radon.test_point)
+    q = (q0 + 0.1 * np.random.RandomState(30).randn(q0.size)).astype(
+        np.float32)
+    logp, grad = f(q)
+    qt = torch.as_tensor(q, device=device)[None]
+    blogp, bgrad = f(qt)
+    same = isinstance(logp, float) and isinstance(grad, np.ndarray) \
+        and logp == float(blogp[0]) \
+        and np.array_equal(grad, bgrad[0].cpu().numpy())
+
+    def batched_call():
+        f(qt)
+        torch.cuda.synchronize()
+    out["one_point"] = {"bitwise_equal": bool(same),
+                        "point_ms": _median_ms(lambda: f(q), reps),
+                        "batched_1_chain_ms": _median_ms(batched_call, reps)}
+    if not same:
+        fail("api: the one-point logp_dlogp_function call differs from "
+             "row 0 of the batched call")
+
+    ref = _reference_fits("lbfgs_radon")
+    t0 = time.time()
+    res = lbfgs_through_grad_out(f, q0)
+    lbfgs_wall = time.time() - t0
+
+    def batched_neg(x):
+        lp, g = f(torch.as_tensor(x, dtype=torch.float32,
+                                  device=device)[None])
+        return -float(lp[0]), -g[0].cpu().numpy().astype(np.float64)
+    res_b = minimize(batched_neg, np.asarray(q0, np.float64), jac=True,
+                     method="L-BFGS-B")
+    at_ref = -f(np.asarray(ref["q"], np.float32))[0]
+    q_err = float(np.abs(res.x - np.asarray(ref["q"])).max())
+    out["lbfgs"] = {"iterations": int(res.nit), "wall_s": lbfgs_wall,
+                    "neg_logp": float(res.fun),
+                    "neg_logp_at_jax_optimum": at_ref,
+                    "jax_neg_logp": ref["neg_logp"],
+                    "jax_iterations": ref["iterations"],
+                    "max_abs_q_err": q_err,
+                    "same_as_batched": bool(np.array_equal(res.x, res_b.x)
+                                            and res.nit == res_b.nit)}
+    if not out["lbfgs"]["same_as_batched"]:
+        fail("api: L-BFGS through grad_out left the batched call's path")
+    if not (abs(res.fun - at_ref) < 1e-3 and q_err < 0.02):
+        fail(f"api: L-BFGS through grad_out missed the JAX package's "
+             f"optimum: {out['lbfgs']}")
+
+    nojac = radon.make_logp_fn(jacobian=False)(q)
+    jac = radon.make_logp_fn()(q)
+    order = radon.ordering.by_name
+    logjac = sum(float(rv.transform.jacobian_det(
+        torch.as_tensor(q[order[rv.name].slc], device=device), {},
+        {}).sum())
+        for rv in radon.free_RVs if rv.orig_name in ("sigma_a", "sigma_b",
+                                                      "eps"))
+    want = float(jac) - logjac
+    out["logp_nojac"] = {"got": float(nojac), "want": want,
+                         "dims": list(nojac.shape)}
+    if not (nojac.dim() == 0 and nojac.device.type == radon.device.type
+            and abs(float(nojac) - want) <= 1e-6 * abs(want)):
+        fail(f"api: make_logp_fn(jacobian=False): {out['logp_nojac']}")
+
+    prior = pm.sample_prior_predictive(samples=100, model=radon,
+                                       random_seed=30)
+    dtypes = {k: str(v.dtype) for k, v in prior.items()}
+    out["prior_dtypes"] = dtypes
+    if dtypes != RADON_PRIOR_DTYPES or not all(
+            np.all(np.isfinite(v)) for v in prior.values()):
+        fail(f"api: sample_prior_predictive's dtypes {dtypes}")
+
+    draw, two = draw_values([pm.Normal.dist(0.0, 1.0), 2.0], size=3)
+    out["draw_values"] = {"shape": list(draw.shape),
+                          "device": str(draw.device), "constant": float(two)}
+    if not (tuple(draw.shape) == (3,) and draw.device.type == device.type
+            and bool(torch.isfinite(draw).all()) and float(two) == 2.0):
+        fail(f"api: draw_values: {out['draw_values']}")
+
+    torch.cuda.synchronize()
+    out["wall_s"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
+    if out["wall_s"] > 10.0:
+        fail(f"api: the phase took {out['wall_s']:.1f} s, over 10 s")
 
 
 class _HostReads:
@@ -3455,7 +3626,7 @@ def _radon_transitions(pm, mesh=None):
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         q = torch.as_tensor(q0[rows], device=model.device)
-        step.step_size = find_reasonable_eps(step, q, noise)
+        step.step_size = find_reasonable_eps(step, q, noise=noise)
         state = step.kernel_init(q)
         out = {"probe_eps": step.step_size}
         for i in range(transitions):
@@ -4127,7 +4298,7 @@ def main():
     parser.add_argument("--gp-wall", metavar="DIR",
                         help="phase 4 alone: DIR, this, this, DIR")
     parser.add_argument("--only", metavar="NAMES",
-                        help="phases 1-3, then only these of phases 6-29 "
+                        help="phases 1-3, then only these of phases 6-30 "
                         "(comma-separated: " + ",".join(
                             LATER_PHASES + ("plots",)) + ")")
     args = parser.parse_args()
@@ -4169,6 +4340,7 @@ def main():
         "advi_minibatch": lambda: phase_advi_minibatch(pm, card),
         "advi_gp": lambda: phase_advi_gp(pm, gp_cov, card),
         "svgd_map": lambda: phase_svgd_map(pm, card),
+        "api": lambda: phase_api(pm, card),
         "smc_bimodal": lambda: phase_smc_bimodal(pm, card),
         "smc_gp": lambda: phase_smc_gp(pm, gp_cov, card),
         "gp_sparse": lambda: phase_gp_sparse(pm, gp_cov, card),
@@ -4224,7 +4396,7 @@ def main():
             example_launches = out
         if name == "multirank":
             multirank_launches = out
-    print(f"phases 1-29: {time.time() - t_start:.1f} s; each of 7-28 "
+    print(f"phases 1-30: {time.time() - t_start:.1f} s; each of 7-30 "
           f"{json.dumps(walls)}", flush=True)
 
     replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",

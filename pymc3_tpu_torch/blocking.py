@@ -83,10 +83,12 @@ class DictToArrayBijection:
 
 class ListArrayOrdering:
     """An ordering for a list of arrays (cf. ``blocking.py:91``): the
-    ``i``-th array's slot is named by its offset."""
+    ``i``-th array's slot is named by its offset. ``intype`` is stored, as
+    the JAX package stores it."""
 
-    def __init__(self, list_arrays):
+    def __init__(self, list_arrays, intype="numpy"):
         self.vmap = []
+        self.intype = intype
         self.size = 0
         for array in list_arrays:
             array = np.asarray(array)

@@ -78,7 +78,11 @@ class _Bounded(Distribution):
             conds.append(value <= evaluate(self.upper, env or {}, memo))
         return bound_mask(logp, *conds)
 
-    def random(self, point=None, size=None, gen=None):
+    def _host_dtype(self):
+        # the JAX package casts its draws to the wrapped distribution's
+        return np.dtype(self._wrapped.dtype)
+
+    def _random(self, point=None, size=None, gen=None):
         """Rejection sampling (cf. ``bound.py:80``): each round redraws
         every element still outside the bounds, in one vectorized draw."""
         gen = self._generator(gen)
@@ -88,7 +92,7 @@ class _Bounded(Distribution):
             [self.lower if self.lower is not None else -np.inf,
              self.upper if self.upper is not None else np.inf],
             point=point, size=size, gen=gen)
-        out = self._wrapped.random(point=point, size=size, gen=gen)
+        out = self._wrapped._random(point=point, size=size, gen=gen)
         n_core = out.ndim - n_size
 
         def align(b):
@@ -100,7 +104,7 @@ class _Bounded(Distribution):
         for _ in range(_BOUND_ROUNDS):
             if not bool(bad.any()):
                 return out
-            redraw = self._wrapped.random(point=point, size=size, gen=gen)
+            redraw = self._wrapped._random(point=point, size=size, gen=gen)
             out = torch.where(bad, redraw, out)
             bad = (out < lo) | (out > hi)
         if bool(bad.any()):

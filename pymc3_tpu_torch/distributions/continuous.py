@@ -337,7 +337,7 @@ class Uniform(BoundedContinuous):
             torch.where(value >= upper, 0.0,
                         torch.log(value - lower) - torch.log(upper - lower)))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_uniform, ("lower", "upper"), point, size, gen)
 
 
@@ -356,7 +356,7 @@ class Flat(Continuous):
                            torch.where(value == torch.inf, 0.0,
                                        math.log(0.5)))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         raise ValueError("Cannot sample from Flat distribution")
 
 
@@ -373,7 +373,7 @@ class HalfFlat(PositiveContinuous):
     def logcdf(self, value, env=None, memo=None):
         return torch.where(value == torch.inf, 0.0, -torch.inf)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         raise ValueError("Cannot sample from HalfFlat distribution")
 
 
@@ -403,7 +403,7 @@ class Normal(Continuous):
         mu, sigma = self._ev_params(("mu", "sigma"), env, memo)
         return normal_lcdf(mu, sigma, value)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_normal, ("mu", "sigma"), point, size, gen)
 
 
@@ -459,7 +459,7 @@ class TruncatedNormal(BoundedContinuous):
             in_bounds = True
         return bound(norm_logp - lnorm, in_bounds, sigma > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_truncnorm, ("mu", "sigma", "_lo", "_hi"),
                           point, size, gen)
 
@@ -494,7 +494,7 @@ class HalfNormal(PositiveContinuous):
         return bound(torch.log1p(-torch.special.erfc(z / math.sqrt(2.0))),
                      value >= 0, sigma > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_halfnormal, ("sigma",), point, size, gen)
 
 
@@ -561,12 +561,16 @@ class Wald(PositiveContinuous):
         return bound(torch.where(x > 0, lcdf, -torch.inf),
                      mu > 0, lam > 0, alpha >= 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_wald, ("mu", "lam", "alpha"), point, size, gen)
 
 
 class Beta(UnitContinuous):
     r"""Beta (cf. ``continuous.py:411``)."""
+
+    def _host_dtype(self):
+        # the JAX package's clipped_beta_rvs returns floatX
+        return np.dtype(floatX())
 
     def __init__(self, alpha=None, beta=None, mu=None, sigma=None, sd=None,
                  *args, **kwargs):
@@ -614,7 +618,7 @@ class Beta(UnitContinuous):
             torch.where(value >= 1, 0.0,
                         torch.log(betainc(alpha, beta, safe))))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_beta, ("alpha", "beta"), point, size, gen)
 
 
@@ -644,7 +648,7 @@ class Kumaraswamy(UnitContinuous):
             + (b - 1.0) * torch.log1p(-safe ** a)
         return bound(logp, value >= 0, value <= 1, a > 0, b > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_kumaraswamy, ("a", "b"), point, size, gen)
 
 
@@ -673,7 +677,7 @@ class Exponential(PositiveContinuous):
         return torch.where(a <= 0, -torch.inf,
                            torch.log1p(-torch.exp(-torch.clamp(a, min=1e-30))))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_exponential, ("lam",), point, size, gen)
 
 
@@ -700,7 +704,7 @@ class Laplace(Continuous):
         return torch.where(y <= 0, math.log(0.5) + y,
                            torch.log1p(-0.5 * torch.exp(-torch.abs(y))))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_laplace, ("mu", "b"), point, size, gen)
 
 
@@ -740,7 +744,7 @@ class Lognormal(PositiveContinuous):
         return torch.where(value > 0, normal_lcdf(mu, sigma, torch.log(safe)),
                            -torch.inf)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_lognormal, ("mu", "tau"), point, size, gen)
 
 
@@ -784,7 +788,7 @@ class StudentT(Continuous):
         it = 0.5 * betainc(nu / 2.0, torch.full_like(nu, 0.5), sq)
         return torch.log(torch.where(t >= 0, 1.0 - it, it))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_studentt, ("nu", "mu", "lam"), point, size, gen)
 
 
@@ -825,7 +829,7 @@ class Pareto(Continuous):
         return torch.where(value < m, -torch.inf,
                            torch.where(arg > 1e-5, torch.log1p(-arg), -arg))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_pareto, ("alpha", "m"), point, size, gen)
 
 
@@ -850,7 +854,7 @@ class Cauchy(Continuous):
         alpha, beta = self._ev_params(("alpha", "beta"), env, memo)
         return torch.log(0.5 + torch.atan((value - alpha) / beta) / np.pi)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_cauchy, ("alpha", "beta"), point, size, gen)
 
 
@@ -877,7 +881,7 @@ class HalfCauchy(PositiveContinuous):
         return bound(torch.log(2.0 * torch.atan(value / beta) / np.pi),
                      value >= 0, beta > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_halfcauchy, ("beta",), point, size, gen)
 
 
@@ -925,7 +929,7 @@ class Gamma(PositiveContinuous):
         return bound(torch.log(gammainc(alpha, beta * safe)),
                      value >= 0, alpha > 0, beta > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_gamma, ("alpha", "beta"), point, size, gen)
 
 
@@ -979,7 +983,7 @@ class InverseGamma(PositiveContinuous):
         return bound(torch.log(gammaincc(alpha, beta / safe)),
                      value > 0, alpha > 0, beta > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_inversegamma, ("alpha", "beta"), point, size,
                           gen)
 
@@ -992,7 +996,7 @@ class ChiSquared(Gamma):
         super().__init__(alpha=apply(lambda n: n / 2.0, self.nu),
                          beta=floatX(0.5), *args, **kwargs)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_chisquared, ("nu",), point, size, gen)
 
 
@@ -1028,7 +1032,7 @@ class Weibull(PositiveContinuous):
         return bound(torch.log1p(-torch.exp(-a)), value >= 0, alpha > 0,
                      beta > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_weibull, ("alpha", "beta"), point, size, gen)
 
 
@@ -1059,7 +1063,7 @@ class HalfStudentT(PositiveContinuous):
                 - (nu + 1.0) / 2.0 * torch.log1p(value ** 2 / (nu * sigma ** 2)))
         return bound(logp, value >= 0, nu > 0, sigma > 0, lam > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_halfstudentt, ("nu", "sigma"), point, size, gen)
 
 
@@ -1097,7 +1101,7 @@ class ExGaussian(Continuous):
             + normal_lcdf(mu + (sigma ** 2) / nu, sigma, value)
         return torch.log(torch.special.ndtr(z) - torch.exp(exp_arg))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_exgaussian, ("mu", "sigma", "nu"), point, size,
                           gen)
 
@@ -1123,7 +1127,7 @@ class VonMises(Continuous):
         return bound(kappa * torch.cos(mu - value) - _LOG2PI - log_i0(kappa),
                      kappa > 0, value >= -np.pi, value <= np.pi)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_vonmises, ("mu", "kappa"), point, size, gen)
 
 
@@ -1164,7 +1168,7 @@ class SkewNormal(Continuous):
             + (-tau * (value - mu) ** 2 + torch.log(tau / np.pi / 2.0)) / 2.0,
             tau > 0, sigma > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_skewnormal, ("mu", "sigma", "alpha"), point,
                           size, gen)
 
@@ -1213,7 +1217,7 @@ class Triangular(BoundedContinuous):
                                                    * (upper - c))),
                                     0.0)))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_triangular, ("c", "lower", "upper"), point,
                           size, gen)
 
@@ -1246,7 +1250,7 @@ class Gumbel(Continuous):
         mu, beta = self._ev_params(("mu", "beta"), env, memo)
         return -torch.exp(-(value - mu) / beta)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_gumbel, ("mu", "beta"), point, size, gen)
 
 
@@ -1299,7 +1303,7 @@ class Rice(PositiveContinuous):
                 + log_i0(safe_x * b))
         return bound(logp, value >= 0, sigma > 0, nu >= 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_rice, ("nu", "sigma"), point, size, gen)
 
 
@@ -1325,7 +1329,7 @@ class Logistic(Continuous):
         mu, s = self._ev_params(("mu", "s"), env, memo)
         return -F.softplus(-(value - mu) / s)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_logistic, ("mu", "s"), point, size, gen)
 
 
@@ -1354,7 +1358,7 @@ class LogitNormal(UnitContinuous):
                 - torch.log(safe * (1.0 - safe)))
         return bound(logp, value > 0, value < 1, tau > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_logitnormal, ("mu", "tau"), point, size, gen)
 
 
@@ -1394,7 +1398,7 @@ class Interpolated(BoundedContinuous):
         xp, fp = self._ev_params(("_x", "_pdf"), env, memo)
         return torch.log(interp(value, xp, fp))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         gen = self._generator(gen)
         cdf, xp = self._cdf.value, self._x.value
         shape = tuple(np.atleast_1d(size)) if size is not None else ()

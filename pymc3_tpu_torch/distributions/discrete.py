@@ -157,7 +157,7 @@ class Binomial(Discrete):
         return torch.where(value < 0, -torch.inf,
                            torch.where(value >= n, 0.0, inner))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_binomial, ("n", "p"), point, size, gen)
 
 
@@ -183,7 +183,7 @@ class BetaBinomial(Discrete):
             - betaln(alpha, beta),
             value >= 0, value <= n, alpha > 0, beta > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_betabinomial, ("alpha", "beta", "n"), point,
                           size, gen)
 
@@ -220,12 +220,16 @@ class Bernoulli(Discrete):
         return torch.where(value < 0, -torch.inf,
                            torch.where(value < 1, torch.log1p(-p), 0.0))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_bernoulli, ("p",), point, size, gen)
 
 
 class DiscreteWeibull(Discrete):
     r"""Discrete Weibull (cf. ``discrete.py:146``)."""
+
+    def _host_dtype(self):
+        # the JAX package's draws are float ceilings
+        return np.dtype("float64")
 
     def __init__(self, q, beta, *args, **kwargs):
         self.q = _an(q)
@@ -251,7 +255,7 @@ class DiscreteWeibull(Discrete):
         return bound(vv ** beta * lq + _log1mexp(-d * lq),
                      value >= 0, q > 0, q < 1, beta > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_discrete_weibull, ("q", "beta"), point, size,
                           gen)
 
@@ -285,7 +289,7 @@ class Poisson(Discrete):
         return torch.where(value < 0, -torch.inf,
                            torch.log(gammaincc(safe_k + 1.0, mu)))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_poisson, ("mu",), point, size, gen)
 
 
@@ -317,7 +321,7 @@ class NegativeBinomial(Discrete):
                         value >= 0, mu >= 0)
         return torch.where(alpha > 1e10, poisson, negbinom)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_negbinomial, ("mu", "alpha"), point, size, gen)
 
 
@@ -345,7 +349,7 @@ class Geometric(Discrete):
         return torch.where(value < 1, -torch.inf,
                            torch.log1p(-(1.0 - p) ** k))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_geometric, ("p",), point, size, gen)
 
 
@@ -385,7 +389,7 @@ class DiscreteUniform(Discrete):
         return torch.where(value < lower, -torch.inf,
                            torch.where(value >= upper, 0.0, inner))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_discrete_uniform, ("lower", "upper"), point,
                           size, gen)
 
@@ -418,7 +422,7 @@ class Categorical(Discrete):
         return bound(torch.log(sel), value >= 0, value <= k - 1,
                      torch.all(p >= 0, dim=-1), torch.all(p <= 1, dim=-1))
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """Inverse CDF on one uniform per draw: the index of the first
         cumulative weight above it."""
         gen = self._generator(gen)
@@ -436,6 +440,10 @@ class Categorical(Discrete):
 class Constant(Discrete):
     r"""Point mass (cf. ``discrete.py:371``)."""
 
+    def _host_dtype(self):
+        # the JAX package fills with c's test value, a floatX
+        return np.dtype(floatX())
+
     def __init__(self, c, *args, **kwargs):
         self.mean = self.median = self.mode = self.c = _an(c)
         if kwargs.get("shape") is None:
@@ -448,7 +456,7 @@ class Constant(Discrete):
         value = _fv(value)
         return bound(torch.zeros_like(value), value == c)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_constant, ("c",), point, size, gen)
 
 
@@ -485,7 +493,7 @@ class ZeroInflatedPoisson(_ZeroInflated):
         out = self._zi_logp(value, psi, base, -theta)
         return bound(out, value >= 0, psi >= 0, psi <= 1, theta >= 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_zi_poisson, ("psi", "theta"), point, size, gen)
 
 
@@ -512,7 +520,7 @@ class ZeroInflatedBinomial(_ZeroInflated):
         return bound(out, value >= 0, value <= n, psi >= 0, psi <= 1,
                      p >= 0, p <= 1)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_zi_binomial, ("psi", "n", "p"), point, size,
                           gen)
 
@@ -538,7 +546,7 @@ class ZeroInflatedNegativeBinomial(_ZeroInflated):
         out = self._zi_logp(value, psi, base, base_zero)
         return bound(out, value >= 0, psi >= 0, psi <= 1, mu > 0, alpha > 0)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         return self._draw(_r_zi_negbinomial, ("psi", "mu", "alpha"), point,
                           size, gen)
 

@@ -491,37 +491,62 @@ def gammaincc(a, x):
 
 
 # -- random draws ------------------------------------------------------------
-def random_choice(p, size=None, gen=None):
+def _rng_generator(rng, gen, device):
+    """``gen``, or, for the JAX package's ``rng`` (a numpy ``RandomState``
+    or ``Generator``), a ``torch.Generator`` on ``device`` seeded from one
+    draw of it."""
+    if rng is None:
+        return gen
+    if gen is not None:
+        raise ValueError("give rng (numpy) or gen (torch), not both")
+    seed = rng.integers(2 ** 62) if hasattr(rng, "integers") else \
+        rng.randint(2 ** 62, dtype=np.int64)
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def random_choice(p, size=None, rng=None, gen=None):
     """Categorical draws from (batched) probability rows on ``p``'s device
     (cf. ``dist_math.py:225``): one draw per row, or ``size`` draws from a
-    single row."""
+    single row. With ``gen`` (a ``torch.Generator``) the draws are a
+    tensor; with the JAX package's ``rng`` they are seeded from it and
+    returned as numpy int64, as the JAX package returns them."""
     p = torch.as_tensor(p)
+    gen = _rng_generator(rng, gen, p.device)
     p = p / p.sum(-1, keepdim=True)
     if p.ndim > 1:
         target = (tuple(np.atleast_1d(size)) if size is not None
                   else tuple(p.shape[:-1]))
         rows = torch.broadcast_to(p, target + p.shape[-1:]).reshape(
             -1, p.shape[-1])
-        return torch.multinomial(rows, 1, replacement=True,
-                                 generator=gen).reshape(target)
-    target = tuple(np.atleast_1d(size)) if size is not None else ()
-    n = int(np.prod(target, dtype=int)) if target else 1
-    out = torch.multinomial(p, n, replacement=True, generator=gen)
-    return out.reshape(target)
+        out = torch.multinomial(rows, 1, replacement=True, generator=gen)
+    else:
+        target = tuple(np.atleast_1d(size)) if size is not None else ()
+        n = int(np.prod(target, dtype=int)) if target else 1
+        out = torch.multinomial(p, n, replacement=True, generator=gen)
+    out = out.reshape(target)
+    return out if rng is None else out.cpu().numpy()
 
 
-def clipped_beta_rvs(a, b, size=None, gen=None, dtype=None):
+def clipped_beta_rvs(a, b, size=None, rng=None, dtype=None, gen=None):
     """Beta draws clipped away from 0 and 1 by the float's epsilon
-    (cf. ``dist_math.py:553``), made from two float64 gamma draws."""
+    (cf. ``dist_math.py:246``), made from two float64 gamma draws, in
+    ``dtype`` (``floatX`` by default). With ``gen`` (a ``torch.Generator``)
+    the draws are a tensor on ``a``'s device; with the JAX package's
+    ``rng`` they are seeded from it and returned as numpy."""
     a = torch.as_tensor(a, dtype=torch.float64)
     b = torch.as_tensor(b, dtype=torch.float64)
+    gen = _rng_generator(rng, gen, a.device)
     shape = (tuple(np.atleast_1d(size)) if size is not None
              else np.broadcast_shapes(tuple(a.shape), tuple(b.shape)))
     ga = torch._standard_gamma(a.expand(shape).contiguous(), generator=gen)
     gb = torch._standard_gamma(b.expand(shape).contiguous(), generator=gen)
-    dtype = dtype or torch_floatX()
+    if dtype is None:
+        dtype = torch_floatX()
+    elif not isinstance(dtype, torch.dtype):
+        dtype = getattr(torch, np.dtype(dtype).name)
     eps = torch.finfo(dtype).eps
-    return torch.clamp(ga / (ga + gb), eps, 1.0 - eps).to(dtype)
+    out = torch.clamp(ga / (ga + gb), eps, 1.0 - eps).to(dtype)
+    return out if rng is None else out.cpu().numpy()
 
 
 def MvNormal_logp(cov, delta):

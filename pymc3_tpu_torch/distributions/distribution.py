@@ -26,6 +26,12 @@ A shape that cannot be drawn this way raises; nothing falls back to a
 per-sample loop or to the host. The one host path is a user's own numpy
 sampler (``generate_samples`` called without ``gen``, as in a PyMC3
 ``DensityDist``'s ``random``): its draws are copied to the device once.
+
+A distribution's public ``random()`` answers as the JAX package's does: it
+copies its draws to the host once and returns a numpy array of the JAX
+package's dtype for that family. The port's own callers (the model's
+forward draws, ``Bound``, ``Mixture``, ``LKJCholeskyCov``) keep the tensors
+on the device through ``_random()``.
 """
 from __future__ import annotations
 
@@ -50,9 +56,10 @@ __all__ = [
 vectorized_ppc = contextvars.ContextVar("vectorized_ppc", default=None)
 
 
-def TensorType(dtype, shape):
+def TensorType(dtype, shape, broadcastable=None):
     """A ``(numpy dtype, shape)`` spec, Theano's ``TensorType`` stand-in
-    (cf. ``distribution.py:45``)."""
+    (cf. ``distribution.py:45``); ``broadcastable`` is accepted and unused,
+    as in the JAX package."""
     return (np.dtype(dtype), tuple(shape))
 
 
@@ -185,7 +192,8 @@ class Distribution:
         return dist
 
     def __init__(self, shape=(), dtype=None, testval=None, defaults=(),
-                 transform=None):
+                 transform=None, broadcastable=None):
+        # broadcastable: accepted and unused, as in the JAX package
         self.shape = to_tuple(shape)
         self.dtype = np.dtype(dtype if dtype is not None else floatX())
         self.testval = testval
@@ -260,8 +268,24 @@ class Distribution:
         return np.broadcast_to(val, self.shape) if self.shape else val
 
     # -- forward sampling ----------------------------------------------------
+    def _host_dtype(self):
+        """The numpy dtype that ``random()`` returns, the JAX package's
+        numpy samplers': int64 for an integer distribution, else float64
+        (a family that differs says so)."""
+        return np.dtype("int64" if self.dtype.kind in "iu" else "float64")
+
     def random(self, point=None, size=None, gen=None):
-        """Draws of shape ``size + self.shape`` from ``gen``."""
+        """Draws of shape ``size + self.shape`` as a numpy array of the JAX
+        package's dtype for this distribution. They are drawn on this
+        distribution's device from ``gen`` (a ``torch.Generator`` there; a
+        freshly seeded one by default) and copied to the host once."""
+        draws = self._random(point=point, size=size, gen=gen)
+        return draws.detach().cpu().numpy().astype(self._host_dtype(),
+                                                    copy=False)
+
+    def _random(self, point=None, size=None, gen=None):
+        """The draws of :meth:`random` as a tensor on this distribution's
+        device: what the port's own callers use."""
         raise NotImplementedError(
             f"random() not implemented for {type(self).__name__}")
 
@@ -356,11 +380,16 @@ class DensityDist(Distribution):
         return out
 
     def random(self, point=None, size=None, gen=None):
+        """The user's ``random(point=point, size=size)``, as it returns it
+        (``gen`` is not used), as in the JAX package."""
         if self.rand is None:
             raise ValueError(
                 "Distribution was not passed any random method. Define a "
                 "custom random method and pass it as kwarg random")
-        return _as_tensor(self.rand(point=point, size=size), self.device)
+        return self.rand(point=point, size=size)
+
+    def _random(self, point=None, size=None, gen=None):
+        return _as_tensor(self.random(point=point, size=size), self.device)
 
 
 class TransformedDistribution(Distribution):
@@ -393,15 +422,12 @@ def draw_values(params: Sequence, point: Optional[Dict] = None, size=None,
     device (cf. ``distribution.py:320``).
 
     Parameters are the node DAG itself, so drawing them is evaluating them
-    against the point. At a :class:`BatchedPoint` each value carries the
-    point's leading sample axis, and ``size`` must start with it.
+    against the point. A distribution given as a parameter is drawn from
+    at ``size``. At a :class:`BatchedPoint` each value carries the point's
+    leading sample axis, and ``size`` must start with it.
     """
     point = point if point is not None else {}
     device = gen.device if gen is not None else current_device()
-    for p in params:
-        if isinstance(p, Distribution):
-            raise TypeError("a Distribution as a parameter is not supported "
-                            "in forward draws; pass a model variable")
     nodes = [p for p in params if isinstance(p, Node)]
 
     def evaluate_nodes(env):
@@ -423,6 +449,8 @@ def draw_values(params: Sequence, point: Optional[Dict] = None, size=None,
     for p in params:
         if isinstance(p, Node):
             out.append(next(vals))
+        elif isinstance(p, Distribution):
+            out.append(p._random(point=point, size=size, gen=gen))
         else:
             val = _as_tensor(p, device)
             if lead:
@@ -442,7 +470,7 @@ def _align(x, lead, n_size, n_core):
                      + (1,) * (n_core - len(own)) + own)
 
 
-def generate_samples(sampler, *args, dist_shape=(), size=None, gen=None,
+def generate_samples(generator, *args, dist_shape=(), size=None, gen=None,
                      lead=0, broadcast_shape=None, not_broadcast_kwargs=None,
                      **kwargs):
     """Draws of shape ``size + core`` (cf. ``distribution.py:344``).
@@ -450,18 +478,19 @@ def generate_samples(sampler, *args, dist_shape=(), size=None, gen=None,
     ``core`` is ``dist_shape`` if given, else the parameters' broadcast
     shape. With ``gen``, a ``torch.Generator``, the draws are made on its
     device: each parameter carries ``lead`` leading sample axes that stand
-    under the first axes of ``size``, and ``sampler(gen, shape, *params)``
-    receives the parameters reshaped to broadcast against ``shape``.
+    under the first axes of ``size``, and ``generator(gen, shape,
+    *params)`` receives the parameters reshaped to broadcast against
+    ``shape``.
 
-    Without ``gen``, ``sampler`` is a numpy-style host generator, as
-    PyMC3's: ``sampler(*args, size=shape, **not_broadcast_kwargs,
+    Without ``gen``, ``generator`` is a numpy-style host sampler, as
+    PyMC3's: ``generator(*args, size=shape, **not_broadcast_kwargs,
     **kwargs)`` (``scipy.stats.norm.rvs``, ``np.random.normal``). It draws
     on the host, and the draws are copied to the device once: the tensor
     returned is on the model's device (the configured one outside a
     model).
     """
     if gen is None:
-        return _host_samples(sampler, args, dist_shape, size,
+        return _host_samples(generator, args, dist_shape, size,
                              broadcast_shape, not_broadcast_kwargs or {},
                              kwargs)
     if kwargs or not_broadcast_kwargs:
@@ -479,7 +508,7 @@ def generate_samples(sampler, *args, dist_shape=(), size=None, gen=None,
     core = dist_shape if dist_shape else tuple(broadcast_shape)
     out_shape = size_t + core
     aligned = [_align(a, lead, len(size_t), len(core)) for a in args]
-    samples = sampler(gen, out_shape, *aligned)
+    samples = generator(gen, out_shape, *aligned)
     if tuple(samples.shape) != out_shape:
         raise ValueError(f"a sampler drew shape {tuple(samples.shape)}, "
                          f"expected {out_shape}")

@@ -148,13 +148,13 @@ class Mixture(Distribution):
                                  f"do not line up with the mixture's shape "
                                  f"{shape}")
             lead_axes = shape[:len(shape) - len(own)]
-            out.append(d.random(point=point, size=size_t + lead_axes,
-                                gen=gen))
+            out.append(d._random(point=point, size=size_t + lead_axes,
+                                 gen=gen))
         if isinstance(self.comp_dists, Distribution):
             return out[0]
         return torch.stack(out, dim=-1)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         gen = self._generator(gen)
         size_t = to_tuple(size)
         target = size_t + tuple(self.shape)

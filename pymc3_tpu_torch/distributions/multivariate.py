@@ -179,7 +179,7 @@ class MvNormal(_QuadFormBase):
         out = -0.5 * (k * math.log(2.0 * np.pi) + quaddist) - logdet
         return torch.where(ok, out, -torch.inf)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """``mu + L z`` with ``L`` the covariance's cholesky factor at each
         sample (cf. ``multivariate.py:140``)."""
         gen = self._generator(gen)
@@ -212,7 +212,7 @@ class MvStudentT(_QuadFormBase):
         inner = -(nu + k) / 2.0 * torch.log1p(quaddist / nu)
         return torch.where(ok, norm + inner - logdet, -torch.inf)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """``mu + L z / sqrt(chi2_nu / nu)``, the chi-square as twice a
         float64 gamma draw (cf. ``multivariate.py:190``)."""
         gen = self._generator(gen)
@@ -255,7 +255,7 @@ class Dirichlet(Continuous):
                      torch.all(a > 0, dim=-1),
                      broadcast_conditions=False)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """Normalized float64 gamma draws (``torch._sample_dirichlet``)
         (cf. ``multivariate.py:237``)."""
         gen = self._generator(gen)
@@ -300,7 +300,7 @@ class Multinomial(Discrete):
                      torch.abs(torch.sum(p, dim=-1) - 1.0) < 1e-4,
                      broadcast_conditions=False)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """One binomial per category, each on what the ones before it
         left, in float64 (cf. ``multivariate.py:284``)."""
         gen = self._generator(gen)
@@ -384,7 +384,7 @@ class Wishart(Continuous):
               - multigammaln(nu / 2.0, p))
         return bound(lp, sign_x > 0, nu > p - 1, broadcast_conditions=False)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """Bartlett decomposition on the device (cf. ``multivariate.py:357``)."""
         gen = self._generator(gen)
         nu, V = draw_values([self.nu, self.V], point=point, size=size,
@@ -526,7 +526,7 @@ class LKJCholeskyCov(Continuous):
                                - idx * torch.log(sd_vals))
         return self._norm_const + logp_lkj + logp_sd + det_invjac
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """The C-vine correlation factor scaled row-wise by draws of
         ``sd_dist`` (cf. ``multivariate.py:490``)."""
         gen = self._generator(gen)
@@ -534,7 +534,7 @@ class LKJCholeskyCov(Continuous):
         n = self.n
         C = _lkj_vine(gen, size_t, n, self.eta).transpose(-1, -2)
         sd_size = size_t + ((n,) if not self.sd_dist.shape else ())
-        sds = self.sd_dist.random(point=point, size=sd_size, gen=gen)
+        sds = self.sd_dist._random(point=point, size=sd_size, gen=gen)
         L = sds.reshape(size_t + (n,))[..., :, None].to(C.dtype) * C
         rows, cols = np.tril_indices(n)
         return L[..., torch.as_tensor(rows), torch.as_tensor(cols)]
@@ -576,7 +576,7 @@ class LKJCorr(Continuous):
         return bound(lp, ok, torch.all(torch.abs(value) <= 1),
                      broadcast_conditions=False)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """The C-vine on the device (cf. ``multivariate.py:560``)."""
         gen = self._generator(gen)
         size_t = to_tuple(size)
@@ -634,7 +634,7 @@ class MatrixNormal(Continuous):
                - 0.5 * torch.sum(b ** 2))
         return torch.where(ok_r & ok_c, out, -torch.inf)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """``mu + L_r Z L_cᵀ`` on the device (cf. ``multivariate.py:646``)."""
         gen = self._generator(gen)
         mu, side_r, side_c = draw_values(
@@ -708,7 +708,7 @@ class KroneckerNormal(Continuous):
                       + torch.sum(torch.log(lam)) + quad)
         return out[0] if delta.ndim == 1 else out
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """Draws through the cholesky factor of the full covariance, on the
         device (cf. ``multivariate.py:709``)."""
         gen = self._generator(gen)

@@ -29,7 +29,7 @@ class Simulator(NoDistribution):
         super().__init__(shape=shape, dtype=dtype,
                          testval=kwargs.pop("testval", 0.0), **kwargs)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """``function`` at the parameters drawn at ``point``, once, or once
         per sample along ``size``'s first axis. The function is handed CPU
         tensors (a numpy simulator reads them as arrays); the draws come

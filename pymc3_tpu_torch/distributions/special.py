@@ -3,9 +3,17 @@ import torch
 
 __all__ = ["gammaln", "multigammaln", "psi", "log_i0", "digamma"]
 
-gammaln = torch.special.gammaln
-digamma = torch.special.digamma
-psi = torch.special.digamma
+
+
+def gammaln(x):
+    return torch.special.gammaln(x)
+
+
+def digamma(x):
+    return torch.special.digamma(x)
+
+
+psi = digamma
 
 
 def multigammaln(a, p):

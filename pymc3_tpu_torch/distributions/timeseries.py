@@ -58,7 +58,7 @@ class AR1(Continuous):
             + 0.5 * torch.log(tau_e / (2.0 * np.pi))
         return torch.cat([boundary.reshape(1), innov])
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """The stationary start, then the recursion over the series, on the
         device (cf. ``timeseries.py:60``)."""
         gen = self._generator(gen)
@@ -118,7 +118,7 @@ class AR(Continuous):
         init_logp = torch.sum(self.init.logp(x[..., :p], env, memo))
         return innov_logp + init_logp
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         raise NotImplementedError(
             "AR.random is not implemented; sample the prior by ancestral "
             "simulation of the innovations")
@@ -154,7 +154,7 @@ class GaussianRandomWalk(Continuous):
         init_lp = self.init.logp(value[..., 0], env, memo)
         return torch.sum(innov, dim=-1) + torch.sum(init_lp)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         """Cumulative sums of normal steps (cf. ``timeseries.py:160``)."""
         return self._draw(_r_grw, ("sigma", "mu"), point, size, gen)
 
@@ -200,7 +200,7 @@ class GARCH11(Continuous):
         vol = self._vol(value, omega, alpha_1, beta_1, initial_vol)
         return -0.5 * (value / vol) ** 2 - torch.log(vol) - 0.5 * _LOG_2PI
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         raise NotImplementedError("GARCH11.random is not implemented")
 
 
@@ -226,7 +226,7 @@ class EulerMaruyama(Continuous):
         return (-0.5 * ((value[..., 1:] - mu) / sigma) ** 2
                 - torch.log(sigma) - 0.5 * _LOG_2PI)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         raise NotImplementedError("EulerMaruyama.random is not implemented")
 
 
@@ -249,7 +249,7 @@ class MvGaussianRandomWalk(Continuous):
         init_logp = self.init.logp(value[..., 0, :], env, memo)
         return torch.sum(innov_logp) + torch.sum(init_logp)
 
-    def random(self, point=None, size=None, gen=None):
+    def _random(self, point=None, size=None, gen=None):
         raise NotImplementedError
 
 

@@ -10,7 +10,8 @@ in closed form), a labelling model for the categorical Gibbs scan (its
 label marginals by enumeration), the minibatch logistic regression of the
 JAX package's ADVI benchmark (``scripts/bench_advi_minibatch.py``), and a
 conjugate normal for SVGD and the MAP start (its posterior in closed
-form), the JAX package's SMC benchmark (``scripts/bench_smc.py``: a bimodal
+form), scipy's L-BFGS-B driven through a ``ValueGradFunction``'s one-point
+contract, the JAX package's SMC benchmark (``scripts/bench_smc.py``: a bimodal
 target with a closed-form evidence) and SMC-ABC model
 (``tests/test_smc.py``), the sparse, latent, Student-T and Kronecker
 GPs at the widths of PyMC3's GP notebooks, the freefall ODE of the suite
@@ -500,6 +501,21 @@ def aevb_vae_model(pm, data, batch):
 
 CONJ_PRIOR_SD = 2.0
 CONJ_COV = np.array([[1.0, 0.6], [0.6, 2.0]])
+
+
+def lbfgs_through_grad_out(f, q0):
+    """scipy's L-BFGS-B on ``-logp`` from ``q0`` (its default options),
+    driven through the one-point contract of either package's
+    ``ValueGradFunction`` ``f``: ``f(q, grad_out=g)`` fills ``g`` with the
+    gradient and returns the logp. Returns scipy's result."""
+    from scipy.optimize import minimize
+    g = np.zeros(f.size, dtype=f.dtype)
+
+    def neg_logp_grad(q):
+        logp = f(q, grad_out=g)
+        return -logp, -g.astype(np.float64)
+    return minimize(neg_logp_grad, np.asarray(q0, np.float64), jac=True,
+                    method="L-BFGS-B")
 
 
 def conjugate_data(n=40, seed=8):

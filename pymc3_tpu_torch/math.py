@@ -67,10 +67,28 @@ sqrt = _wrap(torch.sqrt)
 sgn = _wrap(torch.sign)
 ceil = _wrap(torch.ceil)
 floor = _wrap(torch.floor)
-round_ = tround = _wrap(torch.round)
-erf = _wrap(torch.special.erf)
-erfc = _wrap(torch.special.erfc)
-erfinv = _wrap(torch.special.erfinv)
+
+
+def round_(a, decimals=0, out=None):
+    """numpy's ``round`` (the JAX package's is ``jnp.round``)."""
+    _no_out("round", out)
+    return _wrap(torch.round)(a, decimals=decimals)
+
+
+tround = round_
+
+
+# the operand of ``jax.scipy.special``'s functions is named ``x``
+def erf(x):
+    return _wrap(torch.special.erf)(x)
+
+
+def erfc(x):
+    return _wrap(torch.special.erfc)(x)
+
+
+def erfinv(x):
+    return _wrap(torch.special.erfinv)(x)
 sin = _wrap(torch.sin)
 cos = _wrap(torch.cos)
 tan = _wrap(torch.tan)
@@ -84,12 +102,40 @@ arctan2 = _wrap(torch.atan2)
 arcsinh = _wrap(torch.asinh)
 arccosh = _wrap(torch.acosh)
 arctanh = _wrap(torch.atanh)
-maximum = _wrap(torch.maximum)
-minimum = _wrap(torch.minimum)
-logaddexp = _wrap(torch.logaddexp)
-sigmoid = _wrap(torch.sigmoid)
-logit = _wrap(torch.special.logit)
-where = switch = _wrap(torch.where)
+def sigmoid(x):
+    return _wrap(torch.sigmoid)(x)
+
+
+def logit(x):
+    return _wrap(torch.special.logit)(x)
+
+
+def _no_out(name, out, where=None):
+    """``jnp``'s ``out`` and ``where`` must be None: so here."""
+    if out is not None or where is not None:
+        raise NotImplementedError(
+            f"The 'out' and 'where' arguments to {name} are not supported.")
+
+
+def maximum(x1, x2, out=None, where=None):
+    _no_out("maximum", out, where)
+    return _wrap(torch.maximum)(x1, x2)
+
+
+def minimum(x1, x2, out=None, where=None):
+    _no_out("minimum", out, where)
+    return _wrap(torch.minimum)(x1, x2)
+
+
+def logaddexp(a, b):
+    return _wrap(torch.logaddexp)(a, b)
+
+
+def where(cond, a, b):
+    return _wrap(torch.where)(cond, a, b)
+
+
+switch = where
 
 
 def sqr(x):
@@ -178,8 +224,30 @@ def dot(a, b):
     return apply(torch.matmul, a, b)
 
 
-matmul = _wrap(torch.matmul)
-outer = _wrap(torch.outer)
+def matmul(a, b, *, preferred_element_type=None, out_sharding=None):
+    """``jnp.matmul``: the product in ``preferred_element_type`` when it is
+    given. The port's tensors live on one device: ``out_sharding`` must be
+    None."""
+    _no_sharding(out_sharding)
+    if preferred_element_type is None:
+        return _wrap(torch.matmul)(a, b)
+    dtype = _torch_dtype(preferred_element_type)
+    return _wrap(lambda x, y: torch.matmul(x.to(dtype), y.to(dtype)))(a, b)
+
+
+def _no_sharding(out_sharding):
+    if out_sharding is not None:
+        raise NotImplementedError("out_sharding: the port does not shard")
+
+
+def outer(a, b, out=None):
+    _no_out("outer", out)
+    return _wrap(torch.outer)(a, b)
+
+
+def _torch_dtype(dtype):
+    return dtype if isinstance(dtype, torch.dtype) else \
+        getattr(torch, np.dtype(dtype).name)
 
 
 def clip(x, lo, hi):
@@ -217,20 +285,64 @@ def mean(x, axis=None, keepdims=False):
     return apply(lambda v: _reduce(torch.mean, v, axis, keepdims), x)
 
 
-def cumsum(x, axis=0):
-    return apply(lambda v: torch.cumsum(v, dim=axis), x)
+def _cumulative(op, a, axis, dtype, out):
+    """numpy's ``cumsum``/``cumprod`` (the JAX package's are ``jnp``'s):
+    over the flattened value when ``axis`` is None, in ``dtype`` when it is
+    given. ``out`` must be None, as in ``jnp``."""
+    if out is not None:
+        raise ValueError("out is not supported")
+    dtype = None if dtype is None else getattr(torch, np.dtype(dtype).name)
+
+    def run(v):
+        return op(v.reshape(-1), 0, dtype=dtype) if axis is None else \
+            op(v, axis, dtype=dtype)
+    return apply(run, a)
 
 
-def cumprod(x, axis=0):
-    return apply(lambda v: torch.cumprod(v, dim=axis), x)
+def cumsum(a, axis=None, dtype=None, out=None):
+    return _cumulative(torch.cumsum, a, axis, dtype, out)
 
 
-ones_like = _wrap(torch.ones_like)
-zeros_like = _wrap(torch.zeros_like)
-full_like = _wrap(torch.full_like)
-diag = _wrap(torch.diag)
-tril = _wrap(torch.tril)
-triu = _wrap(torch.triu)
+def cumprod(a, axis=None, dtype=None, out=None):
+    return _cumulative(torch.cumprod, a, axis, dtype, out)
+
+
+def _filled_like(v, fill, dtype, shape, device):
+    """numpy's ``full_like``: ``v``'s shape, dtype and device unless
+    ``shape``, ``dtype`` or ``device`` is given."""
+    dtype = None if dtype is None else _torch_dtype(dtype)
+    if shape is None:
+        return torch.full_like(v, fill, dtype=dtype, device=device)
+    shape = (shape,) if np.ndim(shape) == 0 else tuple(shape)
+    return torch.full(shape, fill, dtype=dtype or v.dtype,
+                      device=v.device if device is None else device)
+
+
+def full_like(a, fill_value, dtype=None, shape=None, *, device=None):
+    return _wrap(lambda v, f: _filled_like(v, f, dtype, shape, device))(
+        a, fill_value)
+
+
+def ones_like(a, dtype=None, shape=None, *, device=None, out_sharding=None):
+    _no_sharding(out_sharding)
+    return _wrap(lambda v: _filled_like(v, 1, dtype, shape, device))(a)
+
+
+def zeros_like(a, dtype=None, shape=None, *, device=None, out_sharding=None):
+    _no_sharding(out_sharding)
+    return _wrap(lambda v: _filled_like(v, 0, dtype, shape, device))(a)
+
+
+def diag(v, k=0):
+    return _wrap(torch.diag)(v, k)
+
+
+def tril(m, k=0):
+    return _wrap(torch.tril)(m, k)
+
+
+def triu(m, k=0):
+    return _wrap(torch.triu)(m, k)
 
 
 def extract_diag(x):

@@ -6,7 +6,9 @@ unconstrained vector, ``logp_point(q)``, written for one point. The samplers
 see two batched forms of it: :class:`ValueGradFunction`, which batches it
 over chains with ``torch.func.vmap`` and differentiates the batch with
 autograd, and ``make_logp_fn()``, the same batch without a gradient, for
-the steppers that never use one.
+the steppers that never use one. Both also take one flat point ``q: (n,)``
+and then answer as the JAX package's do: ``(float, numpy array)`` from a
+:class:`ValueGradFunction`, a 0-d tensor from ``make_logp_fn()``.
 
 Every model constant lives on ``Model(device=...)``; when that is not given,
 on the configured device (``config.device``, the card by default).
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from .blocking import ArrayOrdering, DictToArrayBijection
-from .config import default_device, floatX, torch_floatX
+from .config import default_device, floatX, intX, torch_floatX
 from .distributions.distribution import (
     BatchedPoint, _as_tensor, make_generator,
 )
@@ -54,6 +56,9 @@ class ContextMeta(type):
         with instance:
             instance.__init__(*args, **kwargs)
         return instance
+
+    def __init__(cls, name, bases, nmspc, **kwargs):
+        super().__init__(name, bases, nmspc)
 
     @property
     def context_class(cls):
@@ -229,8 +234,9 @@ class FreeRV(NamedNode, Factor):
         return lp if self.scaling == 1.0 else self.scaling * lp
 
     def random(self, point=None, size=None, gen=None):
-        """Draws of the distribution, in the constrained space, on the
-        model's device (``gen``: a ``torch.Generator`` there)."""
+        """Draws of the distribution, in the constrained space, as numpy
+        (``Distribution.random``; ``gen``: a ``torch.Generator`` on the
+        model's device)."""
         return self.distribution.random(point=point, size=size, gen=gen)
 
 
@@ -403,6 +409,7 @@ class Model(WithMemoization, metaclass=ContextMeta):
     runs. When not given, a sub-model takes its parent's and any other model
     the configured one (``set_config(device=...)``, "cuda" by default);
     without a CUDA device that raises instead of building on the CPU.
+    ``check_bounds`` is stored, as the JAX package stores it.
     """
 
     def __new__(cls, *args, **kwargs):
@@ -411,9 +418,11 @@ class Model(WithMemoization, metaclass=ContextMeta):
             error_if_none=False)
         return instance
 
-    def __init__(self, name="", model=None, coords=None, device=None):
+    def __init__(self, name="", model=None, coords=None, check_bounds=True,
+                 device=None):
         self.name = name
         self.coords = dict(coords) if coords else {}
+        self.check_bounds = check_bounds
         self._RV_dims: Dict[str, tuple] = {}
         if device is None:
             device = (self.parent.device if self.parent is not None
@@ -684,9 +693,10 @@ class Model(WithMemoization, metaclass=ContextMeta):
             return self.logp_point(q, ordering, jacobian, draw)
         return logp
 
-    def logp_dlogp_function(self, grad_vars=None):
-        """cf. ``model.py:627`` — returns a :class:`ValueGradFunction`."""
-        return ValueGradFunction(self, grad_vars=grad_vars)
+    def logp_dlogp_function(self, grad_vars=None, **kwargs):
+        """cf. ``model.py:627`` — returns a :class:`ValueGradFunction`;
+        ``kwargs`` are its ``extra_vars`` and ``dtype``."""
+        return ValueGradFunction(self, grad_vars=grad_vars, **kwargs)
 
     def make_logp_dlogp_fn(self, jacobian=True):
         """``q: (n,) -> (logp, dlogp)`` for one flat point, on the model's
@@ -701,13 +711,28 @@ class Model(WithMemoization, metaclass=ContextMeta):
             return logp[0], grad[0]
         return logp_dlogp
 
-    def make_logp_fn(self):
-        """Batched logp without a gradient, ``q: (chains, n) -> (chains,)``
-        (cf. ``make_logp_fn``, ``model.py:601``, which is for one point and
-        is vmapped by its callers). Discrete values ride in ``q`` as
-        floats."""
-        ordering = self.ordering
-        return batched_value(lambda q: self.logp_point(q, ordering))
+    def make_logp_fn(self, jacobian=True, with_rng=False):
+        """The logp without a gradient (cf. ``model.py:601``). ``q: (n,)``,
+        one flat point, gives a 0-d tensor, as in the JAX package; ``q:
+        (chains, n)`` gives ``(chains,)``, the batch the gradient-free
+        steppers call. With ``with_rng`` the function takes ``(q, draw)``:
+        a minibatch draw (``data.minibatch_noise``; a leading axis on each
+        entry when ``q`` has one) stands where the JAX package's key
+        stands. One point is one call of the batch on ``q[None]``.
+        Discrete values ride in ``q`` as floats."""
+        batched = batched_value(self.logp_point_fn(jacobian))
+
+        def logp(q, draw=None):
+            draw = () if draw is None else (draw,)
+            if np.ndim(q) == 2:
+                return batched(q, *draw)
+            q = torch.as_tensor(q, dtype=torch_floatX(), device=self.device)
+            draw = [{k: v[None] for k, v in d.items()} for d in draw]
+            return batched(q[None], *draw)[0]
+
+        if with_rng:
+            return logp
+        return lambda q: logp(q)
 
     def varlogpt_point(self, q, ordering=None):
         """logp of the free variables alone, transforms' jacobians included,
@@ -840,15 +865,30 @@ class Model(WithMemoization, metaclass=ContextMeta):
                 "inside the model to allow updating.")
         node.set_value(values)
 
-    def check_test_point(self, test_point=None):
-        """Per-factor logp at the test point (cf. ``model.py:1199``)."""
-        env = self._point_to_env(test_point or self.test_point)
+    def _factor_logps(self, point=None):
+        """Each factor's logp at a Point (the test point by default),
+        ``{name: float}``."""
+        env = self._point_to_env(point or self.test_point)
         memo = {}
         return {f.name: float(f.logp_env(env, memo))
                 for f in self._factor_order}
 
-    def makefn(self, outs):
-        """A Point -> numpy values function (cf. ``model.py:1081``)."""
+    def check_test_point(self, test_point=None, round_vals=2):
+        """Each factor's logp at the test point, rounded to ``round_vals``
+        decimals (cf. ``model.py:755``): the JAX package's pandas Series,
+        or, where pandas is not installed (the card's machine), a dict of
+        the same values."""
+        vals = {k: float(np.round(v, round_vals))
+                for k, v in self._factor_logps(test_point).items()}
+        try:
+            import pandas as pd
+        except ImportError:
+            return vals
+        return pd.Series(vals, name="Log-probability of test_point")
+
+    def makefn(self, outs, point_fn=True):
+        """A Point -> numpy values function (cf. ``model.py:768``);
+        ``point_fn`` is accepted and unused, as in the JAX package."""
         single = not isinstance(outs, (list, tuple))
         outs_list = [outs] if single else list(outs)
 
@@ -865,10 +905,11 @@ class Model(WithMemoization, metaclass=ContextMeta):
 
     fastfn = fn
 
-    def profile(self, outs, n=1000, point=None):
+    def profile(self, outs, n=1000, point=None, profile=True):
         """Host-clock time of ``n`` evaluations of ``outs`` at a Point
         after a first one, each copied to the host (cf. ``model.py:786``):
-        ``{"n_calls", "compile_time_s", "total_time_s", "per_call_us"}``."""
+        ``{"n_calls", "compile_time_s", "total_time_s", "per_call_us"}``.
+        ``profile`` is accepted and unused, as in the JAX package."""
         point = point if point is not None else self.test_point
         f = self.makefn(outs)
         t0 = time.perf_counter()
@@ -881,10 +922,11 @@ class Model(WithMemoization, metaclass=ContextMeta):
         return {"n_calls": n, "compile_time_s": first,
                 "total_time_s": total, "per_call_us": total / n * 1e6}
 
-    def flatten(self, vars=None, order=None):
+    def flatten(self, vars=None, order=None, inputvar=None):
         """``FlatView(input, replacements, view)`` over the free variables
         (cf. ``model.py:806``): their test values concatenated, each
-        variable's slot, and the ordering."""
+        variable's slot, and the ordering. ``inputvar`` is accepted and
+        unused, as in the JAX package."""
         vars = self.free_RVs if vars is None else vars
         order = ArrayOrdering(vars) if order is None else order
         flat = np.concatenate([np.ravel(v.test_value) for v in vars]) \
@@ -909,7 +951,7 @@ class Model(WithMemoization, metaclass=ContextMeta):
             if orig in point or factor.name in point or isinstance(
                     factor, MultiObservedRV):
                 continue
-            val = factor.distribution.random(point=point, gen=gen)
+            val = factor.distribution._random(point=point, gen=gen)
             point[orig] = val
             if isinstance(factor, FreeRV) and factor.transform is not None:
                 point[factor.name] = factor.transform.forward(val, point, {})
@@ -923,7 +965,7 @@ class Model(WithMemoization, metaclass=ContextMeta):
         """Draws of ``size + dist.shape`` at a batched point, in one
         vectorized call: a shape that cannot be drawn so raises."""
         expect = tuple(size) + tuple(dist.shape)
-        out = dist.random(point=point, size=size, gen=gen)
+        out = dist._random(point=point, size=size, gen=gen)
         if tuple(out.shape) != expect:
             out = torch.broadcast_to(out, expect).contiguous()
         return out
@@ -973,6 +1015,20 @@ class Model(WithMemoization, metaclass=ContextMeta):
         if self.deterministics:
             bp.update(self._vmap_eval(self.deterministics, bp))
         return dict(bp)
+
+    def _draw_dtype(self, name, dtype):
+        """The numpy dtype of the JAX package's forward draws of ``name``,
+        whose tensor has ``dtype``: a variable drawn from its distribution
+        takes the family's (``Distribution._host_dtype``); any other value
+        (an unconstrained value, a deterministic) the JAX package's 32-bit
+        dtype of its kind."""
+        var = self.named_vars.get(name)
+        if isinstance(var, (TransformedRV, ObservedRV)) or (
+                isinstance(var, FreeRV) and var.transform is None):
+            return var.distribution._host_dtype()
+        if dtype.is_floating_point:
+            return np.dtype(floatX())
+        return np.dtype(bool) if dtype == torch.bool else np.dtype(intX())
 
     def sample_forward_conditional(self, points, idx, vars, size=None,
                                    gen=None):
@@ -1079,8 +1135,16 @@ compilef = fastfn
 
 
 class ValueGradFunction:
-    """Batched ``q: (chains, n) -> (logp (chains,), dlogp (chains, n))``
-    (cf. ``model.py:1052``).
+    """The model's logp and its gradient over the flat unconstrained vector
+    (cf. ``model.py:1052``). Called on
+
+    - one point, ``q: (n,)`` (numpy or a tensor), it keeps the JAX
+      package's contract, the scipy optimizers': ``f(q)`` gives ``(float,
+      numpy array)``, and ``f(q, grad_out=g)`` copies the gradient into
+      ``g`` and gives the float. The point is one call of the batch on
+      ``q[None]`` and one copy back to the host;
+    - a batch, ``q: (chains, n)``, it gives tensors, ``(logp (chains,),
+      dlogp (chains, n))``, on the model's device: what the samplers call.
 
     The model's logp is written for one point; ``torch.func.vmap`` carries
     the chain dimension through every op (see ``torchf``), and a
@@ -1091,17 +1155,21 @@ class ValueGradFunction:
     stands for its unconstrained one) are the columns of ``q``, in the
     order given; every other free variable is held at a fixed value shared
     by all chains, its test value until ``set_extra_values`` replaces it
-    (cf. ``model.py:1062-1141``).
+    (cf. ``model.py:1062-1141``). ``dtype`` (``floatX`` by default) is the
+    dtype of ``dict_to_array`` and of a point's cast; ``extra_vars`` is
+    kept, as the JAX package keeps it.
     """
 
-    def __init__(self, model, grad_vars=None):
+    def __init__(self, model, grad_vars=None, extra_vars=None, dtype=None):
         self.model = model
         grad_vars = model.free_RVs if grad_vars is None else [
             getattr(v, "transformed", v) for v in grad_vars]
         self._grad_vars = list(grad_vars)
         self.ordering = ArrayOrdering(self._grad_vars)
         self.size = self.ordering.size
-        self.dtype = torch_floatX()
+        self.dtype = np.dtype(dtype or floatX())
+        self._torch_dtype = getattr(torch, self.dtype.name)
+        self._extra_vars = list(extra_vars or [])
         grad_names = {v.name for v in self._grad_vars}
         self._extra_values = {v.name: np.asarray(v.test_value)
                               for v in model.free_RVs
@@ -1118,19 +1186,32 @@ class ValueGradFunction:
         (``{name: array}``); they are copied to the model's device once."""
         self._extra_values.update({k: np.asarray(v)
                                    for k, v in extra_values.items()})
-        self._fixed = {k: torch.as_tensor(v, dtype=self.dtype,
+        self._fixed = {k: torch.as_tensor(v, dtype=self._torch_dtype,
                                           device=self.model.device)
                        for k, v in self._extra_values.items()}
 
     def get_extra_values(self):
         return dict(self._extra_values)
 
-    def __call__(self, q, extra_vars=None):
+    def __call__(self, q, grad_out=None, extra_vars=None):
         if extra_vars is not None:
             self.set_extra_values(extra_vars)
-        if q.ndim != 2 or q.shape[1] != self.size:
-            raise ValueError(f"expected q of shape (chains, {self.size}), "
-                             f"got {tuple(q.shape)}")
+        if np.ndim(q) == 1 and np.shape(q)[0] == self.size:
+            q = torch.as_tensor(q, dtype=self._torch_dtype,
+                                device=self.model.device)
+            logp, grad = self._vag(q[None])
+            self._n_eval += 1
+            host = torch.cat([logp, grad[0]]).cpu().numpy()
+            if grad_out is None:
+                return float(host[0]), host[1:]
+            np.copyto(grad_out, host[1:])
+            return float(host[0])
+        if np.ndim(q) != 2 or q.shape[1] != self.size:
+            raise ValueError(f"expected q of shape ({self.size},) or "
+                             f"(chains, {self.size}), got {tuple(q.shape)}")
+        if grad_out is not None:
+            raise ValueError("grad_out is for one point, q of shape "
+                             f"({self.size},)")
         self._n_eval += 1
         return self._vag(q)
 
@@ -1144,8 +1225,8 @@ class ValueGradFunction:
         """A Point's values of ``grad_vars``, flat, as numpy."""
         vals = [np.ravel(np.asarray(point[vm.var]))
                 for vm in self.ordering.vmap]
-        return np.concatenate(vals).astype(floatX()) if vals else \
-            np.array([], dtype=floatX())
+        return np.concatenate(vals).astype(self.dtype) if vals else \
+            np.array([], dtype=self.dtype)
 
     def array_to_dict(self, q) -> Dict[str, np.ndarray]:
         q = np.asarray(q)

@@ -391,21 +391,22 @@ class OpNode(Node):
     __slots__ = ("fn", "args", "kwargs", "_test_value", "_device", "name")
 
     def __init__(self, fn: Callable, args: Sequence[Any], kwargs=None,
-                 name: Optional[str] = None):
+                 name: Optional[str] = None, test_value=None):
         self.fn = fn
         self.args = tuple(args)
         self.kwargs = dict(kwargs or {})
         self.name = name
         self._device = current_device()
-        self._test_value = None
+        self._test_value = None if test_value is None else \
+            _to_numpy(test_value)
 
     @property
     def test_value(self):
-        """The value at the operands' test values, computed on the device
-        the node was built for when first asked for (a shape query, a
-        distribution's default) and kept on the host. A graph that is only
-        evaluated, as GP prediction at thousands of new inputs, never
-        computes it."""
+        """The given ``test_value``, or the value at the operands' test
+        values, computed on the device the node was built for when first
+        asked for (a shape query, a distribution's default) and kept on the
+        host. A graph that is only evaluated, as GP prediction at thousands
+        of new inputs, never computes it."""
         if self._test_value is None:
             tv_args = [_test_operand(a, self._device) for a in self.args]
             self._test_value = _to_numpy(self.fn(*tv_args, **self.kwargs))

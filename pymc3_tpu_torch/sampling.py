@@ -427,7 +427,7 @@ def _check_bad_init(model, start):
         raise SamplingError(
             f"Initial evaluation of model at starting point failed!\n"
             f"Starting values:\n{point}\n\nInitial evaluation results:\n"
-            f"{model.check_test_point(point)}")
+            f"{model._factor_logps(point)}")
 
 
 def _resolve_trace_vars(model, trace):
@@ -485,7 +485,7 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
         for m in _members(step):
             if getattr(m, "adapt_step_size", False) and \
                     hasattr(m, "step_size") and hasattr(m, "potential"):
-                m.step_size = find_reasonable_eps(m, q, noise)
+                m.step_size = find_reasonable_eps(m, q, noise=noise)
     state = step.kernel_init(q)
     if warm_states is not None:
         state = _restore_warmup_state(step, state, warm_states)
@@ -785,7 +785,7 @@ def _attach_sample_stats_warnings(mtrace, step, tune, model=None):
             bad = bad.reshape(bad.shape[0], -1).any(axis=1)
             if bad.any():
                 idx = int(np.argmax(bad))
-                per_rv = model.check_test_point(mtrace.point(idx, chain=chain))
+                per_rv = model._factor_logps(mtrace.point(idx, chain=chain))
                 offenders = ", ".join(k for k, v in per_rv.items()
                                       if not np.isfinite(v)) or "unattributed"
                 found.append(SamplerWarning(
@@ -921,8 +921,9 @@ def _generator(model, random_seed):
                           else np.atleast_1d(random_seed)[0])
 
 
-def _host(x):
-    return x.detach().cpu().numpy()
+def _host(x, dtype):
+    """``x`` copied to the host once, as numpy of ``dtype``."""
+    return x.detach().cpu().numpy().astype(dtype, copy=False)
 
 
 def sample_prior_predictive(samples=500, model=None, vars=None,
@@ -953,7 +954,8 @@ def sample_prior_predictive(samples=500, model=None, vars=None,
     data = {}
     for name in names:
         if name in values:
-            out = _host(values[name])
+            v = values[name]
+            out = _host(v, model._draw_dtype(name, v.dtype))
             data[name] = out.reshape(size + out.shape[1:])
     if not data:
         raise AssertionError(
@@ -1009,7 +1011,10 @@ def _posterior_predictive(trace, samples, model, vars, var_names, size,
     idx = np.mod(np.arange(samples), n_points)
     out = model.sample_forward_conditional(points, idx, vars, size=size,
                                            gen=gen)
-    out = {k: _host(v) for k, v in out.items()}
+    # a value read from the trace keeps the trace's dtype
+    out = {k: _host(v, points[k].dtype if k in points
+                    else model._draw_dtype(k, v.dtype))
+           for k, v in out.items()}
     if keep_size:
         out = {k: v.reshape((nchain, len_trace) + v.shape[1:])
                for k, v in out.items()}

@@ -28,6 +28,7 @@ import torch
 from ..blocking import ArrayOrdering, DictToArrayBijection
 from ..config import torch_floatX
 from ..model import modelcontext
+from ..torchf import batched_value_and_grad
 
 __all__ = ["ArrayStep", "ArrayStepShared", "BlockedStep", "Competence",
            "GeneratorNoise", "GradientSharedStep", "TuneContext",
@@ -285,13 +286,20 @@ class GradientSharedStep(ArrayStepShared):
     """Stepper owning the batched logp+grad function
     (cf. ``arraystep.py:207``). Over a subset of the flat vector it works on
     ``x = q[:, idx]``: :meth:`_value_and_grad_at` gives the function of
-    ``x`` with the other coordinates held at ``q``'s values."""
+    ``x`` with the other coordinates held at ``q``'s values.
 
-    def __init__(self, vars, model=None, blocked=True, **kwargs):
+    ``logp_dlogp_func``, as in the JAX package, is the logp of one flat
+    point of the model, which the stepper batches and differentiates (the
+    model's own by default); ``dtype`` is accepted and unused, as there."""
+
+    def __init__(self, vars, model=None, blocked=True, dtype=None,
+                 logp_dlogp_func=None, **kwargs):
         model = modelcontext(model)
         self._setup_vars(vars, model)
         self.blocked = blocked
-        self._logp_dlogp_fn = model.logp_dlogp_function()
+        self._logp_dlogp_fn = model.logp_dlogp_function() \
+            if logp_dlogp_func is None \
+            else batched_value_and_grad(logp_dlogp_func)
 
     def _value_and_grad_at(self, q):
         """``x -> (logp, dlogp/dx)`` over this stepper's columns, the rest

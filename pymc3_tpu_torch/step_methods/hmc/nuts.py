@@ -38,9 +38,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...config import floatX
+from ...config import floatX, torch_floatX
+from ...distributions.distribution import make_generator
 from ...model import modelcontext
-from ..arraystep import Competence, TuneContext
+from ..arraystep import Competence, GeneratorNoise, TuneContext
 from ..step_sizes import DAState, da_init, da_update, da_current
 from .base_hmc import BaseHMC
 from .integration import IntegrationState, leapfrog
@@ -272,13 +273,23 @@ def nuts_draw(noise, start: IntegrationState, h0, step_size, var,
                  diverging)
 
 
-def find_reasonable_eps(step, q0, noise):
+def find_reasonable_eps(step, q0_batch, seed=None, noise=None):
     """Stan-style step-size probe (cf. ``find_reasonable_eps``,
     nuts.py:310): double or halve eps until the one-leapfrog acceptance,
     pooled over all chains (of every rank of ``step.mesh``), lands in
     [0.25, 0.9], so that every rank starts from the same eps. One host sync
     per probe (at most 30). A stepper over a subset of the flat vector is
-    probed on its own coordinates, the others held at ``q0``'s values."""
+    probed on its own coordinates, the others held at ``q0_batch``'s
+    values. ``q0_batch`` is ``(chains, n)``, numpy or a tensor. The momenta
+    come from ``noise`` (a ``GeneratorNoise``) or, as in the JAX package,
+    from ``seed``: an int that seeds a generator on the model's device."""
+    if (seed is None) == (noise is None):
+        raise TypeError("find_reasonable_eps takes one of seed and noise")
+    device = step.model.device
+    q0 = torch.as_tensor(q0_batch, dtype=torch_floatX(), device=device)
+    if noise is None:
+        noise = GeneratorNoise(make_generator(device, seed), q0.shape[0],
+                               device)
     pot = step.potential.init_kernel_state(q0.shape[0], q0.device)
     var = kernel_mass(pot)
     logp_fn = step._value_and_grad_at(q0)
@@ -379,6 +390,7 @@ class NUTS(BaseHMC):
     ``axis_name`` (any value) turns on pooled adaptation across all chains
     of the batch: one step size, one mass matrix, the per-lane step-size
     fallback and the stuck-lane rescue, as in the JAX package.
+    ``step_rand`` is accepted and unused, as there.
     """
 
     name = "nuts"
@@ -402,8 +414,8 @@ class NUTS(BaseHMC):
 
     def __init__(self, vars=None, max_treedepth=10, early_max_treedepth=8,
                  target_accept=0.8, step_scale=0.25, Emax=1000,
-                 adapt_step_size=True, potential=None, model=None,
-                 scaling=None, is_cov=False,
+                 adapt_step_size=True, step_rand=None, potential=None,
+                 model=None, scaling=None, is_cov=False,
                  gamma=0.05, k=0.75, t0=10, axis_name=None,
                  rescue_stuck=True, **kwargs):
         model = modelcontext(model)

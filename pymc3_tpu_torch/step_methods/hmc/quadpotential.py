@@ -203,13 +203,28 @@ def diag_adapt_init(initial_mean, initial_diag, initial_weight,
         n_samples=torch.zeros(chains, dtype=torch.int32, device=device))
 
 
+def _pooled_from_axis_name(axis_name, pooled):
+    """``pooled`` given the JAX package's ``axis_name``: a name means
+    pooled over the chain axis, as its ``psum`` over the vmapped chains;
+    ``None`` leaves ``pooled`` (unpooled by default). A name with
+    ``pooled=False`` disagrees and raises."""
+    if axis_name is None:
+        return bool(pooled)
+    if pooled is not None and not pooled:
+        raise ValueError(f"axis_name={axis_name!r} pools over the chains; "
+                         "pooled=False disagrees")
+    return True
+
+
 def diag_adapt_update(state: DiagAdaptState, sample, tune: bool,
-                      adaptation_window=101, pooled: bool = False,
+                      adaptation_window=101, axis_name=None, pooled=None,
                       mesh=None) -> DiagAdaptState:
     """One adaptation step (cf. ``diag_adapt_update``, quadpotential.py:136):
     add the sample to both estimators, refresh ``var`` from the foreground
-    (pooled over chains with ``pooled``, and over the ranks of ``mesh``),
-    and at window ends promote the background to the foreground."""
+    (pooled over chains with ``pooled`` or an ``axis_name``, and over the
+    ranks of ``mesh``), and at window ends promote the background to the
+    foreground."""
+    pooled = _pooled_from_axis_name(axis_name, pooled)
     if not tune:
         return state
     fg = welford_add(state.fg, sample)
@@ -351,14 +366,16 @@ def dense_adapt_init(initial_mean, initial_cov, initial_weight, chains,
 
 
 def dense_adapt_update(state: DenseAdaptState, sample, tune: bool,
-                       window_multiplier=2.0, pooled: bool = False,
+                       window_multiplier=2.0, axis_name=None, pooled=None,
                        mesh=None) -> DenseAdaptState:
     """One dense-adaptation step (cf. ``dense_adapt_update``,
     quadpotential.py:311): add the sample to both covariance estimators,
     refresh ``cov``/``chol`` from the foreground (pooled over chains with
-    ``pooled``, and over the ranks of ``mesh``), and at window ends
-    promote the background and double the window. Where the estimate is not positive definite, or has weight
-    2 or less, the chain keeps its previous factor."""
+    ``pooled`` or an ``axis_name``, and over the ranks of ``mesh``), and at
+    window ends promote the background and double the window. Where the
+    estimate is not positive definite, or has weight 2 or less, the chain
+    keeps its previous factor."""
+    pooled = _pooled_from_axis_name(axis_name, pooled)
     if not tune:
         return state
     fg = welford_cov_add(state.fg, sample)

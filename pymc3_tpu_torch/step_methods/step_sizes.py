@@ -30,8 +30,12 @@ class DAState(NamedTuple):
     tuned_count: torch.Tensor
 
 
-def da_init(initial_step, mu_scale=10.0) -> DAState:
-    """``initial_step``: ``(chains,)`` tensor of starting step sizes."""
+def da_init(initial_step, target=0.8, mu_scale=10.0) -> DAState:
+    """``initial_step``: starting step sizes, a ``(chains,)`` tensor (or a
+    number). ``target`` is accepted and unused, as in the JAX package:
+    :func:`da_update` takes the target."""
+    if not isinstance(initial_step, torch.Tensor):
+        initial_step = torch.as_tensor(initial_step, dtype=torch_floatX())
     z = torch.zeros_like(initial_step)
     log_step = torch.log(initial_step)
     return DAState(log_step=log_step, log_bar_step=log_step.clone(), hbar=z,

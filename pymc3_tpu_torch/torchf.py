@@ -53,12 +53,13 @@ def batched_value_and_grad(logp_point: Callable) -> Callable:
 
 def batched_value(logp_point: Callable) -> Callable:
     """``q: (chains, n) -> logp (chains,)`` from a scalar ``logp_point(q:
-    (n,))``, with no autograd graph: what a gradient-free stepper calls."""
+    (n,))``, with no autograd graph: what a gradient-free stepper calls.
+    Further arguments (a minibatch draw) are batched with ``q``."""
     batched = torch.func.vmap(logp_point)
 
-    def value(q):
+    def value(q, *args):
         with torch.no_grad():
-            return batched(q)
+            return batched(q, *args)
     return value
 
 
@@ -181,14 +182,17 @@ class CallableTensor:
                      as_node(input))
 
 
-def join_nonshared_inputs(xs: Sequence, vars: Sequence, shared: Dict):
+def join_nonshared_inputs(xs: Sequence, vars: Sequence, shared: Dict,
+                          make_shared: bool = False):
     """``vars`` joined into one flat input (cf. ``jaxf.py:168``).
 
     Returns ``(new_xs, joined)``: ``joined`` is a named node
     ``'__joined__'`` holding the flat concatenation of the variables' test
     values, and each graph of ``xs`` is rewritten to read its variables as
     reshaped slices of it. ``shared`` maps a variable (or its name) to a
-    fixed value for the inputs left out of the join."""
+    fixed value for the inputs left out of the join. ``make_shared`` is
+    accepted and unused, as in the JAX package: the joined input is always
+    a named node, fed through the environment."""
     if not vars:
         raise ValueError("Empty list of variables.")
     vars = [as_node(v) for v in vars]

@@ -251,10 +251,14 @@ class ObjectiveFunction:
             return params, opt_state, val
         return step, opt
 
-    def sharded_step_function(self, mesh, obj_n_mc=1, obj_optimizer=None):
+    def sharded_step_function(self, mesh, obj_n_mc=1, obj_optimizer=None,
+                              axis_name=None):
         """Data-parallel step over the ranks of ``mesh`` (a
         ``parallel.ChainMesh``; cf. ``opvi.py:207-250``): ``step(params,
         opt_state, noise) -> (params, opt_state, loss)`` and its optimizer.
+        ``axis_name``, as in the JAX package, names the mesh's axis the
+        step averages over (its chain axis, the one it has); another name
+        raises.
 
         Every rank calls ``step`` with the same parameters and its own
         ``noise`` (its minibatch and Monte-Carlo draws, from its own
@@ -263,6 +267,9 @@ class ObjectiveFunction:
         the parameters after it, are the same on every rank. A non-finite
         averaged loss zeroes the whole gradient and a non-finite entry its
         own, as in :meth:`step_function`."""
+        if axis_name is not None and axis_name not in mesh.axis_names:
+            raise ValueError(f"axis_name={axis_name!r} is not an axis of the "
+                             f"mesh, {mesh.axis_names}")
         opt = get_optimizer(obj_optimizer if obj_optimizer is not None
                             else adagrad_window())
         loss = self.loss_fn(obj_n_mc)

@@ -200,10 +200,10 @@ def test_init_value_and_random():
     for name in ("w", "sigma"):
         want = np.asarray(jm[name].random(size=4))
         got = tm[name].random(size=4, gen=gen)
-        assert isinstance(got, torch.Tensor)
-        assert tuple(got.shape) == want.shape
-        assert torch.all(torch.isfinite(got))
-    assert torch.all(tm["sigma"].random(size=1000, gen=gen) > 0)
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype
+        assert got.shape == want.shape
+        assert np.all(np.isfinite(got))
+    assert np.all(tm["sigma"].random(size=1000, gen=gen) > 0)
 
 
 # -- the model's surface (fault 3) --------------------------------------------
@@ -248,7 +248,7 @@ def test_model_views_and_functions():
 
 @pytest.mark.parametrize("call", [
     lambda: pt.Model(devcie="cpu"),
-    lambda: pt.Model(device="cpu").logp_dlogp_function(dtype="float32"),
+    lambda: pt.Model(device="cpu").logp_dlogp_function(dtpye="float32"),
 ], ids=["Model", "logp_dlogp_function"])
 def test_an_unknown_keyword_raises(call):
     """A misspelt or unsupported keyword is a ``TypeError``, not an option

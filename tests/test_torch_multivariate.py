@@ -288,8 +288,8 @@ def test_model_logp_and_gradient_match_jax(name):
 # -- draws --------------------------------------------------------------------
 def _draws(dist, seed, size=N):
     out = dist.random(size=size, gen=torch.Generator().manual_seed(seed))
-    assert isinstance(out, torch.Tensor)
-    return out.numpy().astype(np.float64)
+    assert isinstance(out, np.ndarray)
+    return out.astype(np.float64)
 
 
 def _within(est, want, se):

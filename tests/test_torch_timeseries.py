@@ -157,13 +157,13 @@ def test_draws_of_ar1_and_grw():
     n = 20000
     gen = torch.Generator().manual_seed(3)
     y = pt.GaussianRandomWalk.dist(mu=0.5, sigma=2.0, shape=50).random(
-        size=400, gen=gen).numpy().astype(np.float64)
+        size=400, gen=gen).astype(np.float64)
     inc = np.diff(y, axis=-1).ravel()
     assert abs(inc.mean() - 0.5) < 4 * 2.0 / np.sqrt(inc.size)
     assert abs(inc.std() / 2.0 - 1) < 4 / np.sqrt(2 * inc.size)
     k, tau_e = 0.7, 2.0
     y = pt.AR1.dist(k=k, tau_e=tau_e, shape=5).random(
-        size=n, gen=gen).numpy().astype(np.float64)
+        size=n, gen=gen).astype(np.float64)
     var = 1.0 / (tau_e * (1 - k ** 2))
     # stationary from the start: every column has the same variance
     assert np.all(np.abs(y.var(0) / var - 1) < 4 * np.sqrt(2.0 / n))

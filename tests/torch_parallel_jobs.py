@@ -110,7 +110,7 @@ def nuts_transitions(mesh=None):
     gen.manual_seed(NUTS_SEED)
     noise = parallel.GlobalNoise(gen, NUTS_CHAINS, "cpu", rows)
     q = torch.from_numpy(q0[rows])
-    step.step_size = tnuts.find_reasonable_eps(step, q, noise)
+    step.step_size = tnuts.find_reasonable_eps(step, q, noise=noise)
     state = step.kernel_init(q)
     out = {}
     for i in range(NUTS_TRANSITIONS):

@@ -239,6 +239,23 @@ def map_radon(pm):
             "wall_s": wall}
 
 
+def lbfgs_radon(pm):
+    """scipy's L-BFGS-B on radon's logp (the transforms' jacobians
+    included) from the test point, driven through the one-point contract
+    ``f(q, grad_out=g)`` of ``logp_dlogp_function()``
+    (``examples.suite.lbfgs_through_grad_out``): the optimum and -logp
+    there."""
+    from pymc3_tpu_torch.examples.radon import build_model
+    from pymc3_tpu_torch.examples.suite import lbfgs_through_grad_out
+    model = build_model(pm)
+    f = model.logp_dlogp_function()
+    t0 = time.time()
+    res = lbfgs_through_grad_out(f, f.dict_to_array(model.test_point))
+    return {"q": np.asarray(res.x, np.float64).tolist(),
+            "neg_logp": float(res.fun), "iterations": int(res.nit),
+            "wall_s": time.time() - t0}
+
+
 # SMC on the GP: particles and seeds
 SMC_GP = {"draws": 4096, "seeds": (1, 2, 3, 4)}
 
@@ -524,7 +541,8 @@ def aevb_vae(pm):
 FITS = {"advi_logistic": advi_logistic, "advi_sharded": advi_sharded,
         "aevb_vae": aevb_vae,
         "advi_gp": advi_gp,
-        "map_radon": map_radon, "smc_gp": smc_gp, "glm_radon": glm_radon,
+        "map_radon": map_radon, "lbfgs_radon": lbfgs_radon, "smc_gp": smc_gp,
+        "glm_radon": glm_radon,
         "examples": examples}
 
 
