@@ -23,7 +23,10 @@ a non-zero exit and no result line:
    (4096, 20, 20, 1) forward, the conditional's (500, 200, 200, 1) forward
    (phase 5's ``plot_gp_dist`` data), ``gp_example``'s (256, 60, 60, 1)
    both ways (phase 25), and a batch of 70,000 that the wrappers cut into two
-   launches, each checked the same way;
+   launches, each checked the same way; then phase 31's kernel part: the
+   float64 builds of both kernels against their plain float64 versions and
+   timed (``phase_kernel_f64``); the build line also prints the static
+   count of FP64 instructions in each float64 kernel's SASS;
 4. GP marginal regression (``pymc3_tpu_torch/examples/suite.py``, n = 200,
    200 tune + 500 draws, 4 chains; tune cut from 500, then 300) sampled by NUTS
    through both kernels; moment check against ``BASELINE_CPU.json`` and
@@ -95,7 +98,9 @@ a non-zero exit and no result line:
    reference, R-hat of ``nu`` < 1.15;
 14. GARCH(1,1) (``examples/garch_example.py``) at 256 chains, depth cap 5,
    100 tune + 60 draws (cut from 200, then 100): the three parameters against the
-   reference, R-hat < 1.25 (two of them trade off and mix slowly);
+   reference, R-hat < 1.25 (two of them trade off and mix slowly); then
+   GARCH11's block length: logp+grad ms and peak device memory at 5,000
+   returns, 256 and 2048 chains, for each length of ``GARCH_SWEEP``;
 15. a latent GP of 100 inputs (``examples/suite.py::es_model``: its prior
    covariance is one launch of the forward kernel) under
    ``EllipticalSlice`` at 256 chains, 300 tune (cut from 1000) + 1300
@@ -225,10 +230,20 @@ a non-zero exit and no result line:
    package's optimum, ``make_logp_fn(jacobian=False)``, the dtypes of
    ``sample_prior_predictive`` and ``draw_values`` with a distribution; its
    wall within 10 s;
-31. a JSON line describing every kernel, then the result line
-   ``{"ok": true, "device": {...}}``.
+31. float64 (``phase_float64``), in a worker process started before phase
+   14 with ``PYMC3_TPU_FLOATX=float64`` in its environment (in the main
+   process under ``--only float64``): the GP of phase 4 through both
+   float64 kernels (launches counted, both above 0), radon at 2048 chains
+   and phase 20's SMC at 65,536 particles, gated as phases 4, 26 and 20
+   but R-hat < 1.01 for the GP (its draws doubled to 1,000 for that); the
+   GP's and radon's ESS/s and logp+grad ms at float64 beside phase 4's
+   and 26's float32 numbers and float32 logp+grad ms timed in the same
+   worker;
+32. a JSON line describing every kernel (the float64 entry points beside
+   the float32 ones), then the result line ``{"ok": true, "device":
+   {...}}``.
 
-Phases 9-30 each print a JSON line of their own (each with the card's name
+Phases 9-31 each print a JSON line of their own (each with the card's name
 and power limit, and its ms per logp+grad or logp-only call or per VI
 step). Every model is built with no device argument and must come out on
 the card: that is the port's default.
@@ -244,11 +259,13 @@ sampling). With ``--against DIR``, a checkout of another commit, it also
 times that commit's forward kernel in the same call, in turns (other, this,
 this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
 (DIR, this, this, DIR) and prints each wall. ``--only NAMES`` runs phases
-1-3 and then the named ones of phases 6-30 (radon, best, mixture, disaster,
+1-3 and then the named ones of phases 6-31 (radon, best, mixture, disaster,
 binary, population, lkj, sv, garch, es, labels, advi_minibatch, advi_gp,
 svgd_map, api, smc_bimodal, smc_gp, gp_sparse, ode, glm, examples, traces,
-multirank, aevb, plots; ``radon`` runs phase 26, which holds phase 6's
-run; ``plots`` runs phase 26, then phase 29).
+multirank, aevb, float64, plots; ``radon`` runs phase 26, which holds phase
+6's run; ``plots`` runs phase 26, then phase 29; ``float64`` prints phase
+4's float32 ESS/s as null, and phase 26's too unless ``radon`` ran
+first).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -273,17 +290,28 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FWD_TOL = dict(rtol=2e-5, atol=2e-6)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 
-# NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
-# tensor cores
+# NVIDIA H100 SXM data sheet: device memory rate, float32 and float64 rates
+# outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
+# FP64 instructions a float64 expquad element costs beyond d2, forward
+# (f = exp(-d2 / 2): a multiply and exp) and backward (w = g f'(d2): two
+# multiplies and exp). CUDA's double exp runs on the FP64 pipes (the SFU
+# has no double path): a reduction by rint(x log2 e) and two fused
+# multiply-adds against a split ln 2, a degree-11 polynomial by Horner's
+# rule and a scale, about 16 instructions. The build line prints the static
+# FP64 count of each float64 kernel's SASS beside it (expquad's small
+# forward kernel: its four outputs and the unrolled feature loop).
+F64_EXP_OPS = 16
+F64_EXPQUAD_OPS = {"forward": 1 + F64_EXP_OPS, "backward": 2 + F64_EXP_OPS}
 
 SOURCE = "pymc3_tpu_torch/csrc/gp_cov.cu"
 LATER_PHASES = ("best", "mixture", "disaster", "binary",
                 "population", "lkj", "sv", "garch", "es", "labels",
                 "advi_minibatch", "advi_gp", "svgd_map", "api",
                 "smc_bimodal", "smc_gp", "gp_sparse", "ode", "glm",
-                "examples", "traces", "multirank", "aevb")
+                "examples", "traces", "multirank", "aevb", "float64")
 MAIN_SHAPE = (4, 200, 200, 1)
 # the GP's sample(), predict's two widths, ADVI's fifty Monte-Carlo samples
 # a step (phase 18), SMC's 4,096 particles on the GP (phase 21), and FITC's
@@ -307,6 +335,13 @@ TIMED_SHAPES = (MAIN_SHAPE, (1, 4096, 4096, 4), (1, 200, 16384, 1),
 TIMED_KIND = {shape: "matern52" for shape in FITC_SHAPES}
 # a batch above the 65,535 blocks of gridDim.z: the wrappers cut it
 CHUNKED_SHAPE = (70_000, 8, 8, 1)
+# phase 31: the float64 kernels' checked and timed shapes and tolerances
+# (max |Δ| over max |want|, see phase_kernel_f64)
+F64_SHAPES = (MAIN_SHAPE, VI_SHAPE, (1, 4096, 4096, 4), FITC_SHAPE,
+              CHUNKED_SHAPE)
+F64_TIMED = (MAIN_SHAPE, VI_SHAPE, (1, 4096, 4096, 4))
+F64_FWD_REL = 1e-12
+F64_BWD_REL = 1e-10
 
 
 def fail(msg):
@@ -372,12 +407,40 @@ def phase_device():
     return card
 
 
+def _sass_fp64_counts(path, kinds):
+    """FP64 instructions (DADD, DMUL, DFMA, the 64-bit MUFU seeds) in the
+    SASS of each float64 forward kernel, vector variant, by kind: a static
+    count over its four outputs a thread and its unrolled feature loop, to
+    set beside ``F64_EXPQUAD_OPS``. None where ``cuobjdump`` is missing."""
+    import re
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True).stdout
+    counts = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0]
+        hit = re.search(r"cov_(forward_small|forward_tiled|backward_regs)"
+                        r"_kernelILi(\d)E(?:Lb1E|Li1E)dE", name)
+        if hit:
+            kind = f"{hit.group(1)}_{kinds[int(hit.group(2))]}"
+            counts[kind] = len(re.findall(
+                r"\b(?:DADD|DMUL|DFMA|MUFU\.(?:RSQ64H|RCP64H))\b", body))
+    return counts
+
+
 def phase_build(gp_cov):
-    path, seconds, log = gp_cov.build()
+    paths, seconds, log = gp_cov.build()
     ptxas = " | ".join(line.strip() for line in log.splitlines()
                        if "registers" in line or "spill" in line)
-    print(f"build: {path.name} in {seconds:.1f} s", flush=True)
+    print(f"build: {', '.join(p.name for p in paths.values())} in "
+          f"{seconds:.1f} s (two nvcc runs at once)", flush=True)
     print(f"ptxas: {ptxas}", flush=True)
+    print("sass fp64 instructions (static, float64 kernels): "
+          + json.dumps(_sass_fp64_counts(paths[torch.float64],
+                                         gp_cov.STATIONARY_KINDS)),
+          flush=True)
 
 
 def _inputs(B, n, m, d, seed, scale=1.0):
@@ -434,20 +497,32 @@ def _check_backward(gp_cov, kind, shape, seed):
     return err
 
 
-def _bound_ms(direction, shape):
+def _bound_ms(direction, shape, dtype=torch.float32):
     """The least time the card could take: each input read once and each
-    output written once at the memory rate, or the float32 operations at
-    their peak, whichever is larger. Returns (ms, "bytes" | "operations")."""
+    output written once at the memory rate, or the operations at their
+    peak for the element type, whichever is larger. In float32, FLOPs
+    against the float32 rate (expf on the SFU, outside it); in float64, the
+    expquad kernel's FP64 instructions (each takes the slot of a fused
+    multiply-add, two FLOPs of the FP64 rate; exp among them,
+    ``F64_EXPQUAD_OPS``). Returns (ms, "bytes" | "operations")."""
     B, n, m, d = shape
     small = B * (n + m) * d
+    size = torch.empty((), dtype=dtype).element_size()
     if direction == "forward":
-        nbytes = 4 * (B * n * m + small)        # K out; X, Xs in
-        flops = B * n * m * (3 * d + 4)         # differences, f(d2)
+        nbytes = size * (B * n * m + small)     # K out; X, Xs in
     else:
-        nbytes = 4 * (B * n * m + 2 * small)    # g, X, Xs in; dX, dXs out
-        flops = B * n * m * (7 * d + 6)         # d2, f'(d2), two sums
+        nbytes = size * (B * n * m + 2 * small)  # g, X, Xs in; dX, dXs out
+    if dtype == torch.float64:
+        # a difference and a fused multiply-add a feature for d2; in the
+        # backward also two fused multiply-adds a feature for the sums
+        per = (2 if direction == "forward" else 4) * d \
+            + F64_EXPQUAD_OPS[direction]
+        by_ops = 1e3 * 2 * B * n * m * per / PEAK_F64_FLOPS
+    else:
+        flops = B * n * m * ((3 * d + 4) if direction == "forward"
+                             else (7 * d + 6))  # d2, f or f', the sums
+        by_ops = 1e3 * flops / PEAK_F32_FLOPS
     by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    by_ops = 1e3 * flops / PEAK_F32_FLOPS
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
@@ -618,6 +693,107 @@ def phase_kernel(gp_cov, card, other=None):
     return max_err, _time_kernels(gp_cov, card, other)
 
 
+def _check_rel(what, got, want, rel):
+    """max |got - want| <= rel * max |want| and every value finite;
+    returns max |got - want| and that over max |want|."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not bool(torch.isfinite(got).all()) or not err <= rel * scale:
+        fail(f"{what}: max |err| {err:.3e} exceeds {rel:g} x max |want| "
+             f"{scale:.3e}")
+    return err, err / scale
+
+
+def _double(*tensors):
+    return tuple(t.double() for t in tensors)
+
+
+def phase_kernel_f64(gp_cov, card):
+    """Phase 31's kernel part, in the main process right after phase 3
+    (before any worker starts, so its device times are the card's alone):
+    the float64 builds of both kernels (``gp_cov_forward_f64``,
+    ``gp_cov_backward_f64``) against their plain float64 versions, all five
+    kinds at ``F64_SHAPES`` (the GP's, GP ADVI's, predict's 4,096 x 4,096 at
+    d = 4, FITC's cross-covariance and a batch cut into two launches), then
+    the scalar store variant (odd m), the staged backward (d = 7 in one
+    pass of 8 doubles, d = 20 in three) and the whole op's gradients through
+    autograd. Tolerances: max |Δ| <= 1e-12 x max |K| forward and <= 1e-10 x
+    max |dX| backward (both in double; the kernel and the plain version sum
+    the same terms in another order, and the plain backward's rowsum(w) X
+    - w Xs cancels where the kernel sums w (x - x'), so the inputs of the
+    backward lie apart as in phase 3). Then times both at ``F64_TIMED``
+    beside the float32 rows of phase 3. Returns (max absolute error per
+    direction, timing rows)."""
+    cases = [(kind, shape) for shape in F64_SHAPES
+             for kind in gp_cov.STATIONARY_KINDS]
+    cases += [("matern32", (3, 201, 203, 1)), ("matern12", (2, 70, 300, 7)),
+              ("exponential", (1, 64, 48, 20))]
+    max_err = {"forward": 0.0, "backward": 0.0}
+    for i, (kind, shape) in enumerate(cases):
+        B, n, m, d = shape
+        calls = gp_cov.LAUNCHES, gp_cov.BACKWARD_LAUNCHES
+        X, Xs = _double(*_inputs(*shape, seed=200 + i))
+        fwd = _check_rel(f"float64 {kind} {shape} forward",
+                         gp_cov.stationary_cov(X, Xs, kind),
+                         gp_cov.stationary_cov_reference(X, Xs, kind),
+                         F64_FWD_REL)
+        X, Xs = _double(*_apart(*shape, seed=200 + i))
+        g = _cotangent(B, n, m, 200 + i).double()
+        got = gp_cov._launch_backward(kind, g, X, Xs)
+        want = gp_cov.stationary_cov_backward_reference(g, X, Xs, kind)
+        bwd = max(_check_rel(f"float64 {kind} {shape} backward {name}", a,
+                             b, F64_BWD_REL)
+                  for name, a, b in zip(("dX", "dXs"), got, want))
+        if (gp_cov.LAUNCHES - calls[0],
+                gp_cov.BACKWARD_LAUNCHES - calls[1]) != (1, 1):
+            fail(f"float64 {kind} {shape}: the kernels were not launched "
+                 "once each")
+        max_err["forward"] = max(max_err["forward"], fwd[0])
+        max_err["backward"] = max(max_err["backward"], bwd[0])
+        print(f"float64 kernels ok: {kind} B,n,m,d={shape} forward "
+              f"max|err|/max|K| {fwd[1]:.2e}, backward max|err|/max|dX| "
+              f"{bwd[1]:.2e}", flush=True)
+    X, Xs = _double(*_apart(*MAIN_SHAPE, seed=250))
+    grads = []
+    for fn in (gp_cov.stationary_cov, gp_cov.stationary_cov_reference):
+        Xg, Xsg = X.clone().requires_grad_(), Xs.clone().requires_grad_()
+        torch.sin(fn(Xg, Xsg, kind="expquad")).sum().backward()
+        grads.append((Xg.grad, Xsg.grad))
+    for name, a, b in zip(("dX", "dXs"), grads[0], grads[1]):
+        if a.dtype != torch.float64:
+            fail(f"float64 autograd {name} came back as {a.dtype}")
+        _check_rel(f"float64 autograd {name}", a, b, F64_BWD_REL)
+    print("float64 kernels ok: autograd through the op, float64 gradients",
+          flush=True)
+
+    rows = {"forward": {}, "backward": {}}
+    for shape in F64_TIMED:
+        B, n, m, d = shape
+        X, Xs = _double(*_inputs(*shape, seed=7))
+        g = _cotangent(B, n, m, 7).double()
+        plain_n = 20 if n * m > 1_000_000 else 100
+        calls = {
+            "forward": (lambda: gp_cov._launch("expquad", X, Xs),
+                        lambda: gp_cov.stationary_cov_reference(
+                            X, Xs, "expquad")),
+            "backward": (lambda: gp_cov._launch_backward("expquad", g, X,
+                                                         Xs),
+                         lambda: gp_cov.stationary_cov_backward_reference(
+                             g, X, Xs, "expquad")),
+        }
+        for direction, (kernel, plain) in calls.items():
+            bound, by = _bound_ms(direction, shape, torch.float64)
+            row = dict(device_ms=device_ms(kernel), issue_ms=issue_ms(kernel),
+                       plain_ms=device_ms(plain, launches=plain_n),
+                       bound_ms=bound, bound_by=by)
+            rows[direction][shape] = row
+            print(f"timing float64 expquad {direction} B,n,m,d={shape}: "
+                  + json.dumps(row) + " share_of_bound "
+                  f"{row['bound_ms'] / row['device_ms']:.3f} ({card})",
+                  flush=True)
+    return max_err, rows
+
+
 def _baseline():
     with open(os.path.join(ROOT, "BASELINE_CPU.json")) as f:
         return json.load(f)["configs"]
@@ -710,8 +886,8 @@ def phase_gp(pm, gp_cov, draws=500, tune=200, chains=4):
         fail("the GP main path never launched the forward gp_cov kernel")
     if launches["backward"] <= 0:
         fail("the GP main path never launched the backward gp_cov kernel")
-    _gate(pm, trace, names, _baseline()["gp"]["moments"], wall, "gp",
-          rhat_limit=1.02)
+    RESULTS["gp"] = _gate(pm, trace, names, _baseline()["gp"]["moments"],
+                          wall, "gp", rhat_limit=1.02)
     return launches, (model, gp, trace)
 
 
@@ -1337,8 +1513,8 @@ def phase_sv(pm, card, draws=40, tune=20, chains=256):
 
 def phase_garch(pm, card, draws=60, tune=100, chains=256):
     """``examples/garch_example.py``: 100 returns, three ``Uniform``
-    priors, ``GARCH11`` (its volatility one Toeplitz product with powers of
-    beta, not a loop), NUTS pooled over 256 chains at the example's
+    priors, ``GARCH11`` (its volatility a blocked linear recursion, one
+    Toeplitz product with powers of beta at 100 returns, not a loop), NUTS pooled over 256 chains at the example's
     target_accept 0.8, the tree depth capped at 5 (31 leapfrogs). A first
     run on the card (tune 200, no cap) took 279.72 s: mean depth 3.39, but
     every draw waited for a lane at depth 6 (most lanes need 3-4 and the
@@ -1351,12 +1527,65 @@ def phase_garch(pm, card, draws=60, tune=100, chains=256):
     card with 300 draws, 1.0719 without the depth cap); ``alpha1`` (0.16
     per draw) is near 1.03. Draws are 60 (cut from 200, then 100) for the
     run's budget: R-hat 1.0698 on the card at 150 draws and 1.0830 at 100,
-    so about 1.14 at 60 (R-hat - 1 grows as 1 / draws)."""
+    so about 1.14 at 60 (R-hat - 1 grows as 1 / draws). Then the block
+    length's timings (:func:`_garch_blocks`)."""
     from pymc3_tpu_torch.examples import garch_example
     out, _ = _nuts_phase(pm, card, "garch", garch_example.build_model(),
                          ["alpha1", "beta1", "omega"], draws, tune, chains,
                          1.25, max_treedepth=5)
+    out["blocks"] = _garch_blocks(pm, card)
     print(json.dumps(out), flush=True)
+
+
+# the block lengths timed for GARCH11's volatility (timeseries.GARCH_BLOCK)
+# on a series of 5,000 returns at 256 and 2048 chains
+GARCH_SWEEP = {"returns": 5000, "chains": (256, 2048),
+               "blocks": (16, 32, 64, 128, 256)}
+
+
+def _garch_blocks(pm, card):
+    """GARCH11's block length on the card: for each of
+    ``GARCH_SWEEP["blocks"]``, logp+grad ms and the peak device memory
+    above what was allocated before, on phase 14's model over 5,000 seeded
+    returns at 256 and 2048 chains, and its logp at 4 points against the
+    chosen length's (float32, rtol 1e-5: the same terms summed in other
+    blocks). The whole series' Toeplitz product would take 25.6 GB of
+    powers at 256 chains and 205 GB at 2048."""
+    from pymc3_tpu_torch.distributions import timeseries
+    n = GARCH_SWEEP["returns"]
+    returns = np.random.default_rng(5).normal(0, 1, n).astype(np.float32)
+    with pm.Model() as model:
+        alpha1 = pm.Uniform("alpha1", 0.0, 1.0)
+        beta1 = pm.Uniform("beta1", 0.0, 1.0 - 0.01)
+        omega = pm.Uniform("omega", 0.0, 10.0)
+        pm.GARCH11("r", omega=omega, alpha_1=alpha1, beta_1=beta1,
+                   initial_vol=1.0, shape=n, observed=returns)
+    _on_card(model, "garch blocks")
+    q = torch.as_tensor(np.random.default_rng(6).normal(
+        0, 1, (4, len(model.dict_to_array(model.test_point)))),
+        dtype=torch.float32, device=model.device)
+    chosen = timeseries.GARCH_BLOCK
+    rows, logps = {}, {}
+    try:
+        for L in GARCH_SWEEP["blocks"] + (chosen,):
+            timeseries.GARCH_BLOCK = L
+            logps[L] = model.logp_dlogp_function()(q)[0]
+            for chains in GARCH_SWEEP["chains"]:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                ms = _logp_grad_ms(model, chains, calls=20)
+                rows[f"L={L} chains={chains}"] = {
+                    "logp_grad_ms": ms,
+                    "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    finally:
+        timeseries.GARCH_BLOCK = chosen
+    for L, lp in logps.items():
+        check_close(f"garch logp at L={L} against L={chosen}", lp,
+                    logps[chosen], dict(rtol=1e-5, atol=0.0))
+    print(f"garch blocks (n={n}, chosen L={chosen}): " + json.dumps(rows)
+          + f" ({card})", flush=True)
+    return {"chosen": chosen, "rows": rows}
 
 
 def phase_es(pm, gp_cov, card, draws=1300, tune=300, chains=256):
@@ -2100,6 +2329,7 @@ def phase_smc_bimodal(pm, card, particle_counts=(65_536, 1_048_576),
             fail(f"smc_bimodal at {n} particles disagrees with the target")
         del trace, model
     print(json.dumps(out), flush=True)
+    return out
 
 
 def _smc_reference_gate(got, ref, names, z_max=4.0, sd_rtol=0.2):
@@ -3012,11 +3242,12 @@ def _run_example(pm, gp_cov, name, card, ref, chains=256, tune=100,
 
 
 def _worker(args):
-    """A worker process of phases 25-29: ``traces CARD`` (phases 26 and
-    29), ``multirank CARD`` and ``aevb CARD`` run phase 26, 27 or 28 and print a
-    ``TRACES``, ``MULTIRANK`` or ``AEVB`` JSON line at its end; otherwise
-    it runs the examples ``args``, one ``EXAMPLE`` JSON line each. Exits 1
-    if anything failed."""
+    """A worker process of phases 25-29 and 31: ``traces CARD`` (phases 26
+    and 29), ``multirank CARD``, ``aevb CARD`` and ``float64 CARD`` run
+    phase 26, 27, 28 or 31 and print a ``TRACES``, ``MULTIRANK``, ``AEVB``
+    or ``FLOAT64`` JSON line at its end; otherwise it runs the examples
+    ``args``, one ``EXAMPLE`` JSON line each. Exits 1 if anything
+    failed."""
     import pymc3_tpu_torch as pm
     from pymc3_tpu_torch.ops import gp_cov
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3027,7 +3258,13 @@ def _worker(args):
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     if args[0] == "traces":
         phase_plots(pm, args[1], *phase_traces(pm, args[1]))
-        print("TRACES " + json.dumps({"finished_at": time.time()}),
+        print("TRACES " + json.dumps({"finished_at": time.time(),
+                                      "radon": RESULTS["radon"]}),
+              flush=True)
+        sys.exit(0)
+    if args[0] == "float64":
+        out = phase_float64(pm, gp_cov, args[1])
+        print("FLOAT64 " + json.dumps(dict(out, finished_at=time.time())),
               flush=True)
         sys.exit(0)
     if args[0] == "multirank":
@@ -3056,45 +3293,62 @@ _WORKER_CODE = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
                 "chip_smoke._worker(sys.argv[1:])")
 
 
+# (worker, its temporary directory) of every worker started, stopped at exit
+_SPAWNED = []
+
+
+def _stop_workers():
+    """SIGTERM to every worker still running, then SIGKILL after 10 s."""
+    for (proc, _, _, _), _ in _SPAWNED:
+        if proc.poll() is None:
+            proc.terminate()
+    for (proc, out, err, _), tmp in _SPAWNED:
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _spawn(args, env=None):
+    """Start one worker (:func:`_worker`) on ``args``; its output goes to
+    files, not pipes (a full pipe would stall it), and it is stopped if the
+    script ends first. Returns ``(process, out, err, args)``."""
+    import atexit
+    import tempfile
+    if not _SPAWNED:
+        atexit.register(_stop_workers)
+    tmp = tempfile.mkdtemp()
+    out = open(os.path.join(tmp, "out"), "w+")
+    err = open(os.path.join(tmp, "err"), "w+")
+    worker = (subprocess.Popen(
+        [sys.executable, "-c", _WORKER_CODE, *args], cwd=ROOT, stdout=out,
+        stderr=err, text=True, env=env), out, err, args)
+    _SPAWNED.append((worker, tmp))
+    return worker
+
+
 def start_workers(card, traces=True):
     """Start phase 25's example workers and, with ``traces``, the workers
     of phases 26, 27 and 28; :func:`phase_examples` and
-    :func:`read_worker_phase` read them. Their output goes to files, not
-    pipes (a full pipe would stall a worker), and they are stopped if the
-    script ends first (SIGTERM, then SIGKILL after 10 s). Returns
-    ``(examples, {phase name: worker}, time started)``, each worker
-    ``(process, out, err, args)``."""
-    import atexit
-    import tempfile
-    tmp = tempfile.mkdtemp()
+    :func:`read_worker_phase` read them. Returns ``(examples, {phase name:
+    worker}, time started)``, each worker ``(process, out, err, args)``."""
     started_at = time.time()
-    jobs = [tuple(g) for g in _example_groups()]
+    examples = [_spawn(group) for group in _example_groups()]
     named = ("traces", "multirank", "aevb") if traces else ()
-    jobs += [(name, card) for name in named]
-    workers = []
-    for i, args in enumerate(jobs):
-        out = open(os.path.join(tmp, f"{i}.out"), "w+")
-        err = open(os.path.join(tmp, f"{i}.err"), "w+")
-        workers.append((subprocess.Popen(
-            [sys.executable, "-c", _WORKER_CODE, *args], cwd=ROOT,
-            stdout=out, stderr=err, text=True), out, err, args))
+    return examples, {name: _spawn((name, card)) for name in named}, \
+        started_at
 
-    def stop():
-        for proc, _, _, _ in workers:
-            if proc.poll() is None:
-                proc.terminate()
-        for proc, out, err, _ in workers:
-            try:
-                proc.wait(timeout=10)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-            out.close()
-            err.close()
-        shutil.rmtree(tmp, ignore_errors=True)
-    atexit.register(stop)
-    n = len(_example_groups())
-    return workers[:n], dict(zip(named, workers[n:])), started_at
+
+def start_float64_worker(card, started):
+    """Start phase 31's worker with ``PYMC3_TPU_FLOATX=float64`` in its
+    environment, so that the port reads its float width from there, and
+    add it to ``started``'s workers."""
+    started[1]["float64"] = _spawn(
+        ("float64", card), env=dict(os.environ, PYMC3_TPU_FLOATX="float64"))
 
 
 def _read_worker(worker):
@@ -3115,8 +3369,11 @@ def _finished_during(finished):
     return during[-1] if during else None
 
 
-# (phase name, time.time() at its start) of each of phases 7-28 run so far
+# (phase name, time.time() at its start) of each of phases 7-31 run so far
 PHASE_STARTS = []
+# the gates of phase 4's GP and phase 26's radon run (float32), which phase
+# 31 prints beside its float64 runs
+RESULTS = {}
 
 
 def phase_examples(card, started):
@@ -3401,10 +3658,11 @@ def phase_traces(pm, card, tune=150, draws=(30, 30), chains=2048,
         fail("traces: the resumed run's mass matrix differs from the "
              "checkpoint's")
     both = _concat_draws(first, second)
-    gate = _gate(pm, both, ["mu_a"], _baseline()["radon"]["moments"],
-                 t_first + t_second,
-                 f"traces: radon chains={chains} tune={tune} draws="
-                 f"{draws[0]}+{draws[1]} (saved, loaded, resumed)")
+    gate = RESULTS["radon"] = _gate(
+        pm, both, ["mu_a"], _baseline()["radon"]["moments"],
+        t_first + t_second,
+        f"traces: radon chains={chains} tune={tune} draws="
+        f"{draws[0]}+{draws[1]} (saved, loaded, resumed)")
     print(f"traces: save_trace {t_save:.2f} s, load_trace {t_load:.2f} s, "
           f"{n_bytes} bytes in {chains} chain directories; first part "
           f"{t_first:.2f} s, resumed part {t_second:.2f} s; step sizes "
@@ -4272,6 +4530,135 @@ def phase_aevb(pm, card):
     print(json.dumps(out, default=float), flush=True)
 
 
+# phase 31's runs at float64: the GP's tune and draws (phase 4's tune;
+# draws doubled, see phase_float64), radon's (phase 26's 150 + 30 + 30 as
+# one run), SMC's particles (phase 20's first run)
+FLOAT64_GP = {"chains": 4, "tune": 200, "draws": 1000}
+FLOAT64_RADON = {"chains": 2048, "tune": 150, "draws": 60}
+FLOAT64_SMC_PARTICLES = (65_536,)
+
+
+def phase_float64(pm, gp_cov, card):
+    """Phase 31's model part: the port at ``floatX = "float64"`` through
+    its usual entry points. In a full run it runs in a worker process
+    started before phase 14 with ``PYMC3_TPU_FLOATX=float64`` in its
+    environment, so the float width comes from there (the config must read
+    float64 and int64 with no ``set_config``); under ``--only float64`` in
+    the main process after ``set_config(floatX="float64")``.
+
+    1. The GP of phase 4 (n = 200, 4 chains, tune 200) through both float64
+       kernels: forward and backward launches counted, both above 0; the
+       trace's values float64; ``moment_check`` against
+       ``BASELINE_CPU.json`` and R-hat < 1.01. Draws are 1,000, twice phase
+       4's: at 500 draws the 4 chains' split R-hat is expected at
+       1.004-1.010 and scattered to 1.0146 (phase 4's docstring), so 1.01
+       needs the doubled draws (R-hat - 1 falls as 1 / draws).
+    2. Radon at 2048 chains, pooled, target 0.9, tune 150 + draws 60
+       (phase 26's run in one piece): ``moment_check`` of ``mu_a`` against
+       ``BASELINE_CPU.json`` and R-hat < 1.01.
+    3. Phase 20's SMC on two bumps at 65,536 particles, against its
+       closed-form evidence (phase 20's gates).
+    4. logp+grad ms of the GP at 4 chains and radon at 2048, at float64 and
+       then, after ``set_config(floatX="float32")`` in this process, at
+       float32 on models built anew, so the two widths are timed side by
+       side; the config goes back to float64 after.
+
+    Returns the numbers (ESS/s, walls, launches, logp+grad ms)."""
+    from pymc3_tpu_torch.examples.radon import build_model
+    from pymc3_tpu_torch.examples.suite import gp_regression
+    config = pm.get_config()
+    if (config.floatX, config.intX) != ("float64", "int64"):
+        fail(f"float64: the config reads floatX {config.floatX}, intX "
+             f"{config.intX}")
+    out = {"phase": "float64", "card": card}
+    model, names, _ = gp_regression(pm)
+    _on_card(model, "float64 gp")
+    gp_cov.LAUNCHES = gp_cov.BACKWARD_LAUNCHES = 0
+    t0 = time.time()
+    trace = pm.sample(progressbar=False, random_seed=2, model=model,
+                      compute_convergence_checks=False, **FLOAT64_GP)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"forward": gp_cov.LAUNCHES,
+                "backward": gp_cov.BACKWARD_LAUNCHES}
+    print(f"float64 gp: {launches['forward']} forward and "
+          f"{launches['backward']} backward float64 kernel launches during "
+          "sample()", flush=True)
+    if min(launches.values()) <= 0:
+        fail(f"float64 gp: a float64 kernel was never launched: {launches}")
+    dtypes = {v: str(np.asarray(trace.get_values(v)).dtype) for v in names}
+    if set(dtypes.values()) != {"float64"}:
+        fail(f"float64 gp: the trace holds {dtypes}")
+    out["gp"] = _gate(pm, trace, names, _baseline()["gp"]["moments"], wall,
+                      "float64 gp chains={chains} tune={tune} draws={draws}"
+                      .format(**FLOAT64_GP))
+    out["gp"]["launches"] = launches
+    out["gp"]["logp_grad_ms"] = _logp_grad_ms(model, FLOAT64_GP["chains"])
+
+    radon = build_model(pm)
+    _on_card(radon, "float64 radon")
+    t0 = time.time()
+    rtrace = pm.sample(model=radon, progressbar=False, random_seed=2,
+                       target_accept=0.9, axis_name="chains_local",
+                       trace=["mu_a"], compute_convergence_checks=False,
+                       **FLOAT64_RADON)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    out["radon"] = _gate(
+        pm, rtrace, ["mu_a"], _baseline()["radon"]["moments"], wall,
+        "float64 radon chains={chains} tune={tune} draws={draws}"
+        .format(**FLOAT64_RADON))
+    out["radon"]["logp_grad_ms"] = _logp_grad_ms(radon,
+                                                 FLOAT64_RADON["chains"])
+    del trace, rtrace
+
+    out["smc"] = phase_smc_bimodal(pm, card,
+                                   particle_counts=FLOAT64_SMC_PARTICLES)
+
+    pm.set_config(floatX="float32")
+    try:
+        out["float32_logp_grad_ms"] = {
+            "gp": _logp_grad_ms(gp_regression(pm)[0], FLOAT64_GP["chains"]),
+            "radon": _logp_grad_ms(build_model(pm),
+                                   FLOAT64_RADON["chains"])}
+    finally:
+        pm.set_config(floatX="float64")
+    print(json.dumps(out), flush=True)
+    return out
+
+
+# phase 31's worker starts before this phase of the full run, once the
+# earlier workers are done (they finished during phases 9-13)
+FLOAT64_STARTS_BEFORE = "garch"
+
+
+def _float64_only(pm, gp_cov, card):
+    """Phase 31 in the main process (``--only float64``): the config set to
+    float64 for the phase and back to float32 after."""
+    pm.set_config(floatX="float64")
+    try:
+        return _float64_beside(phase_float64(pm, gp_cov, card))
+    finally:
+        pm.set_config(floatX="float32")
+
+
+def _float64_beside(out):
+    """Phase 31's GP and radon numbers at float64 beside phase 4's and phase
+    26's float32 runs of the same script (None where that phase did not
+    run)."""
+    RESULTS["float64"] = out
+    row = {}
+    for name in ("gp", "radon"):
+        f32 = RESULTS.get(name)
+        row[name] = {
+            "ess_per_s_float64": out[name]["ess_per_s"],
+            "ess_per_s_float32": None if f32 is None else f32["ess_per_s"],
+            "logp_grad_ms_float64": out[name]["logp_grad_ms"],
+            "logp_grad_ms_float32": out["float32_logp_grad_ms"][name]}
+    print("float64 beside float32: " + json.dumps(row), flush=True)
+    return row
+
+
 def _gp_wall(other):
     """Phase 4 alone in four fresh processes: other, this, this, other."""
     code = ("import sys, torch; sys.path[:0] = ['.', 'scripts']; "
@@ -4298,7 +4685,7 @@ def main():
     parser.add_argument("--gp-wall", metavar="DIR",
                         help="phase 4 alone: DIR, this, this, DIR")
     parser.add_argument("--only", metavar="NAMES",
-                        help="phases 1-3, then only these of phases 6-30 "
+                        help="phases 1-3, then only these of phases 6-31 "
                         "(comma-separated: " + ",".join(
                             LATER_PHASES + ("plots",)) + ")")
     args = parser.parse_args()
@@ -4319,6 +4706,7 @@ def main():
     phase_build(gp_cov)
     other = _load_other(os.path.abspath(args.against)) if args.against else None
     max_err, timings = phase_kernel(gp_cov, card, other)
+    max_err64, timings64 = phase_kernel_f64(gp_cov, card)
     if args.quick:
         from pymc3_tpu_torch.examples.suite import gp_regression
         model, _, gp = gp_regression(pm)
@@ -4350,7 +4738,8 @@ def main():
         "traces": lambda: phase_traces(pm, card),
         "plots": lambda: phase_plots(pm, card, *phase_traces(pm, card)),
         "multirank": lambda: phase_multirank(pm, card),
-        "aevb": lambda: phase_aevb(pm, card)}
+        "aevb": lambda: phase_aevb(pm, card),
+        "float64": lambda: _float64_only(pm, gp_cov, card)}
     # phase 6's radon run is the first part of phase 26
     runners["radon"] = runners["traces"]
     started = [None]
@@ -4373,12 +4762,17 @@ def main():
     # phases 25-26 run in worker processes beside phases 7-24 (see
     # phase_examples and read_worker_phase)
     started[0] = start_workers(card)
-    runners["traces"] = lambda: read_worker_phase(started[0], "traces")
+    runners["traces"] = lambda: RESULTS.update(
+        radon=read_worker_phase(started[0], "traces")["radon"])
     runners["multirank"] = lambda: read_worker_phase(
         started[0], "multirank")["launches"]
     runners["aevb"] = lambda: read_worker_phase(started[0], "aevb")
+    runners["float64"] = lambda: _float64_beside(
+        read_worker_phase(started[0], "float64"))
     walls = {}
     for name in LATER_PHASES:
+        if name == FLOAT64_STARTS_BEFORE:
+            start_float64_worker(card, started[0])
         t0 = time.time()
         PHASE_STARTS.append((name, t0))
         out = runners[name]()
@@ -4396,7 +4790,7 @@ def main():
             example_launches = out
         if name == "multirank":
             multirank_launches = out
-    print(f"phases 1-30: {time.time() - t_start:.1f} s; each of 7-30 "
+    print(f"phases 1-31: {time.time() - t_start:.1f} s; each of 7-31 "
           f"{json.dumps(walls)}", flush=True)
 
     replaces = {"forward": "pymc3_tpu/ops/pallas/gp_cov.py:110",
@@ -4429,7 +4823,8 @@ def main():
             "ms": row["device_ms"], "device_ms": row["device_ms"],
             "issue_ms": row["issue_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "dtype": "float32",
+            "entry": f"gp_cov_{direction}_f32",
             # the other timed shapes, e.g. "at_64x20x2000x1_matern52"
             **{"at_" + "x".join(map(str, shape)) + (
                 f"_{TIMED_KIND[shape]}" if shape in TIMED_KIND else ""): {
@@ -4437,6 +4832,26 @@ def main():
                         "device_ms", "issue_ms", "plain_ms", "bound_ms",
                         "bound_by")}
                for shape in TIMED_SHAPES if shape != MAIN_SHAPE},
+        })
+    f64 = RESULTS["float64"]
+    for direction, name in (("forward", "stationary_cov_f64"),
+                            ("backward", "stationary_cov_backward_f64")):
+        row = timings64[direction][MAIN_SHAPE]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces[direction],
+            "launches": f64["gp"]["launches"][direction],
+            "max_abs_err": max_err64[direction],
+            "ms": row["device_ms"], "device_ms": row["device_ms"],
+            "issue_ms": row["issue_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "dtype": "float64",
+            "entry": f"gp_cov_{direction}_f64",
+            **{"at_" + "x".join(map(str, shape)): {
+                k: timings64[direction][shape][k] for k in (
+                    "device_ms", "issue_ms", "plain_ms", "bound_ms",
+                    "bound_by")}
+               for shape in F64_TIMED if shape != MAIN_SHAPE},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,14 @@
 its models are built on.
 
 Mirrors ``pymc3_tpu/config.py`` without the JAX compile-cache and Pallas
-dispatch settings, which have no counterpart in eager PyTorch.
+dispatch settings, which have no counterpart in eager PyTorch. As there,
+``PYMC3_TPU_FLOATX`` (``float32`` or ``float64``) sets the float width at
+import, and ``intX`` follows it.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import numpy as np
@@ -16,12 +19,17 @@ __all__ = ["floatX", "intX", "torch_floatX", "get_config", "set_config",
            "Config", "default_device"]
 
 
+_FLOATX = os.environ.get("PYMC3_TPU_FLOATX", "float32")
+
+
 @dataclasses.dataclass
 class Config:
     """Typed global configuration.
 
-    ``floatX`` is the float width of every continuous computation (float32
-    by default, as on the card); ``intX`` follows it (int32 or int64).
+    ``floatX`` is the float width of every continuous computation:
+    ``PYMC3_TPU_FLOATX`` at import, float32 where it is not set. The card
+    runs both widths (float64 through the float64 builds of the covariance
+    kernels). ``intX`` follows it (int32 or int64).
     ``device`` is where a model is built, and so where it is sampled, when
     ``Model(device=...)`` names none: the card by default.
     ``compute_test_value`` is the JAX package's field of that name (the
@@ -30,8 +38,8 @@ class Config:
     first asked for, and a shape error raises there.
     """
 
-    floatX: str = "float32"
-    intX: str = "int32"
+    floatX: str = _FLOATX
+    intX: str = "int64" if _FLOATX == "float64" else "int32"
     device: str = "cuda"
     compute_test_value: str = "raise"
 

@@ -73,6 +73,29 @@
 // inside a dense g, and has no shared memory and no barrier in its loop.
 // Larger d runs the staged kernel: X and Xs through shared memory in chunks
 // of 16 features, once per chunk of 16 output features.
+//
+// FLOAT64. Every kernel is a template on its element type T, and the same
+// source gives the gp_cov_*_f32 and gp_cov_*_f64 entry points. In double
+// the whole computation is double: the differences and d2, exp and sqrt
+// (CUDA's exp and sqrt of double, which run as sequences of FP64
+// instructions on the FP64 pipes, not on the SFU), eps = 1e-12 and the
+// partial sums; the counterpart in the JAX package is its float64
+// `_fallback`, not the Pallas body, which accumulates in float32. Per
+// output the forward stores 8 bytes and the card's FP64 rate is half its
+// float32 rate, so a double kernel is bound by bytes at about 2x the float
+// time, and nearer its operation bound where exp and sqrt add their FP64
+// instructions (matern kinds). What changes in the layout:
+//  (a) a 16-byte store holds two doubles. The tiles keep their widths (a
+//      thread still owns four columns of a 128-column tile), but in the
+//      vector variant its columns are two pairs, 2 tx + {0, 1} and
+//      64 + 2 tx + {0, 1}, so each st.global.v2.f64 of a warp writes 512
+//      consecutive bytes of a row, as st.global.v4.f32 does in float.
+//      The vector variant needs an even m and a 16-byte aligned output;
+//  (b) the backward's register kernel keeps 16 doubles of Xs columns and
+//      sums a thread, so it asks for one block per SM's worth of registers
+//      (float asks for two), and reads X rows without the float4 path;
+//  (c) the staged backward (d > 4, on no path of the repository) stages 8
+//      features a pass in double, not 16, to keep its sums in registers.
 
 #include <cuda_runtime.h>
 
@@ -89,62 +112,112 @@ constexpr int kFwdRows = 8;                     // rows per thread, tiled forwar
 constexpr int kFwdTileRows = kWarps * kFwdRows;     // 64
 constexpr int kBwdRows = 4;                     // rows per warp and sub-tile
 constexpr int kBwdTileRows = kWarps * kBwdRows;     // 32
-constexpr float kEps = 1e-12f;      // as _EPS in the TPU kernel
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// Elements of T in one 16-byte vector: 4 floats, 2 doubles.
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+// Features a pass of the staged backward: 16 floats, 8 doubles.
+template <typename T>
+constexpr int kStagedChunk = sizeof(T) == 4 ? kFeatChunk : kFeatChunk / 2;
+// Blocks per SM the register backward asks registers for.
+template <typename T>
+constexpr int kBwdMinBlocks = sizeof(T) == 4 ? 2 : 1;
 
 enum Kind { kExpQuad = 0, kMatern52 = 1, kMatern32 = 2, kMatern12 = 3,
             kExponential = 4 };
 
+// The IEEE-accurate exp, sqrt and fused multiply-add of each type.
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+__device__ __forceinline__ double exp_t(double x) { return exp(x); }
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// One 16-byte load or store of kVec<T> elements.
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_vec(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+__device__ __forceinline__ void load_vec(float* v, const float* p) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void load_vec(double* v, const double* p) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  v[0] = x.x; v[1] = x.y;
+}
+
+// The tile column of a forward thread's slot c (0-3): in the vector variant
+// kVec<T> consecutive columns a vector, a warp's vectors side by side (4 tx
+// + c in float; 2 tx + c, then 64 + 2 tx + c - 2 in double); in the scalar
+// variant tx + 32 c.
+template <typename T, bool VEC>
+__device__ __forceinline__ int tile_col(int tx, int c) {
+  constexpr int V = kVec<T>;
+  return VEC ? (c / V) * (kWarp * V) + V * tx + c % V : tx + kWarp * c;
+}
+
 // K = f(d2), the five functions of `_apply_covfn`. d2 is a sum of squares
 // and never negative, so the plain version's clamp at 0 has no counterpart
-// here (and a NaN input stays a NaN).
-template <int K>
-__device__ __forceinline__ float cov_fn(float d2) {
+// here (and a NaN input stays a NaN). eps is 1e-12 as _EPS in the TPU
+// kernel, in the element type.
+template <int K, typename T>
+__device__ __forceinline__ T cov_fn(T d2) {
+  const T eps = T(1e-12);
   if (K == kExpQuad) {
-    return expf(-0.5f * d2);
+    return exp_t(T(-0.5) * d2);
   } else if (K == kMatern52) {
-    const float t = sqrtf(5.0f * d2 + kEps);
+    const T t = sqrt_t(T(5) * d2 + eps);
     // t^2 * (1/3), not t^2 / 3: one rounding apart, and no IEEE division
-    return (1.0f + t + (t * t) * (1.0f / 3.0f)) * expf(-t);
+    return (T(1) + t + (t * t) * (T(1) / T(3))) * exp_t(-t);
   } else if (K == kMatern32) {
-    const float t = sqrtf(3.0f * d2 + kEps);
-    return (1.0f + t) * expf(-t);
+    const T t = sqrt_t(T(3) * d2 + eps);
+    return (T(1) + t) * exp_t(-t);
   } else if (K == kMatern12) {
-    return expf(-sqrtf(d2 + kEps));
+    return exp_t(-sqrt_t(d2 + eps));
   } else {
-    return expf(-0.5f * sqrtf(d2 + kEps));
+    return exp_t(T(-0.5) * sqrt_t(d2 + eps));
   }
 }
 
 // dK/d(d2) in closed form, the five functions of `_dcov_dd2`.
-template <int K>
-__device__ __forceinline__ float dcov_fn(float d2) {
+template <int K, typename T>
+__device__ __forceinline__ T dcov_fn(T d2) {
+  const T eps = T(1e-12);
   if (K == kExpQuad) {
-    return -0.5f * expf(-0.5f * d2);
+    return T(-0.5) * exp_t(T(-0.5) * d2);
   } else if (K == kMatern52) {
-    const float t = sqrtf(5.0f * d2 + kEps);
-    return -(5.0f / 6.0f) * (1.0f + t) * expf(-t);
+    const T t = sqrt_t(T(5) * d2 + eps);
+    return -(T(5) / T(6)) * (T(1) + t) * exp_t(-t);
   } else if (K == kMatern32) {
-    return -1.5f * expf(-sqrtf(3.0f * d2 + kEps));
+    return T(-1.5) * exp_t(-sqrt_t(T(3) * d2 + eps));
   } else if (K == kMatern12) {
-    const float r = sqrtf(d2 + kEps);
-    return expf(-r) * (-0.5f / r);
+    const T r = sqrt_t(d2 + eps);
+    return exp_t(-r) * (T(-0.5) / r);
   } else {
-    const float r = sqrtf(d2 + kEps);
-    return expf(-0.5f * r) * (-0.25f / r);
+    const T r = sqrt_t(d2 + eps);
+    return exp_t(T(-0.5) * r) * (T(-0.25) / r);
   }
 }
 
 // Stage `rows` rows of M (row-major, d features) from row `r0`, features
 // [f0, f0 + fn), into dst[f][r], zero past `limit`.
-template <int STRIDE>
-__device__ __forceinline__ void stage(float (*dst)[STRIDE], const float* M,
-                                      int r0, int rows, int limit, int d,
-                                      int f0, int fn, int tid) {
+template <int STRIDE, typename T>
+__device__ __forceinline__ void stage(T (*dst)[STRIDE], const T* M, int r0,
+                                      int rows, int limit, int d, int f0,
+                                      int fn, int tid) {
   for (int r = tid; r < rows; r += kThreads) {
     const int gr = r0 + r;
-    const float* src = M + static_cast<size_t>(gr) * d + f0;
-    for (int f = 0; f < fn; ++f) dst[f][r] = gr < limit ? src[f] : 0.0f;
+    const T* src = M + static_cast<size_t>(gr) * d + f0;
+    for (int f = 0; f < fn; ++f) dst[f][r] = gr < limit ? src[f] : T(0);
   }
 }
 
@@ -155,83 +228,94 @@ bool grid_fits(long long tiles_r, long long B) {
 
 // ---------------------------------------------------------------- forward
 
+// Write a thread's four values of one output row: in the vector variant as
+// 16-byte vectors (m a multiple of kVec<T>, so a vector is inside or
+// outside the row whole), else one by one, masked at m.
+template <int K, bool VEC, typename T>
+__device__ __forceinline__ void store_row(T* row, const T (&acc)[kColsPerThread],
+                                          int col0, int tx, int m) {
+  constexpr int V = kVec<T>;
+  if (VEC) {
+#pragma unroll
+    for (int c0 = 0; c0 < kColsPerThread; c0 += V) {
+      const int j = col0 + tile_col<T, VEC>(tx, c0);
+      if (j < m) {
+        T v[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[k] = cov_fn<K>(acc[c0 + k]);
+        store_vec(row + j, v);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < kColsPerThread; ++c) {
+      const int j = col0 + tile_col<T, VEC>(tx, c);
+      if (j < m) row[j] = cov_fn<K>(acc[c]);
+    }
+  }
+}
+
 // One row and four columns a thread, inputs straight from global memory.
-template <int K, bool VEC>
+template <int K, bool VEC, typename T>
 __global__ void __launch_bounds__(kThreads)
-cov_forward_small_kernel(const float* __restrict__ X,
-                         const float* __restrict__ Xs,
-                         float* __restrict__ out, int n, int m, int d) {
+cov_forward_small_kernel(const T* __restrict__ X, const T* __restrict__ Xs,
+                         T* __restrict__ out, int n, int m, int d) {
   const int b = blockIdx.z;
   const int tx = threadIdx.x;
   const int i = blockIdx.y * kWarps + threadIdx.y;
   const int col0 = blockIdx.x * kTileCols;
   if (i >= n) return;
-  const float* x = X + (static_cast<size_t>(b) * n + i) * d;
-  const float* Yb = Xs + static_cast<size_t>(b) * m * d;
+  const T* x = X + (static_cast<size_t>(b) * n + i) * d;
+  const T* Yb = Xs + static_cast<size_t>(b) * m * d;
 
-  int j[kColsPerThread];
-  const float* y[kColsPerThread];
-  float acc[kColsPerThread];
+  const T* y[kColsPerThread];
+  T acc[kColsPerThread];
 #pragma unroll
   for (int c = 0; c < kColsPerThread; ++c) {
-    j[c] = col0 + (VEC ? kColsPerThread * tx + c : tx + kWarp * c);
+    const int j = col0 + tile_col<T, VEC>(tx, c);
     // a column past m reads column m - 1 and is not stored
-    y[c] = Yb + static_cast<size_t>(j[c] < m ? j[c] : m - 1) * d;
-    acc[c] = 0.0f;
+    y[c] = Yb + static_cast<size_t>(j < m ? j : m - 1) * d;
+    acc[c] = T(0);
   }
   for (int f = 0; f < d; ++f) {
-    const float xf = x[f];
+    const T xf = x[f];
 #pragma unroll
     for (int c = 0; c < kColsPerThread; ++c) {
-      const float diff = xf - y[c][f];
-      acc[c] = fmaf(diff, diff, acc[c]);
+      const T diff = xf - y[c][f];
+      acc[c] = fma_t(diff, diff, acc[c]);
     }
   }
-  float* row = out + (static_cast<size_t>(b) * n + i) * m;
-  if (VEC) {
-    if (j[0] < m) {     // m % 4 == 0: the four columns are inside together
-      float4 v;
-      v.x = cov_fn<K>(acc[0]);
-      v.y = cov_fn<K>(acc[1]);
-      v.z = cov_fn<K>(acc[2]);
-      v.w = cov_fn<K>(acc[3]);
-      *reinterpret_cast<float4*>(row + j[0]) = v;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) {
-      if (j[c] < m) row[j[c]] = cov_fn<K>(acc[c]);
-    }
-  }
+  store_row<K, VEC>(out + (static_cast<size_t>(b) * n + i) * m, acc, col0, tx,
+                    m);
 }
 
 // A 64 x 128 tile a block, eight rows and four columns a thread, inputs
 // staged in shared memory.
-template <int K, bool VEC>
+template <int K, bool VEC, typename T>
 __global__ void __launch_bounds__(kThreads)
-cov_forward_tiled_kernel(const float* __restrict__ X,
-                         const float* __restrict__ Xs,
-                         float* __restrict__ out, int n, int m, int d) {
+cov_forward_tiled_kernel(const T* __restrict__ X, const T* __restrict__ Xs,
+                         T* __restrict__ out, int n, int m, int d) {
   constexpr int R = kFwdRows;
-  __shared__ __align__(16) float xs[kFeatChunk][kFwdTileRows];
-  __shared__ __align__(16) float ys[kFeatChunk][kTileCols];
+  constexpr int V = kVec<T>;
+  __shared__ __align__(16) T xs[kFeatChunk][kFwdTileRows];
+  __shared__ __align__(16) T ys[kFeatChunk][kTileCols];
 
   const int b = blockIdx.z;
   const int row0 = blockIdx.y * kFwdTileRows;
   const int col0 = blockIdx.x * kTileCols;
-  const float* Xb = X + static_cast<size_t>(b) * n * d;
-  const float* Yb = Xs + static_cast<size_t>(b) * m * d;
-  float* Kb = out + static_cast<size_t>(b) * n * m;
+  const T* Xb = X + static_cast<size_t>(b) * n * d;
+  const T* Yb = Xs + static_cast<size_t>(b) * m * d;
+  T* Kb = out + static_cast<size_t>(b) * n * m;
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int tid = ty * kWarp + tx;
 
-  float acc[R][kColsPerThread];
+  T acc[R][kColsPerThread];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
 #pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) acc[r][c] = 0.0f;
+    for (int c = 0; c < kColsPerThread; ++c) acc[r][c] = T(0);
   }
 
   for (int f0 = 0; f0 < d; f0 += kFeatChunk) {
@@ -241,22 +325,22 @@ cov_forward_tiled_kernel(const float* __restrict__ X,
     stage<kTileCols>(ys, Yb, col0, kTileCols, m, d, f0, fn, tid);
     __syncthreads();
     for (int f = 0; f < fn; ++f) {
-      float y[kColsPerThread];
-      if (VEC) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&ys[f][kColsPerThread * tx]);
-        y[0] = v.x; y[1] = v.y; y[2] = v.z; y[3] = v.w;
-      } else {
+      T y[kColsPerThread];
 #pragma unroll
-        for (int c = 0; c < kColsPerThread; ++c) y[c] = ys[f][tx + kWarp * c];
+      for (int c0 = 0; c0 < kColsPerThread; c0 += (VEC ? V : 1)) {
+        if (VEC) {
+          load_vec(y + c0, &ys[f][tile_col<T, VEC>(tx, c0)]);
+        } else {
+          y[c0] = ys[f][tile_col<T, VEC>(tx, c0)];
+        }
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float x = xs[f][ty * R + r];
+        const T x = xs[f][ty * R + r];
 #pragma unroll
         for (int c = 0; c < kColsPerThread; ++c) {
-          const float diff = x - y[c];
-          acc[r][c] = fmaf(diff, diff, acc[r][c]);
+          const T diff = x - y[c];
+          acc[r][c] = fma_t(diff, diff, acc[r][c]);
         }
       }
     }
@@ -266,53 +350,35 @@ cov_forward_tiled_kernel(const float* __restrict__ X,
   for (int r = 0; r < R; ++r) {
     const int i = row0 + ty * R + r;
     if (i >= n) break;
-    float* row = Kb + static_cast<size_t>(i) * m;
-    if (VEC) {
-      const int j = col0 + kColsPerThread * tx;
-      if (j < m) {      // m % 4 == 0: the four columns are inside together
-        float4 v;
-        v.x = cov_fn<K>(acc[r][0]);
-        v.y = cov_fn<K>(acc[r][1]);
-        v.z = cov_fn<K>(acc[r][2]);
-        v.w = cov_fn<K>(acc[r][3]);
-        *reinterpret_cast<float4*>(row + j) = v;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) {
-        const int j = col0 + tx + kWarp * c;
-        if (j < m) row[j] = cov_fn<K>(acc[r][c]);
-      }
-    }
+    store_row<K, VEC>(Kb + static_cast<size_t>(i) * m, acc[r], col0, tx, m);
   }
 }
 
-template <int K, bool VEC>
-cudaError_t launch_forward_variant(const float* X, const float* Xs,
-                                   float* out, int B, int n, int m, int d,
-                                   cudaStream_t stream) {
+template <int K, bool VEC, typename T>
+cudaError_t launch_forward_variant(const T* X, const T* Xs, T* out, int B,
+                                   int n, int m, int d, cudaStream_t stream) {
   const int tiles_c = (m + kTileCols - 1) / kTileCols;
   const int big_rows = (n + kFwdTileRows - 1) / kFwdTileRows;
   const dim3 block(kWarp, kWarps);
   if (static_cast<long long>(B) * big_rows * tiles_c >= 2 * kSMs) {
     if (!grid_fits(big_rows, B)) return cudaErrorInvalidValue;
-    cov_forward_tiled_kernel<K, VEC>
+    cov_forward_tiled_kernel<K, VEC, T>
         <<<dim3(tiles_c, big_rows, B), block, 0, stream>>>(X, Xs, out, n, m,
                                                            d);
   } else {
     const int small_rows = (n + kWarps - 1) / kWarps;
     if (!grid_fits(small_rows, B)) return cudaErrorInvalidValue;
-    cov_forward_small_kernel<K, VEC>
+    cov_forward_small_kernel<K, VEC, T>
         <<<dim3(tiles_c, small_rows, B), block, 0, stream>>>(X, Xs, out, n,
                                                              m, d);
   }
   return cudaGetLastError();
 }
 
-template <int K>
-cudaError_t launch_forward(const float* X, const float* Xs, float* out, int B,
-                           int n, int m, int d, cudaStream_t stream) {
-  const bool vec = (m % kColsPerThread == 0) &&
+template <int K, typename T>
+cudaError_t launch_forward(const T* X, const T* Xs, T* out, int B, int n,
+                           int m, int d, cudaStream_t stream) {
+  const bool vec = (m % kVec<T> == 0) &&
                    (reinterpret_cast<size_t>(out) % 16 == 0);
   return vec ? launch_forward_variant<K, true>(X, Xs, out, B, n, m, d, stream)
              : launch_forward_variant<K, false>(X, Xs, out, B, n, m, d,
@@ -327,15 +393,16 @@ cudaError_t launch_forward(const float* X, const float* Xs, float* out, int B,
 // additions is fixed.
 template <int CNT, int OFF>
 struct SplitReduce {
-  static __device__ __forceinline__ void run(float* v, int lane) {
+  template <typename T>
+  static __device__ __forceinline__ void run(T* v, int lane) {
     if constexpr (OFF > 0) {
       if constexpr (CNT > 1) {
         constexpr int H = CNT / 2;
         const bool upper = (lane & OFF) != 0;
 #pragma unroll
         for (int k = 0; k < H; ++k) {
-          const float send = upper ? v[k] : v[k + H];
-          const float keep = upper ? v[k + H] : v[k];
+          const T send = upper ? v[k] : v[k + H];
+          const T keep = upper ? v[k + H] : v[k];
           v[k] = keep + __shfl_xor_sync(kFullMask, send, OFF);
         }
         SplitReduce<H, OFF / 2>::run(v, lane);
@@ -377,8 +444,9 @@ __device__ __forceinline__ int split_reduce_base(int lane) {
 // The thread's 4 x 4 cotangents of one sub-tile, zero outside (n, m). `gp`
 // points at the element (row0 + 4 ty, col0 + tx); rows and columns are
 // reached by adding strides, not by a 64-bit multiply per element.
+template <typename T>
 __device__ __forceinline__ void load_cotangent(
-    float (&gv)[kBwdRows][kColsPerThread], const float* gp, long long gsi,
+    T (&gv)[kBwdRows][kColsPerThread], const T* gp, long long gsi,
     long long cstep, int row0, int col0, int tx, int ty, int n, int m) {
 #pragma unroll
   for (int r = 0; r < kBwdRows; ++r) {
@@ -386,7 +454,7 @@ __device__ __forceinline__ void load_cotangent(
 #pragma unroll
     for (int c = 0; c < kColsPerThread; ++c) {
       const bool in = row_in && col0 + tx + kWarp * c < m;
-      gv[r][c] = in ? gp[c * cstep] : 0.0f;
+      gv[r][c] = in ? gp[c * cstep] : T(0);
     }
     gp += gsi;
   }
@@ -394,10 +462,10 @@ __device__ __forceinline__ void load_cotangent(
 
 // Sum the warp's row sums over its 128 columns and write them to pX.
 // `pXrow` points at the partial sums of the warp's first row, i0.
-template <int FC>
-__device__ __forceinline__ void reduce_rows(float (&rowacc)[kBwdRows * FC],
-                                            float* pXrow, int i0, int tx,
-                                            int n, int d, int fo0, int fo_n,
+template <int FC, typename T>
+__device__ __forceinline__ void reduce_rows(T (&rowacc)[kBwdRows * FC],
+                                            T* pXrow, int i0, int tx, int n,
+                                            int d, int fo0, int fo_n,
                                             int sum_base) {
   constexpr int V = kBwdRows * FC;
   constexpr int kSumsPerLane = V / kWarp > 1 ? V / kWarp : 1;
@@ -421,43 +489,42 @@ __device__ __forceinline__ void reduce_rows(float (&rowacc)[kBwdRows * FC],
 
 // d <= FC <= 4: the thread's four Xs columns stay in registers for the
 // whole block, X rows come as warp-uniform loads; no barrier in the loop.
-template <int K, int FC>
-__global__ void __launch_bounds__(kThreads, 2)
-cov_backward_regs_kernel(const float* __restrict__ g, long long gsb,
+template <int K, int FC, typename T>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks<T>)
+cov_backward_regs_kernel(const T* __restrict__ g, long long gsb,
                          long long gsi, long long gsj,
-                         const float* __restrict__ X,
-                         const float* __restrict__ Xs, float* __restrict__ pX,
-                         float* __restrict__ pXs, int B, int n, int m, int d,
-                         int subtiles, int x_vec4) {
+                         const T* __restrict__ X, const T* __restrict__ Xs,
+                         T* __restrict__ pX, T* __restrict__ pXs, int B,
+                         int n, int m, int d, int subtiles, int x_vec4) {
   constexpr int R = kBwdRows;
-  __shared__ float red[kWarps][FC][kTileCols];
+  __shared__ T red[kWarps][FC][kTileCols];
 
   const int ct = blockIdx.x;
   const int rb = blockIdx.y;
   const int b = blockIdx.z;
   const int col0 = ct * kTileCols;
   const int row00 = rb * kBwdTileRows * subtiles;
-  const float* Xb = X + static_cast<size_t>(b) * n * d;
-  const float* Yb = Xs + static_cast<size_t>(b) * m * d;
-  float* pXb = pX + (static_cast<size_t>(ct) * B + b) * n * d;
-  float* pXsb = pXs + (static_cast<size_t>(rb) * B + b) * m * d;
+  const T* Xb = X + static_cast<size_t>(b) * n * d;
+  const T* Yb = Xs + static_cast<size_t>(b) * m * d;
+  T* pXb = pX + (static_cast<size_t>(ct) * B + b) * n * d;
+  T* pXsb = pXs + (static_cast<size_t>(rb) * B + b) * m * d;
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int sum_base = split_reduce_base<R * FC>(tx);
   const long long cstep = kWarp * gsj;
-  const float* gp = g + b * gsb + (row00 + ty * R) * gsi + (col0 + tx) * gsj;
+  const T* gp = g + b * gsb + (row00 + ty * R) * gsi + (col0 + tx) * gsj;
   const bool cols_inside = col0 + kTileCols <= m;
 
-  float y[kColsPerThread][FC];
-  float colacc[kColsPerThread][FC];
+  T y[kColsPerThread][FC];
+  T colacc[kColsPerThread][FC];
 #pragma unroll
   for (int c = 0; c < kColsPerThread; ++c) {
     const int j = col0 + tx + kWarp * c;
 #pragma unroll
     for (int f = 0; f < FC; ++f) {
-      y[c][f] = (j < m && f < d) ? Yb[static_cast<size_t>(j) * d + f] : 0.0f;
-      colacc[c][f] = 0.0f;
+      y[c][f] = (j < m && f < d) ? Yb[static_cast<size_t>(j) * d + f] : T(0);
+      colacc[c][f] = T(0);
     }
   }
 
@@ -465,11 +532,11 @@ cov_backward_regs_kernel(const float* __restrict__ g, long long gsb,
     const int row0 = row00 + s * kBwdTileRows;
     if (row0 >= n) break;
 
-    float gv[R][kColsPerThread];
+    T gv[R][kColsPerThread];
     if (gsj == 1 && cols_inside && row0 + kBwdTileRows <= n) {
       // a sub-tile inside a dense g: four loads at fixed offsets from one
       // pointer per row, no masks
-      const float* row = gp;
+      const T* row = gp;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
 #pragma unroll
@@ -482,51 +549,52 @@ cov_backward_regs_kernel(const float* __restrict__ g, long long gsb,
     gp += kBwdTileRows * gsi;
 
     const int i0 = row0 + ty * R;
-    const float* xp = Xb + static_cast<size_t>(i0) * d;
-    float rowacc[R * FC];
+    const T* xp = Xb + static_cast<size_t>(i0) * d;
+    T rowacc[R * FC];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       // the warp's row: the same address for the 32 lanes, a broadcast load
-      float x[FC];
+      T x[FC];
       bool loaded = false;
-      if constexpr (FC == 4) {
+      if constexpr (FC == 4 && sizeof(T) == 4) {
         if (x_vec4) {               // d == 4 and X aligned to 16 bytes
-          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (i0 + r < n) v = *reinterpret_cast<const float4*>(xp + 4 * r);
-          x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+          T v[4] = {T(0), T(0), T(0), T(0)};
+          if (i0 + r < n) load_vec(v, xp + 4 * r);
+#pragma unroll
+          for (int f = 0; f < 4; ++f) x[f] = v[f];
           loaded = true;
         }
       }
       if (!loaded) {
 #pragma unroll
         for (int f = 0; f < FC; ++f) {
-          x[f] = (i0 + r < n && f < d) ? xp[r * d + f] : 0.0f;
+          x[f] = (i0 + r < n && f < d) ? xp[r * d + f] : T(0);
         }
       }
-      float diff[kColsPerThread][FC];
-      float d2[kColsPerThread];
+      T diff[kColsPerThread][FC];
+      T d2[kColsPerThread];
 #pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) d2[c] = 0.0f;
+      for (int c = 0; c < kColsPerThread; ++c) d2[c] = T(0);
 #pragma unroll
       for (int f = 0; f < FC; ++f) {
 #pragma unroll
         for (int c = 0; c < kColsPerThread; ++c) {
           diff[c][f] = x[f] - y[c][f];
-          d2[c] = fmaf(diff[c][f], diff[c][f], d2[c]);
+          d2[c] = fma_t(diff[c][f], diff[c][f], d2[c]);
         }
       }
-      float w[kColsPerThread];
+      T w[kColsPerThread];
 #pragma unroll
       for (int c = 0; c < kColsPerThread; ++c) {
         w[c] = gv[r][c] * dcov_fn<K>(d2[c]);
       }
 #pragma unroll
       for (int f = 0; f < FC; ++f) {
-        float sum = 0.0f;
+        T sum = T(0);
 #pragma unroll
         for (int c = 0; c < kColsPerThread; ++c) {
-          sum = fmaf(w[c], diff[c][f], sum);
-          colacc[c][f] = fmaf(-w[c], diff[c][f], colacc[c][f]);
+          sum = fma_t(w[c], diff[c][f], sum);
+          colacc[c][f] = fma_t(-w[c], diff[c][f], colacc[c][f]);
         }
         rowacc[r * FC + f] = sum;
       }
@@ -550,7 +618,7 @@ cov_backward_regs_kernel(const float* __restrict__ g, long long gsb,
   if (tid < kTileCols && j < m) {
 #pragma unroll
     for (int f = 0; f < FC; ++f) {
-      float v = 0.0f;
+      T v = T(0);
 #pragma unroll
       for (int wp = 0; wp < kWarps; ++wp) v += red[wp][f][tid];
       if (f < d) pXsb[static_cast<size_t>(j) * d + f] = v;
@@ -558,47 +626,46 @@ cov_backward_regs_kernel(const float* __restrict__ g, long long gsb,
   }
 }
 
-// Any d: X and Xs staged in shared memory in chunks of 16 features. One
-// launch accumulates the output features [fo0, fo0 + 16), clipped to d.
-template <int K>
+// Any d: X and Xs staged in shared memory in chunks of FC features (16
+// floats, 8 doubles). One launch accumulates the output features
+// [fo0, fo0 + FC), clipped to d.
+template <int K, typename T>
 __global__ void __launch_bounds__(kThreads)
-cov_backward_staged_kernel(const float* __restrict__ g, long long gsb,
+cov_backward_staged_kernel(const T* __restrict__ g, long long gsb,
                            long long gsi, long long gsj,
-                           const float* __restrict__ X,
-                           const float* __restrict__ Xs,
-                           float* __restrict__ pX, float* __restrict__ pXs,
-                           int B, int n, int m, int d, int fo0,
-                           int subtiles) {
+                           const T* __restrict__ X, const T* __restrict__ Xs,
+                           T* __restrict__ pX, T* __restrict__ pXs, int B,
+                           int n, int m, int d, int fo0, int subtiles) {
   constexpr int R = kBwdRows;
-  constexpr int FC = kFeatChunk;
-  __shared__ float xs[kFeatChunk][kBwdTileRows];
-  __shared__ float ys[kFeatChunk][kTileCols];
-  __shared__ float red[kWarps][kTileCols];
+  constexpr int FC = kStagedChunk<T>;
+  __shared__ T xs[FC][kBwdTileRows];
+  __shared__ T ys[FC][kTileCols];
+  __shared__ T red[kWarps][kTileCols];
 
   const int ct = blockIdx.x;
   const int rb = blockIdx.y;
   const int b = blockIdx.z;
   const int col0 = ct * kTileCols;
   const int row00 = rb * kBwdTileRows * subtiles;
-  const float* Xb = X + static_cast<size_t>(b) * n * d;
-  const float* Yb = Xs + static_cast<size_t>(b) * m * d;
-  float* pXb = pX + (static_cast<size_t>(ct) * B + b) * n * d;
-  float* pXsb = pXs + (static_cast<size_t>(rb) * B + b) * m * d;
+  const T* Xb = X + static_cast<size_t>(b) * n * d;
+  const T* Yb = Xs + static_cast<size_t>(b) * m * d;
+  T* pXb = pX + (static_cast<size_t>(ct) * B + b) * n * d;
+  T* pXsb = pXs + (static_cast<size_t>(rb) * B + b) * m * d;
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int tid = ty * kWarp + tx;
   const long long cstep = kWarp * gsj;
-  const float* gp = g + b * gsb + (row00 + ty * R) * gsi + (col0 + tx) * gsj;
-  const bool one_chunk = d <= kFeatChunk;
+  const T* gp = g + b * gsb + (row00 + ty * R) * gsi + (col0 + tx) * gsj;
+  const bool one_chunk = d <= FC;
   const int fo_n = (d - fo0) < FC ? (d - fo0) : FC;
   const int sum_base = split_reduce_base<R * FC>(tx);
 
-  float colacc[kColsPerThread][FC];
+  T colacc[kColsPerThread][FC];
 #pragma unroll
   for (int c = 0; c < kColsPerThread; ++c) {
 #pragma unroll
-    for (int f = 0; f < FC; ++f) colacc[c][f] = 0.0f;
+    for (int f = 0; f < FC; ++f) colacc[c][f] = T(0);
   }
 
   for (int s = 0; s < subtiles; ++s) {
@@ -606,18 +673,18 @@ cov_backward_staged_kernel(const float* __restrict__ g, long long gsb,
     if (row0 >= n) break;           // the same for every thread of the block
 
     // the cotangent first: its latency hides behind the staging and d2
-    float w[R][kColsPerThread];
+    T w[R][kColsPerThread];
     load_cotangent(w, gp, gsi, cstep, row0, col0, tx, ty, n, m);
     gp += kBwdTileRows * gsi;
 
-    float d2[R][kColsPerThread];
+    T d2[R][kColsPerThread];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
 #pragma unroll
-      for (int c = 0; c < kColsPerThread; ++c) d2[r][c] = 0.0f;
+      for (int c = 0; c < kColsPerThread; ++c) d2[r][c] = T(0);
     }
-    for (int f0 = 0; f0 < d; f0 += kFeatChunk) {
-      const int fn = (d - f0) < kFeatChunk ? (d - f0) : kFeatChunk;
+    for (int f0 = 0; f0 < d; f0 += FC) {
+      const int fn = (d - f0) < FC ? (d - f0) : FC;
       __syncthreads();              // the previous contents have been read
       stage<kBwdTileRows>(xs, Xb, row0, kBwdTileRows, n, d, f0, fn, tid);
       if (s == 0 || !one_chunk) {   // the columns stay when d fits one chunk
@@ -625,16 +692,16 @@ cov_backward_staged_kernel(const float* __restrict__ g, long long gsb,
       }
       __syncthreads();
       for (int f = 0; f < fn; ++f) {
-        float y[kColsPerThread];
+        T y[kColsPerThread];
 #pragma unroll
         for (int c = 0; c < kColsPerThread; ++c) y[c] = ys[f][tx + kWarp * c];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float x = xs[f][ty * R + r];
+          const T x = xs[f][ty * R + r];
 #pragma unroll
           for (int c = 0; c < kColsPerThread; ++c) {
-            const float diff = x - y[c];
-            d2[r][c] = fmaf(diff, diff, d2[r][c]);
+            const T diff = x - y[c];
+            d2[r][c] = fma_t(diff, diff, d2[r][c]);
           }
         }
       }
@@ -655,28 +722,28 @@ cov_backward_staged_kernel(const float* __restrict__ g, long long gsb,
       __syncthreads();
     }
 
-    float rowacc[R * FC];
+    T rowacc[R * FC];
 #pragma unroll
     for (int f = 0; f < FC; ++f) {
       if (f < fo_n) {
-        float y[kColsPerThread];
+        T y[kColsPerThread];
 #pragma unroll
         for (int c = 0; c < kColsPerThread; ++c) y[c] = ys[f][tx + kWarp * c];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float x = xs[f][ty * R + r];
-          float sum = 0.0f;
+          const T x = xs[f][ty * R + r];
+          T sum = T(0);
 #pragma unroll
           for (int c = 0; c < kColsPerThread; ++c) {
-            const float diff = x - y[c];
-            sum = fmaf(w[r][c], diff, sum);
-            colacc[c][f] = fmaf(-w[r][c], diff, colacc[c][f]);
+            const T diff = x - y[c];
+            sum = fma_t(w[r][c], diff, sum);
+            colacc[c][f] = fma_t(-w[r][c], diff, colacc[c][f]);
           }
           rowacc[r * FC + f] = sum;
         }
       } else {
 #pragma unroll
-        for (int r = 0; r < R; ++r) rowacc[r * FC + f] = 0.0f;
+        for (int r = 0; r < R; ++r) rowacc[r * FC + f] = T(0);
       }
     }
     const int i0 = row0 + ty * R;
@@ -696,7 +763,7 @@ cov_backward_staged_kernel(const float* __restrict__ g, long long gsb,
     __syncthreads();
     const int j = col0 + tid;
     if (tid < kTileCols && j < m) {
-      float v = 0.0f;
+      T v = T(0);
 #pragma unroll
       for (int wp = 0; wp < kWarps; ++wp) v += red[wp][tid];
       pXsb[static_cast<size_t>(j) * d + fo0 + f] = v;
@@ -710,12 +777,12 @@ cov_backward_staged_kernel(const float* __restrict__ g, long long gsb,
 // order again. Launched as a programmatic dependent of the first pass, so
 // its launch overlaps that kernel's tail; it waits for the partial sums
 // before it reads them.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-cov_backward_finish(const float* __restrict__ pX,
-                    const float* __restrict__ pXs, float* __restrict__ dX,
-                    float* __restrict__ dXs, long long nX, long long nXs,
-                    int tiles_c, int row_blocks) {
-  __shared__ float part[kWarps][kWarp];
+cov_backward_finish(const T* __restrict__ pX, const T* __restrict__ pXs,
+                    T* __restrict__ dX, T* __restrict__ dXs, long long nX,
+                    long long nXs, int tiles_c, int row_blocks) {
+  __shared__ T part[kWarps][kWarp];
   asm volatile("griddepcontrol.wait;" ::: "memory");
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -725,19 +792,19 @@ cov_backward_finish(const float* __restrict__ pX,
   const long long idx =
       (second ? blockIdx.x - bX : blockIdx.x) * kWarp + tx;
   const long long count = second ? nXs : nX;
-  const float* src = second ? pXs : pX;
+  const T* src = second ? pXs : pX;
   const int tiles = second ? row_blocks : tiles_c;
-  float v = 0.0f;
+  T v = T(0);
   if (idx < count) {
     for (int t = ty; t < tiles; t += kWarps) v += src[t * count + idx];
   }
   part[ty][tx] = v;
   __syncthreads();
   if (ty == 0 && idx < count) {
-    float sum = 0.0f;
+    T sum = T(0);
 #pragma unroll
     for (int wp = 0; wp < kWarps; ++wp) sum += part[wp][tx];
-    (second ? dXs : dX)[idx] = 2.0f * sum;
+    (second ? dXs : dX)[idx] = T(2) * sum;
   }
 }
 
@@ -748,7 +815,8 @@ struct BackwardPlan {
 
 // Rows of g per block: 32 times the sub-tiles, the most of 8, 4, 2 that
 // still makes three blocks per SM, else 1. More sub-tiles mean fewer
-// partial column sums and one column reduction for more rows.
+// partial column sums and one column reduction for more rows. `scratch`
+// counts elements of the kernel's type.
 BackwardPlan plan_backward(int B, int n, int m, int d) {
   BackwardPlan p;
   p.tiles_c = (m + kTileCols - 1) / kTileCols;
@@ -769,27 +837,26 @@ BackwardPlan plan_backward(int B, int n, int m, int d) {
   return p;
 }
 
-template <int K>
-cudaError_t launch_backward(const float* g, long long gsb, long long gsi,
-                            long long gsj, const float* X, const float* Xs,
-                            float* dX, float* dXs, float* scratch, int B,
-                            int n, int m, int d, const BackwardPlan& p,
-                            cudaStream_t stream) {
-  float* pX = scratch;
-  float* pXs = scratch + p.tiles_c * p.nX;
+template <int K, typename T>
+cudaError_t launch_backward(const T* g, long long gsb, long long gsi,
+                            long long gsj, const T* X, const T* Xs, T* dX,
+                            T* dXs, T* scratch, int B, int n, int m, int d,
+                            const BackwardPlan& p, cudaStream_t stream) {
+  T* pX = scratch;
+  T* pXs = scratch + p.tiles_c * p.nX;
   if (!grid_fits(p.row_blocks, B)) return cudaErrorInvalidValue;
   const dim3 grid(p.tiles_c, p.row_blocks, B);
   const dim3 block(kWarp, kWarps);
   const int x_vec4 = d == 4 && reinterpret_cast<size_t>(X) % 16 == 0;
   if (d == 1) {
-    cov_backward_regs_kernel<K, 1><<<grid, block, 0, stream>>>(
+    cov_backward_regs_kernel<K, 1, T><<<grid, block, 0, stream>>>(
         g, gsb, gsi, gsj, X, Xs, pX, pXs, B, n, m, d, p.subtiles, 0);
   } else if (d <= 4) {
-    cov_backward_regs_kernel<K, 4><<<grid, block, 0, stream>>>(
+    cov_backward_regs_kernel<K, 4, T><<<grid, block, 0, stream>>>(
         g, gsb, gsi, gsj, X, Xs, pX, pXs, B, n, m, d, p.subtiles, x_vec4);
   } else {
-    for (int fo0 = 0; fo0 < d; fo0 += kFeatChunk) {
-      cov_backward_staged_kernel<K><<<grid, block, 0, stream>>>(
+    for (int fo0 = 0; fo0 < d; fo0 += kStagedChunk<T>) {
+      cov_backward_staged_kernel<K, T><<<grid, block, 0, stream>>>(
           g, gsb, gsi, gsj, X, Xs, pX, pXs, B, n, m, d, fo0, p.subtiles);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
@@ -810,26 +877,22 @@ cudaError_t launch_backward(const float* g, long long gsb, long long gsi,
   config.stream = stream;
   config.attrs = attr;
   config.numAttrs = 1;
-  const float* cpX = pX;
-  const float* cpXs = pXs;
-  return cudaLaunchKernelEx(&config, cov_backward_finish, cpX, cpXs, dX, dXs,
-                            p.nX, p.nXs, p.tiles_c, p.row_blocks);
+  const T* cpX = pX;
+  const T* cpXs = pXs;
+  return cudaLaunchKernelEx(&config, cov_backward_finish<T>, cpX, cpXs, dX,
+                            dXs, p.nX, p.nXs, p.tiles_c, p.row_blocks);
 }
 
 bool bad_shape(int B, int n, int m, int d) {
   return B <= 0 || n <= 0 || m <= 0 || d <= 0;
 }
 
-}  // namespace
-
-// K (B, n, m) = f(d2(X (B, n, d), Xs (B, m, d))), float32, contiguous.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int gp_cov_forward_f32(const void* X, const void* Xs, void* out,
-                                  int B, int n, int m, int d, int kind,
-                                  void* stream) {
-  const float* x = static_cast<const float*>(X);
-  const float* xs = static_cast<const float*>(Xs);
-  float* k = static_cast<float*>(out);
+template <typename T>
+int forward_entry(const void* X, const void* Xs, void* out, int B, int n,
+                  int m, int d, int kind, void* stream) {
+  const T* x = static_cast<const T*>(X);
+  const T* xs = static_cast<const T*>(Xs);
+  T* k = static_cast<T*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, n, m, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
@@ -849,34 +912,23 @@ extern "C" int gp_cov_forward_f32(const void* X, const void* Xs, void* out,
   return static_cast<int>(err);
 }
 
-// Floats of scratch that gp_cov_backward_f32 needs for these shapes.
-extern "C" long long gp_cov_backward_scratch_f32(int B, int n, int m, int d) {
-  if (bad_shape(B, n, m, d)) return -1;
-  return plan_backward(B, n, m, d).scratch;
-}
-
-// dX (B, n, d), dXs (B, m, d) from the cotangent g of K, read at
-// g[b * gsb + i * gsi + j * gsj] (strides in floats, any of them 0 for an
-// expanded cotangent); X, Xs, dX, dXs contiguous float32. Returns the
-// cudaError_t of the first launch that failed (0 on success).
-extern "C" int gp_cov_backward_f32(const void* g, long long gsb,
-                                   long long gsi, long long gsj,
-                                   const void* X, const void* Xs, void* dX,
-                                   void* dXs, void* scratch,
-                                   long long scratch_floats, int B, int n,
-                                   int m, int d, int kind, void* stream) {
-  const float* gp = static_cast<const float*>(g);
-  const float* x = static_cast<const float*>(X);
-  const float* xs = static_cast<const float*>(Xs);
-  float* dx = static_cast<float*>(dX);
-  float* dxs = static_cast<float*>(dXs);
-  float* sc = static_cast<float*>(scratch);
+template <typename T>
+int backward_entry(const void* g, long long gsb, long long gsi,
+                   long long gsj, const void* X, const void* Xs, void* dX,
+                   void* dXs, void* scratch, long long scratch_elems, int B,
+                   int n, int m, int d, int kind, void* stream) {
+  const T* gp = static_cast<const T*>(g);
+  const T* x = static_cast<const T*>(X);
+  const T* xs = static_cast<const T*>(Xs);
+  T* dx = static_cast<T*>(dX);
+  T* dxs = static_cast<T*>(dXs);
+  T* sc = static_cast<T*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, n, m, d) || gsb < 0 || gsi < 0 || gsj < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const BackwardPlan p = plan_backward(B, n, m, d);
-  if (scratch_floats < p.scratch) {
+  if (scratch_elems < p.scratch) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err;
@@ -900,3 +952,47 @@ extern "C" int gp_cov_backward_f32(const void* g, long long gsb,
   }
   return static_cast<int>(err);
 }
+
+}  // namespace
+
+// The entry points of one element type: the library is built once with
+// -DGP_COV_F32 and once with -DGP_COV_F64, two nvcc runs side by side.
+//
+// K (B, n, m) = f(d2(X (B, n, d), Xs (B, m, d))), contiguous, all float32
+// (_f32) or all float64 (_f64). Returns the cudaError_t of the launch (0 on
+// success).
+//
+// gp_cov_backward_scratch_*: elements of scratch (of the entry point's
+// type) that gp_cov_backward_* needs for these shapes.
+//
+// gp_cov_backward_*: dX (B, n, d), dXs (B, m, d) from the cotangent g of K,
+// read at g[b * gsb + i * gsi + j * gsj] (strides in elements, any of them 0
+// for an expanded cotangent); X, Xs, dX, dXs contiguous; everything of the
+// entry point's type. Returns the cudaError_t of the first launch that
+// failed (0 on success).
+#define GP_COV_ENTRY_POINTS(T, SUFFIX)                                       \
+  extern "C" int gp_cov_forward_##SUFFIX(                                    \
+      const void* X, const void* Xs, void* out, int B, int n, int m, int d,  \
+      int kind, void* stream) {                                              \
+    return forward_entry<T>(X, Xs, out, B, n, m, d, kind, stream);           \
+  }                                                                          \
+  extern "C" long long gp_cov_backward_scratch_##SUFFIX(int B, int n, int m, \
+                                                        int d) {             \
+    if (bad_shape(B, n, m, d)) return -1;                                    \
+    return plan_backward(B, n, m, d).scratch;                                \
+  }                                                                          \
+  extern "C" int gp_cov_backward_##SUFFIX(                                   \
+      const void* g, long long gsb, long long gsi, long long gsj,            \
+      const void* X, const void* Xs, void* dX, void* dXs, void* scratch,     \
+      long long scratch_elems, int B, int n, int m, int d, int kind,         \
+      void* stream) {                                                        \
+    return backward_entry<T>(g, gsb, gsi, gsj, X, Xs, dX, dXs, scratch,      \
+                             scratch_elems, B, n, m, d, kind, stream);       \
+  }
+
+#ifdef GP_COV_F32
+GP_COV_ENTRY_POINTS(float, f32)
+#endif
+#ifdef GP_COV_F64
+GP_COV_ENTRY_POINTS(double, f64)
+#endif

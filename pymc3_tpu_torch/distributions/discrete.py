@@ -376,7 +376,8 @@ class DiscreteUniform(Discrete):
     def logp(self, value, env=None, memo=None):
         lower, upper = self._ev_params(("lower", "upper"), env, memo)
         value = _fv(value)
-        return bound(-torch.log(upper - lower + 1.0),
+        # the integer bounds in floatX: int + 1.0 is torch's default float
+        return bound(-torch.log(_fv(upper) - _fv(lower) + 1.0),
                      value >= lower, value <= upper)
 
     def logcdf(self, value, env=None, memo=None):
@@ -385,7 +386,7 @@ class DiscreteUniform(Discrete):
         k = torch.floor(value.detach())
         inner = (torch.log(torch.clamp(torch.minimum(k, _fv(upper)) - lower
                                        + 1.0, min=1.0))
-                 - torch.log(upper - lower + 1.0))
+                 - torch.log(_fv(upper) - _fv(lower) + 1.0))
         return torch.where(value < lower, -torch.inf,
                            torch.where(value >= upper, 0.0, inner))
 

@@ -159,18 +159,56 @@ class GaussianRandomWalk(Continuous):
         return self._draw(_r_grw, ("sigma", "mu"), point, size, gen)
 
 
-@functools.lru_cache(maxsize=16)
-def _garch_exponents(n, device, dtype):
-    """Exponents ``t - 1 - k`` of GARCH's Toeplitz matrix (0 where
-    ``k >= t``), the mask of its strictly lower triangle and ``t``, as
-    constants on the device."""
-    t = np.arange(n)
-    e = t[:, None] - 1 - t[None, :]
+#: Steps a block of the blocked linear recursion behind GARCH11's
+#: volatility (chosen on the H100: ``PERF.md`` section 5).
+GARCH_BLOCK = 32
+
+
+@functools.lru_cache(maxsize=32)
+def _lower_exponents(size, device, dtype):
+    """Exponents ``i - 1 - k`` of a strictly lower Toeplitz matrix of powers
+    (0 where ``k >= i``), its mask and ``i``, as constants on the device."""
+    i = np.arange(size)
+    e = i[:, None] - 1 - i[None, :]
     mask = e >= 0
 
     def const(a):
         return torch.as_tensor(a, device=device).to(dtype)
-    return const(np.where(mask, e, 0)), const(mask), const(t)
+    return const(np.where(mask, e, 0)), const(mask), const(i)
+
+
+def _lower_powers(base, size, like):
+    """``P[i, k] = base^(i - 1 - k)`` for ``k < i``, else 0, and
+    ``base^i``."""
+    e, mask, i = _lower_exponents(size, like.device, like.dtype)
+    return mask * torch.pow(base, e), torch.pow(base, i)
+
+
+def _linear_recursion(u, beta, v0):
+    """``v_t = β v_{t-1} + u_{t-1}`` from ``v_0``, for ``t < n`` over the
+    last axis of ``u``, with no loop over steps: ``v_t = β^t v_0 +
+    Σ_{k<t} β^{t-1-k} u_k``. Up to ``L = GARCH_BLOCK`` steps that is one
+    ``(n, n)`` Toeplitz product. Longer series go in blocks of ``L``: in a
+    block starting at ``t0``, ``v_{t0+j} = β^j v_{t0} + Σ_{k<j}
+    β^{j-1-k} u_{t0+k}``, one ``(L, L)`` product for every block at once;
+    each block's sum carried to its end, ``c_b``, drives the block starts,
+    ``s_{b+1} = β^L s_b + c_b``: the same recursion over ``ceil(n / L)``
+    blocks with ``β^L``, solved by this function again. The depth is
+    ``log_L(n)``, fixed by the shape, and a series holds ``O(n + L²)``
+    numbers a level where one Toeplitz product over it held ``n²``."""
+    n = u.shape[-1]
+    L = GARCH_BLOCK
+    if n <= L:
+        powers, beta_t = _lower_powers(beta, n, u)
+        return beta_t * v0 + u @ powers.transpose(-1, -2)
+    nb = -(-n // L)
+    u = torch.nn.functional.pad(u, (0, nb * L - n))
+    u = u.reshape(*u.shape[:-1], nb, L)
+    powers, beta_j = _lower_powers(beta, L, u)
+    w = u @ powers.transpose(-1, -2)
+    starts = _linear_recursion(beta * w[..., -1] + u[..., -1], beta ** L, v0)
+    v = beta_j * starts[..., None] + w
+    return v.reshape(*v.shape[:-2], nb * L)[..., :n]
 
 
 class GARCH11(Continuous):
@@ -185,14 +223,12 @@ class GARCH11(Continuous):
         super().__init__(defaults=("mean",), *args, **kwargs)
 
     def _vol(self, x, omega, alpha_1, beta_1, initial_vol):
-        """Volatilities of the series ``x: (n,)``: the recursion
-        ``v_t = ω + α x_{t-1}² + β v_{t-1}`` from ``v_0 = initial_vol²`` as
-        one Toeplitz product (cf. ``timeseries.py:181``)."""
-        e, mask, t = _garch_exponents(x.shape[-1], x.device, x.dtype)
-        powers = mask * torch.pow(beta_1, e)
-        v = torch.pow(beta_1, t) * initial_vol * initial_vol \
-            + powers @ (omega + alpha_1 * x ** 2)
-        return torch.sqrt(v)
+        """Volatilities of the series ``x: (..., n)``: the recursion
+        ``v_t = ω + α x_{t-1}² + β v_{t-1}`` from ``v_0 = initial_vol²``
+        (cf. ``timeseries.py:181``, a ``lax.scan``), blocked as
+        :func:`_linear_recursion` says."""
+        return torch.sqrt(_linear_recursion(
+            omega + alpha_1 * x ** 2, beta_1, initial_vol * initial_vol))
 
     def logp(self, value, env=None, memo=None):
         omega, alpha_1, beta_1, initial_vol = self._ev_params(

@@ -282,8 +282,10 @@ class Stationary(Covariance):
         kind = self._fused_kind
 
         def f(X_, Xs_, ls):
-            Xl = X_ / ls
-            Xsl = Xl if Xs_ is None else Xs_ / ls
+            # both inputs in floatX, so K comes out of the kernel of the
+            # configured width (float32 or float64)
+            Xl = X_.to(torch_floatX()) / ls
+            Xsl = Xl if Xs_ is None else Xs_.to(torch_floatX()) / ls
             # mean-centring: distance-invariant, keeps float32 magnitudes
             # small (as in the JAX package)
             c = torch.mean(Xl, dim=0)

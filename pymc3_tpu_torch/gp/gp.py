@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import torch_floatX
+from ..config import floatX, torch_floatX
 from ..node import Node, apply as node_apply, as_node
 from .cov import Constant, Covariance, Kron, WhiteNoise
 from .mean import Zero
@@ -595,7 +595,7 @@ def _cartesian(Xs):
     for a in arrs[1:]:
         out = np.concatenate([np.repeat(out, a.shape[0], axis=0),
                               np.tile(a, (out.shape[0], 1))], axis=1)
-    return out.astype(np.float32)
+    return out.astype(floatX())
 
 
 class _KronBase(Base):

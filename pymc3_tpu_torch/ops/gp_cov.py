@@ -5,9 +5,12 @@ plain PyTorch versions (the port of ``pymc3_tpu/ops/pallas/gp_cov.py``).
 lengthscale-scaled inputs, ``X: (n, d)`` or ``(B, n, d)``. On a CUDA tensor
 the forward and the backward are the two kernels of ``csrc/gp_cov.cu``
 (built with ``nvcc`` at first use into ``build/kernels/`` and loaded with
-``ctypes``); on a CPU tensor they are :func:`stationary_cov_reference` and
+``ctypes``), in float32 or in float64 (one source built twice at once, a
+library of entry points per type, chosen by the inputs' dtype); on a CPU tensor they are
+:func:`stationary_cov_reference` and
 :func:`stationary_cov_backward_reference`. There is no fallback from the
-card to the plain versions: a CUDA tensor a kernel does not take raises.
+card to the plain versions: a CUDA tensor a kernel does not take (another
+dtype, or two dtypes) raises.
 
 Gradients go through a ``torch.autograd.Function`` whose backward is a
 second Function around the backward kernel (the JAX package's custom VJP ran
@@ -44,6 +47,9 @@ STATIONARY_KINDS = ("expquad", "matern52", "matern32", "matern12",
 _EPS = 1e-12
 
 _KIND_INDEX = {kind: i for i, kind in enumerate(STATIONARY_KINDS)}
+#: The element types the kernels take, and the suffix of their C entry
+#: points (``gp_cov_forward_f32``, ``gp_cov_forward_f64``, ...).
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: The most batch entries one launch takes: the kernels' ``gridDim.z``.
 MAX_GRID_Z = 65_535
 
@@ -58,7 +64,8 @@ _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gp_cov.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_lib = None
+#: The loaded kernel library of each element type (see :func:`build`).
+_libs = {}
 
 
 def _apply_covfn(kind, d2):
@@ -136,47 +143,58 @@ def _nvcc():
 
 
 def build():
-    """Compile ``csrc/gp_cov.cu``, both kernels (if its build is not there
-    yet), and load it. Returns ``(path, seconds, compiler_output)``; the
-    library is keyed by the source's hash, so an edited source is rebuilt."""
-    global _lib
+    """Compile ``csrc/gp_cov.cu`` into one library per element type, both
+    kernels each (the float32 and the float64 entry points, selected by
+    ``-DGP_COV_F32`` / ``-DGP_COV_F64``), the two ``nvcc`` runs started
+    together where a library is not built yet, and load both. Returns
+    ``({dtype: path}, seconds, compiler_output)``; each library is keyed by
+    the source's hash and its flags, so an edited source is rebuilt."""
     src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    path = _BUILD_DIR / f"libgp_cov_{tag[:16]}.so"
-    seconds, log = 0.0, ""
-    if not path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-            capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+    jobs, paths = [], {}
+    t0 = time.perf_counter()
+    for dtype, suffix in _SUFFIX.items():
+        flags = [*_NVCC_FLAGS, f"-DGP_COV_{suffix.upper()}"]
+        tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
+        path = paths[dtype] = _BUILD_DIR / f"libgp_cov_{suffix}_{tag[:16]}.so"
+        if not path.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            jobs.append((path, tmp, subprocess.Popen(
+                [_nvcc(), *flags, "-o", str(tmp), str(_SOURCE)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = ""
+    for path, tmp, proc in jobs:
+        out = proc.communicate()[0]
+        log += out
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {_SOURCE}:\n{log}")
+            raise RuntimeError(f"nvcc failed building {_SOURCE}:\n{out}")
         os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
+    seconds = time.perf_counter() - t0 if jobs else 0.0
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gp_cov_forward_f32.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-    lib.gp_cov_forward_f32.restype = i32
-    lib.gp_cov_backward_scratch_f32.argtypes = [i32] * 4
-    lib.gp_cov_backward_scratch_f32.restype = i64
-    lib.gp_cov_backward_f32.argtypes = (
-        [ptr] + [i64] * 3 + [ptr] * 5 + [i64] + [i32] * 5 + [ptr])
-    lib.gp_cov_backward_f32.restype = i32
-    _lib = lib
-    return path, seconds, log
+    for dtype, suffix in _SUFFIX.items():
+        lib = ctypes.CDLL(str(paths[dtype]))
+        fwd = getattr(lib, f"gp_cov_forward_{suffix}")
+        fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        fwd.restype = i32
+        scratch = getattr(lib, f"gp_cov_backward_scratch_{suffix}")
+        scratch.argtypes = [i32] * 4
+        scratch.restype = i64
+        bwd = getattr(lib, f"gp_cov_backward_{suffix}")
+        bwd.argtypes = [ptr] + [i64] * 3 + [ptr] * 5 + [i64] + [i32] * 5 + [ptr]
+        bwd.restype = i32
+        _libs[dtype] = lib
+    return paths, seconds, log
 
 
 def _checked(kind, X, Xs):
     """The argument checks both launches share (host-side only: no device
-    query); returns ``(B, n, m, d)`` and contiguous ``X``, ``Xs``."""
+    query): float32 or float64, both inputs alike, on one CUDA device;
+    returns ``(B, n, m, d)`` and contiguous ``X``, ``Xs``."""
     if kind not in _KIND_INDEX:
         raise ValueError(f"kind must be one of {STATIONARY_KINDS}")
-    if X.dtype is not torch.float32 or Xs.dtype is not torch.float32:
-        raise TypeError(f"the gp_cov kernel takes float32, got {X.dtype} "
-                        f"and {Xs.dtype}")
+    if X.dtype not in _SUFFIX or Xs.dtype is not X.dtype:
+        raise TypeError("the gp_cov kernels take float32 or float64, both "
+                        f"inputs alike, got {X.dtype} and {Xs.dtype}")
     if not X.is_cuda or X.device != Xs.device:
         raise ValueError("X and Xs must be on the same CUDA device, got "
                          f"{X.device} and {Xs.device}")
@@ -188,7 +206,7 @@ def _checked(kind, X, Xs):
     if min(B, n, m, d) <= 0:
         raise ValueError(f"empty input: X {tuple(X.shape)}, "
                          f"Xs {tuple(Xs.shape)}")
-    if _lib is None:
+    if not _libs:
         build()
     if not X.is_contiguous():
         X = X.contiguous()
@@ -218,16 +236,23 @@ def _chunks(B):
     return [(b, min(b + MAX_GRID_Z, B)) for b in range(0, B, MAX_GRID_Z)]
 
 
+def _entry(name, dtype):
+    """The C entry point ``name`` of the kernels' element type ``dtype``."""
+    return getattr(_libs[dtype], f"{name}_{_SUFFIX[dtype]}")
+
+
 def _launch(kind, X, Xs):
-    """One forward call on plain float32 CUDA tensors ``X (B, n, d)``,
-    ``Xs (B, m, d)``; returns ``K (B, n, m)``. A batch above 65,535 is cut
+    """One forward call on plain CUDA tensors ``X (B, n, d)``,
+    ``Xs (B, m, d)``, both float32 or both float64 (the kernel of that
+    type); returns ``K (B, n, m)`` in that type. A batch above 65,535 is cut
     into chunks of at most that many, one launch each, written into one
     output; the call counts once in ``LAUNCHES`` whatever its chunks."""
     global LAUNCHES
     B, n, m, d, X, Xs = _checked(kind, X, Xs)
-    out = torch.empty((B, n, m), dtype=torch.float32, device=X.device)
+    out = torch.empty((B, n, m), dtype=X.dtype, device=X.device)
+    forward = _entry("gp_cov_forward", X.dtype)
     for b0, b1 in _chunks(B):
-        _call(_lib.gp_cov_forward_f32, X.device, X[b0:b1].data_ptr(),
+        _call(forward, X.device, X[b0:b1].data_ptr(),
               Xs[b0:b1].data_ptr(), out[b0:b1].data_ptr(), b1 - b0, n, m, d,
               _KIND_INDEX[kind])
     LAUNCHES += 1
@@ -235,31 +260,33 @@ def _launch(kind, X, Xs):
 
 
 def _launch_backward(kind, g, X, Xs):
-    """One call of the backward kernel on plain float32 CUDA tensors:
-    cotangent ``g (B, n, m)`` with any strides (an expanded, stride-0 one is
-    read in place), ``X (B, n, d)``, ``Xs (B, m, d)``; returns
-    ``dX (B, n, d)``, ``dXs (B, m, d)``. A batch above 65,535 is cut into
-    chunks as in :func:`_launch`, which share one scratch buffer; the call
-    counts once in ``BACKWARD_LAUNCHES``."""
+    """One call of the backward kernel on plain CUDA tensors of one type,
+    float32 or float64: cotangent ``g (B, n, m)`` with any strides (an
+    expanded, stride-0 one is read in place), ``X (B, n, d)``,
+    ``Xs (B, m, d)``; returns ``dX (B, n, d)``, ``dXs (B, m, d)`` in that
+    type. A batch above 65,535 is cut into chunks as in :func:`_launch`,
+    which share one scratch buffer; the call counts once in
+    ``BACKWARD_LAUNCHES``."""
     global BACKWARD_LAUNCHES
     B, n, m, d, X, Xs = _checked(kind, X, Xs)
-    if g.dtype is not torch.float32 or g.device != X.device:
-        raise TypeError("the cotangent must be float32 on X's device, got "
-                        f"{g.dtype} on {g.device}")
+    if g.dtype is not X.dtype or g.device != X.device:
+        raise TypeError(f"the cotangent must be {X.dtype} on X's device, "
+                        f"got {g.dtype} on {g.device}")
     if tuple(g.shape) != (B, n, m):
         raise ValueError(f"cotangent shape {tuple(g.shape)}, expected "
                          f"{(B, n, m)}")
-    dX = torch.empty((B, n, d), dtype=torch.float32, device=X.device)
-    dXs = torch.empty((B, m, d), dtype=torch.float32, device=X.device)
+    dX = torch.empty((B, n, d), dtype=X.dtype, device=X.device)
+    dXs = torch.empty((B, m, d), dtype=X.dtype, device=X.device)
     chunks = _chunks(B)
-    floats = max(_lib.gp_cov_backward_scratch_f32(size, n, m, d)
-                 for size in {b1 - b0 for b0, b1 in chunks})
-    scratch = torch.empty((floats,), dtype=torch.float32, device=X.device)
+    elems = max(_entry("gp_cov_backward_scratch", X.dtype)(size, n, m, d)
+                for size in {b1 - b0 for b0, b1 in chunks})
+    scratch = torch.empty((elems,), dtype=X.dtype, device=X.device)
+    backward = _entry("gp_cov_backward", X.dtype)
     for b0, b1 in chunks:
         gb = g[b0:b1]
-        _call(_lib.gp_cov_backward_f32, X.device, gb.data_ptr(), *gb.stride(),
+        _call(backward, X.device, gb.data_ptr(), *gb.stride(),
               X[b0:b1].data_ptr(), Xs[b0:b1].data_ptr(), dX[b0:b1].data_ptr(),
-              dXs[b0:b1].data_ptr(), scratch.data_ptr(), floats, b1 - b0, n,
+              dXs[b0:b1].data_ptr(), scratch.data_ptr(), elems, b1 - b0, n,
               m, d, _KIND_INDEX[kind])
     BACKWARD_LAUNCHES += 1
     return dX, dXs

@@ -17,6 +17,7 @@ return numpy arrays with the JAX package's keys and shapes.
 from __future__ import annotations
 
 import logging
+import os
 import sys
 import time
 import warnings
@@ -471,7 +472,8 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
     that generates statistics, on the host, the final kernel state, and
     whether a ``KeyboardInterrupt`` cut the run short. ``warm_states``
     (per-chain checkpoints of an earlier run) replace the fresh kernel state
-    where they match it, and then the step-size probe is skipped.
+    where they match it, and then the step-size probe is skipped; so it is
+    where ``PYMC3_TPU_NO_EPS_PROBE`` is set, as in the JAX package.
     """
     device = model.device
     chains = q0.shape[0]
@@ -481,7 +483,8 @@ def _device_sample(model, step, q0, draws, tune, random_seed, progressbar,
     noise = GeneratorNoise(gen, chains, device)
     q = torch.as_tensor(q0, dtype=torch_floatX(), device=device)
 
-    if tune > 0 and warm_states is None:
+    if tune > 0 and warm_states is None and \
+            not os.environ.get("PYMC3_TPU_NO_EPS_PROBE"):
         for m in _members(step):
             if getattr(m, "adapt_step_size", False) and \
                     hasattr(m, "step_size") and hasattr(m, "potential"):

@@ -10,8 +10,9 @@ the proposal covariance has a Cholesky factor, and the mean acceptance.
 - The β bisection (target ESS = threshold·N) is a fixed count of halvings
   carried by ``torch.where``, which stops where the JAX package's
   ``lax.while_loop`` stops (:func:`_beta_stage`).
-- Systematic resampling is one uniform, a float32 cumulative sum and
-  ``torch.searchsorted``, then one gather per array.
+- Systematic resampling is one uniform, a cumulative sum in the weights'
+  dtype (``floatX``) and ``torch.searchsorted``, then one gather per
+  array.
 - The proposal covariance is the particles' centred Gram matrix and its
   ``cholesky_ex``.
 - The mutation is an independent-Metropolis chain per particle, ``n_steps``
@@ -41,7 +42,7 @@ import logging
 import numpy as np
 import torch
 
-from ..config import torch_floatX
+from ..config import floatX, torch_floatX
 from ..distributions.distribution import make_generator
 from ..model import modelcontext
 from ..node import _ev
@@ -69,20 +70,20 @@ def _beta_stage(ll_raw, old_beta, rN, mesh=_ALONE):
     the log-evidence increment (cf. ``_beta_stage``, ``smc.py:51``), all on
     the device.
 
-    ``old_beta`` is a float32 scalar tensor, ``rN`` the target ESS as an
-    int. Each of :data:`BISECTION_STEPS` halvings runs only while the JAX
+    ``old_beta`` is a scalar tensor in the dtype of ``ll_raw`` (``floatX``),
+    ``rN`` the target ESS as an int. Each of :data:`BISECTION_STEPS` halvings runs only while the JAX
     package's loop would (``up - low > 1e-6`` and the integer ESS not yet
     ``rN``); afterwards ``torch.where`` keeps the state, so the result is
-    that loop's with no host read. The ESS is floored in float32 and cast
-    to int32, as there.
+    that loop's with no host read. The ESS is floored in the dtype of
+    ``ll_raw`` and cast to int32, as there.
 
     The particles are this rank's of ``mesh`` and the sums span every
     rank: with ``M`` the global max of the log weights, ``S1`` and ``S2``
     the global sums of ``exp(lw - M)`` and ``exp(2 (lw - M))`` (float64),
     the ESS is ``S1^2 / S2`` (one MAX and one SUM a halving) and the
     weights returned are this rank's rows. One process takes the JAX
-    package's float32 ESS, ``exp(-logsumexp(2 lw))``, whose floor the
-    float64 one can cross."""
+    package's ESS, ``exp(-logsumexp(2 lw))`` in the dtype of ``ll_raw``,
+    whose floor the float64 sums of several ranks can cross in float32."""
     ll = torch.where(torch.isfinite(ll_raw), ll_raw,
                      torch.full_like(ll_raw, -1e30))
     n = ll.shape[0] * mesh.world_size
@@ -131,8 +132,8 @@ def _beta_stage(ll_raw, old_beta, rN, mesh=_ALONE):
 
 def _systematic_indices(u, weights, rows=None):
     """Systematic resampling indices from one uniform ``u`` (a scalar
-    tensor): positions (u + i) / N against the normalised float32
-    cumulative sum, searched from the left as ``jnp.searchsorted``
+    tensor): positions (u + i) / N against the normalised cumulative sum in
+    the weights' dtype, searched from the left as ``jnp.searchsorted``
     (cf. ``smc.py:99``); ``rows`` (a slice) picks the output rows to
     search, all by default."""
     n = weights.shape[0]
@@ -468,7 +469,7 @@ def _make_abc_loglike(model, epsilon):
         with torch.no_grad():
             vals = [v.cpu().numpy() for v in batched_params(q)]
         n = q.shape[0]
-        sims = np.stack([np.asarray(fn(*[v[i] for v in vals]), np.float32)
+        sims = np.stack([np.asarray(fn(*[v[i] for v in vals]), floatX())
                          for i in range(n)])
         HOST_SIMULATOR_CALLS += n
         return pseudo_loglike(torch.as_tensor(sims, device=q.device))

@@ -312,7 +312,8 @@ def find_reasonable_eps(step, q0_batch, seed=None, noise=None):
             mesh).tolist()
         return total / count
 
-    eps = float(np.float32(step.step_size))
+    # the initial step size in floatX, as the JAX package's probe starts
+    eps = float(np.dtype(floatX()).type(step.step_size))
     a = accept_at(eps)
     it = 0
     while (a > 0.9 or a < 0.25) and it < 30 and 1e-10 < eps < 1e4:

@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from ..config import floatX
+
 __all__ = [
     "sgd", "momentum", "nesterov_momentum", "adagrad", "adagrad_window",
     "rmsprop", "adadelta", "adam", "adamax", "norm_constraint",
@@ -73,10 +75,11 @@ def _curried(fn):
     return wrapper
 
 
-def _f32(x):
-    """A host float32 scalar: the bias corrections are taken in float32 on
-    the host, as the JAX package takes them on the device."""
-    return np.float32(x)
+def _fx(x):
+    """A host scalar of the configured float type: the bias corrections are
+    taken in ``floatX`` on the host, as the JAX package takes them on the
+    device (``t.astype(floatX())``)."""
+    return np.dtype(floatX()).type(x)
 
 
 def _zeros(p):
@@ -224,8 +227,8 @@ def adam(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8):
         t = t + 1
         m = tree_map(lambda m_, g_: b1 * m_ + (1 - b1) * g_, m, g)
         v = tree_map(lambda v_, g_: b2 * v_ + (1 - b2) * g_ ** 2, v, g)
-        a_t = float(lr * np.sqrt(1 - _f32(b2) ** _f32(t))
-                    / (1 - _f32(b1) ** _f32(t)))
+        a_t = float(lr * np.sqrt(1 - _fx(b2) ** _fx(t))
+                    / (1 - _fx(b1) ** _fx(t)))
         p_new = tree_map(lambda p_, m_, v_: p_ - a_t * m_
                          / (torch.sqrt(v_) + eps), p, m, v)
         return p_new, (m, v, t)
@@ -244,7 +247,7 @@ def adamax(learning_rate=0.002, beta1=0.9, beta2=0.999, epsilon=1e-8):
         m = tree_map(lambda m_, g_: b1 * m_ + (1 - b1) * g_, m, g)
         u = tree_map(lambda u_, g_: torch.maximum(b2 * u_, torch.abs(g_)),
                      u, g)
-        a_t = float(lr / (1 - _f32(b1) ** _f32(t)))
+        a_t = float(lr / (1 - _fx(b1) ** _fx(t)))
         p_new = tree_map(lambda p_, m_, u_: p_ - a_t * m_ / (u_ + eps),
                          p, m, u)
         return p_new, (m, u, t)

@@ -191,8 +191,11 @@ def test_backward_launch_rejects_what_the_kernel_does_not_take():
     before = gp_cov.BACKWARD_LAUNCHES
     X = torch.zeros(1, 4, 2)
     with pytest.raises(TypeError, match="float32"):
-        gp_cov._launch_backward("expquad", torch.zeros(1, 4, 4).double(),
-                                X.double(), X.double())
+        gp_cov._launch_backward("expquad", torch.zeros(1, 4, 4).half(),
+                                X.half(), X.half())
+    with pytest.raises(TypeError, match="float32"):
+        gp_cov._launch_backward("expquad", torch.zeros(1, 4, 4), X,
+                                X.double())
     with pytest.raises(ValueError, match="CUDA"):
         gp_cov._launch_backward("expquad", torch.zeros(1, 4, 4), X, X)
     with pytest.raises(ValueError, match="CUDA"):
@@ -212,10 +215,10 @@ def test_rejects_unknown_kind():
         stationary_cov(torch.zeros(3, 1), None, "periodic")
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_kernel_launch_rejects_other_dtypes(dtype):
-    """The CUDA kernel takes float32 only; it raises before it builds or
-    launches anything, and counts no launch."""
+    """The CUDA kernels take float32 and float64 only; another dtype raises
+    before anything is built or launched, and counts no launch."""
     before = gp_cov.LAUNCHES
     X = torch.zeros(1, 4, 2, dtype=dtype)
     with pytest.raises(TypeError, match="float32"):

@@ -118,34 +118,37 @@ def test_dual_averaging_50_updates():
 
 class ReplayNoise:
     """The random numbers one JAX NUTS transition per chain consumes,
-    replayed from its keys in the order the port asks for them."""
+    replayed from its keys in the order the port asks for them. ``dtype``
+    is the JAX package's ``floatX``, in which it draws the momenta and the
+    uniforms (the direction's too: ``jax.random.bernoulli``'s default p is
+    a Python float, so its uniform takes the default float width)."""
 
-    def __init__(self, keys, n, max_depth):
+    def __init__(self, keys, n, max_depth, dtype=np.float32):
+        self.dtype = dtype
         self.p = []
         self.depths = [[] for _ in range(max_depth)]
         for key in keys:
             k_mom, k_tree = jax.random.split(key)
-            self.p.append(np.asarray(jax.random.normal(k_mom, (n,),
-                                                       jnp.float32)))
+            self.p.append(np.asarray(jax.random.normal(k_mom, (n,), dtype)))
             for d in range(max_depth):
                 k_tree, k_dir, k_sub, k_swap = jax.random.split(k_tree, 4)
                 takes = []
                 for _ in range(max(1, (1 << d) // 2)):
                     k_sub, ka, kb = jax.random.split(k_sub, 3)
-                    takes += [jax.random.uniform(ka, (), jnp.float32),
-                              jax.random.uniform(kb, (), jnp.float32)]
+                    takes += [jax.random.uniform(ka, (), dtype),
+                              jax.random.uniform(kb, (), dtype)]
                 self.depths[d].append((
-                    jax.random.uniform(k_dir, (), jnp.float32),
-                    jax.random.uniform(k_swap, (), jnp.float32), takes))
+                    jax.random.uniform(k_dir, (), dtype),
+                    jax.random.uniform(k_swap, (), dtype), takes))
 
     def normal(self, dim):
         return torch.from_numpy(np.stack(self.p))
 
     def depth(self, d, n_take):
         rows = self.depths[d]
-        u_dir = np.array([r[0] for r in rows], np.float32)
-        u_swap = np.array([r[1] for r in rows], np.float32)
-        takes = np.array([r[2][:n_take] for r in rows], np.float32).T
+        u_dir = np.array([r[0] for r in rows], self.dtype)
+        u_swap = np.array([r[1] for r in rows], self.dtype)
+        takes = np.array([r[2][:n_take] for r in rows], self.dtype).T
         return (torch.from_numpy(u_dir), torch.from_numpy(u_swap),
                 torch.from_numpy(takes))
 
