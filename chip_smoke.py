@@ -24,9 +24,12 @@ a non-zero exit and no result line:
    (phase 5's ``plot_gp_dist`` data), ``gp_example``'s (256, 60, 60, 1)
    both ways (phase 25), and a batch of 70,000 that the wrappers cut into two
    launches, each checked the same way; then phase 31's kernel part: the
-   float64 builds of both kernels against their plain float64 versions and
-   timed (``phase_kernel_f64``); the build line also prints the static
-   count of FP64 instructions in each float64 kernel's SASS;
+   float64 builds of both kernels against their plain float64 versions at
+   the GP's shapes and ragged ones, the backward twice bit for bit, and
+   both timed twice with both bounds (``phase_kernel_f64``); the build
+   lines also print each kernel's registers and spills (``-Xptxas -v``)
+   and the static count of FP64 instructions in each float64 kernel's
+   SASS;
 4. GP marginal regression (``pymc3_tpu_torch/examples/suite.py``, n = 200,
    200 tune + 500 draws, 4 chains; tune cut from 500, then 300) sampled by NUTS
    through both kernels; moment check against ``BASELINE_CPU.json`` and
@@ -156,7 +159,11 @@ a non-zero exit and no result line:
    both on the card (the pointwise log likelihood against the CPU's, the
    unpooled model ranked first, d_loo within the reference runs' noise);
    ``rhat_device``/``ess_device`` against float64 numpy, timed beside the
-   host's;
+   host's; in an eighth worker process started before phase 19 and read
+   here (in the main process under ``--only glm``), so its wall runs
+   beside phases 19-23 instead of after them (for the time limit: the
+   script took 1220.7 s with phase 24 in the main process on the slowest
+   host seen);
 25. the fifteen examples of ``tests/test_examples.py``
    (``pymc3_tpu_torch/examples/``), each at its own data width through its
    own entry point (``sample()`` at 256 chains, tune 100 + draws 50, or
@@ -256,8 +263,9 @@ Three shorter runs serve measurement; none prints the result line:
 
 ``--quick`` runs phases 1-3 and phase 5 at the model's test point (no
 sampling). With ``--against DIR``, a checkout of another commit, it also
-times that commit's forward kernel in the same call, in turns (other, this,
-this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
+times that commit's kernels in the same call, both directions in float32
+and (from a checkout with float64 kernels) in float64, in turns (other,
+this, this, other). ``--gp-wall DIR`` runs phase 4 alone in four fresh processes
 (DIR, this, this, DIR) and prints each wall. ``--only NAMES`` runs phases
 1-3 and then the named ones of phases 6-31 (radon, best, mixture, disaster,
 binary, population, lkj, sv, garch, es, labels, advi_minibatch, advi_gp,
@@ -300,9 +308,9 @@ PEAK_F64_FLOPS = 34e12
 # multiplies and exp). CUDA's double exp runs on the FP64 pipes (the SFU
 # has no double path): a reduction by rint(x log2 e) and two fused
 # multiply-adds against a split ln 2, a degree-11 polynomial by Horner's
-# rule and a scale, about 16 instructions. The build line prints the static
-# FP64 count of each float64 kernel's SASS beside it (expquad's small
-# forward kernel: its four outputs and the unrolled feature loop).
+# rule and a scale, about 16 instructions (a lower count than the 20-25 the
+# compiled kernels' SASS holds, so the bound stays a bound). The build line
+# prints the static FP64 count of each float64 kernel's SASS beside it.
 F64_EXP_OPS = 16
 F64_EXPQUAD_OPS = {"forward": 1 + F64_EXP_OPS, "backward": 2 + F64_EXP_OPS}
 
@@ -340,6 +348,9 @@ CHUNKED_SHAPE = (70_000, 8, 8, 1)
 F64_SHAPES = (MAIN_SHAPE, VI_SHAPE, (1, 4096, 4096, 4), FITC_SHAPE,
               CHUNKED_SHAPE)
 F64_TIMED = (MAIN_SHAPE, VI_SHAPE, (1, 4096, 4096, 4))
+# the backward's two runs compared bit for bit: the launcher's plans with
+# one and with two column tiles a block
+F64_REPEAT = (MAIN_SHAPE, (1, 4096, 4096, 4))
 F64_FWD_REL = 1e-12
 F64_BWD_REL = 1e-10
 
@@ -409,9 +420,11 @@ def phase_device():
 
 def _sass_fp64_counts(path, kinds):
     """FP64 instructions (DADD, DMUL, DFMA, the 64-bit MUFU seeds) in the
-    SASS of each float64 forward kernel, vector variant, by kind: a static
-    count over its four outputs a thread and its unrolled feature loop, to
-    set beside ``F64_EXPQUAD_OPS``. None where ``cuobjdump`` is missing."""
+    SASS of each float64 kernel by kind, vector stores, d = 1 for the
+    backward: a static count over a thread's outputs and its unrolled
+    loops, to set beside ``F64_EXPQUAD_OPS``. The name ends in the flat
+    forward's stores (2: vector) and the backward's features (1).
+    None where ``cuobjdump`` is missing."""
     import re
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -421,22 +434,59 @@ def _sass_fp64_counts(path, kinds):
     counts = {}
     for body in sass.split("Function : ")[1:]:
         name = body.split("\n", 1)[0]
+        # the shared kernels in double (d = 1 for the backward), the flat
+        # forward (vector stores) and the float64 backward (d = 1)
         hit = re.search(r"cov_(forward_small|forward_tiled|backward_regs)"
-                        r"_kernelILi(\d)E(?:Lb1E|Li1E)dE", name)
+                        r"_kernelILi(\d)E(?:Lb1E|Li1E)dE()", name) or \
+            re.search(r"cov_(forward_flat_f64)ILi(\d)ELi(2)E", name) or \
+            re.search(r"cov_(backward_f64)_kernelILi(\d)ELi(1)E", name)
         if hit:
-            kind = f"{hit.group(1)}_{kinds[int(hit.group(2))]}"
+            kind = f"{hit.group(1)}{hit.group(3)}_{kinds[int(hit.group(2))]}"
             counts[kind] = len(re.findall(
                 r"\b(?:DADD|DMUL|DFMA|MUFU\.(?:RSQ64H|RCP64H))\b", body))
     return counts
 
 
+def _ptxas_table(log):
+    """Registers and spill bytes of each kernel in ``nvcc -Xptxas -v``'s
+    output, by demangled name (``c++filt`` where the toolkit has it):
+    ``{name: [registers, spill stores, spill loads]}``."""
+    import re
+    table, name = {}, None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", line)
+        if hit:
+            name = hit.group(1)
+            table[name] = [None, 0, 0]
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if hit and name:
+            table[name][1:] = [int(hit.group(1)), int(hit.group(2))]
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name:
+            table[name][0] = int(hit.group(1))
+    tool = shutil.which("c++filt")
+    if tool and table:
+        names = subprocess.run([tool], input="\n".join(table),
+                               capture_output=True, text=True).stdout.split(
+                                   "\n")
+        table = {re.sub(r"\(anonymous namespace\)::|\(.*$", "", pretty):
+                 row for pretty, row in zip(names, table.values())}
+    return table
+
+
 def phase_build(gp_cov):
     paths, seconds, log = gp_cov.build()
-    ptxas = " | ".join(line.strip() for line in log.splitlines()
-                       if "registers" in line or "spill" in line)
     print(f"build: {', '.join(p.name for p in paths.values())} in "
           f"{seconds:.1f} s (two nvcc runs at once)", flush=True)
-    print(f"ptxas: {ptxas}", flush=True)
+    table = _ptxas_table(log)
+    for label, keep in (("float32", lambda k: "double" not in k),
+                        ("float64", lambda k: "double" in k
+                         or "_f64" in k)):
+        print(f"ptxas {label} [registers, spill stores, spill loads]: "
+              + json.dumps({k: v for k, v in table.items() if keep(k)}),
+              flush=True)
     print("sass fp64 instructions (static, float64 kernels): "
           + json.dumps(_sass_fp64_counts(paths[torch.float64],
                                          gp_cov.STATIONARY_KINDS)),
@@ -497,14 +547,13 @@ def _check_backward(gp_cov, kind, shape, seed):
     return err
 
 
-def _bound_ms(direction, shape, dtype=torch.float32):
-    """The least time the card could take: each input read once and each
-    output written once at the memory rate, or the operations at their
-    peak for the element type, whichever is larger. In float32, FLOPs
-    against the float32 rate (expf on the SFU, outside it); in float64, the
-    expquad kernel's FP64 instructions (each takes the slot of a fused
-    multiply-add, two FLOPs of the FP64 rate; exp among them,
-    ``F64_EXPQUAD_OPS``). Returns (ms, "bytes" | "operations")."""
+def _bounds(direction, shape, dtype=torch.float32):
+    """The two least times the card could take, in ms: each input read once
+    and each output written once at the memory rate, and the operations at
+    their peak for the element type. In float32, FLOPs against the float32
+    rate (expf on the SFU, outside it); in float64, the expquad kernel's
+    FP64 instructions (each takes the slot of a fused multiply-add, two
+    FLOPs of the FP64 rate; exp among them, ``F64_EXPQUAD_OPS``)."""
     B, n, m, d = shape
     small = B * (n + m) * d
     size = torch.empty((), dtype=dtype).element_size()
@@ -522,7 +571,12 @@ def _bound_ms(direction, shape, dtype=torch.float32):
         flops = B * n * m * ((3 * d + 4) if direction == "forward"
                              else (7 * d + 6))  # d2, f or f', the sums
         by_ops = 1e3 * flops / PEAK_F32_FLOPS
-    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, by_ops
+
+
+def _bound_ms(direction, shape, dtype=torch.float32):
+    """The larger of :func:`_bounds`: (ms, "bytes" | "operations")."""
+    by_bytes, by_ops = _bounds(direction, shape, dtype)
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
@@ -563,8 +617,10 @@ def _time_kernels(gp_cov, card, other=None):
                        plain_ms=device_ms(plain, launches=plain_n),
                        plain_issue_ms=issue_ms(plain, calls=plain_n),
                        bound_ms=bound, bound_by=by)
-            if other is not None and direction == "forward":
-                old = lambda: other._launch("expquad", X, Xs)  # noqa: E731
+            if other is not None:
+                old = ((lambda: other._launch(kind, X, Xs))
+                       if direction == "forward" else
+                       (lambda: other._launch_backward(kind, g, X, Xs)))
                 turns = [(device_ms(f), issue_ms(f))
                          for f in (old, kernel, kernel, old)]
                 for key, (a, b) in (("other", (0, 3)), ("this", (1, 2))):
@@ -708,51 +764,77 @@ def _double(*tensors):
     return tuple(t.double() for t in tensors)
 
 
-def phase_kernel_f64(gp_cov, card):
+def phase_kernel_f64(gp_cov, card, other=None):
     """Phase 31's kernel part, in the main process right after phase 3
     (before any worker starts, so its device times are the card's alone):
     the float64 builds of both kernels (``gp_cov_forward_f64``,
-    ``gp_cov_backward_f64``) against their plain float64 versions, all five
-    kinds at ``F64_SHAPES`` (the GP's, GP ADVI's, predict's 4,096 x 4,096 at
-    d = 4, FITC's cross-covariance and a batch cut into two launches), then
-    the scalar store variant (odd m), the staged backward (d = 7 in one
-    pass of 8 doubles, d = 20 in three) and the whole op's gradients through
-    autograd. Tolerances: max |Δ| <= 1e-12 x max |K| forward and <= 1e-10 x
-    max |dX| backward (both in double; the kernel and the plain version sum
-    the same terms in another order, and the plain backward's rowsum(w) X
-    - w Xs cancels where the kernel sums w (x - x'), so the inputs of the
-    backward lie apart as in phase 3). Then times both at ``F64_TIMED``
-    beside the float32 rows of phase 3. Returns (max absolute error per
-    direction, timing rows)."""
+    ``gp_cov_backward_f64``), through the wrappers the program calls,
+    against their plain float64 versions, all five kinds at ``F64_SHAPES``
+    (the GP's, GP ADVI's, predict's 4,096 x 4,096 at d = 4, FITC's
+    cross-covariance and a batch cut into two launches) and at ragged
+    shapes (odd m; n and m off the 32-row and 64-column tiles at d = 2 and
+    3; two column tiles a block with odd m at d = 3; the staged backward at
+    d = 7 and 20); a stride-0 cotangent, read in place; the whole op's
+    gradients through autograd; and two runs of the backward, bit for bit,
+    at (4, 200, 200, 1) and (1, 4096, 4096, 4).
+    Tolerances: max |Δ| <= 1e-12 x max |K| forward and <= 1e-10 x max |dX|
+    backward (both in double; the kernel and the plain version sum the same
+    terms in another order, and the plain backward's rowsum(w) X - w Xs
+    cancels where the kernel sums w (x - x'), so the inputs of the backward
+    lie apart as in phase 3). Then times both at ``F64_TIMED`` with both
+    bounds, beside the float32 rows of phase 3: two readings there and back
+    (``device_ms`` their mean, ``device_ms_runs`` both), or with ``other``
+    (``--against``) that checkout's kernels in turns (other, this, this,
+    other). Returns (max absolute error per direction, timing rows)."""
     cases = [(kind, shape) for shape in F64_SHAPES
              for kind in gp_cov.STATIONARY_KINDS]
-    cases += [("matern32", (3, 201, 203, 1)), ("matern12", (2, 70, 300, 7)),
-              ("exponential", (1, 64, 48, 20))]
+    cases += [("matern32", (3, 201, 203, 1)), ("expquad", (5, 77, 130, 2)),
+              ("exponential", (2, 33, 65, 3)),
+              ("matern52", (1, 2049, 1999, 3)),
+              ("matern12", (2, 70, 300, 7)), ("exponential", (1, 64, 48, 20))]
     max_err = {"forward": 0.0, "backward": 0.0}
     for i, (kind, shape) in enumerate(cases):
         B, n, m, d = shape
-        calls = gp_cov.LAUNCHES, gp_cov.BACKWARD_LAUNCHES
         X, Xs = _double(*_inputs(*shape, seed=200 + i))
-        fwd = _check_rel(f"float64 {kind} {shape} forward",
-                         gp_cov.stationary_cov(X, Xs, kind),
-                         gp_cov.stationary_cov_reference(X, Xs, kind),
+        want = gp_cov.stationary_cov_reference(X, Xs, kind)
+        calls = gp_cov.LAUNCHES
+        got = gp_cov._launch(kind, X, Xs)
+        fwd = _check_rel(f"float64 {kind} {shape} forward", got, want,
                          F64_FWD_REL)
+        if gp_cov.LAUNCHES - calls != 1:
+            fail(f"float64 {kind} {shape}: the forward was not counted "
+                 "once")
+        del want
         X, Xs = _double(*_apart(*shape, seed=200 + i))
         g = _cotangent(B, n, m, 200 + i).double()
-        got = gp_cov._launch_backward(kind, g, X, Xs)
         want = gp_cov.stationary_cov_backward_reference(g, X, Xs, kind)
-        bwd = max(_check_rel(f"float64 {kind} {shape} backward {name}", a,
-                             b, F64_BWD_REL)
+        calls = gp_cov.BACKWARD_LAUNCHES
+        got = gp_cov._launch_backward(kind, g, X, Xs)
+        bwd = max(_check_rel(f"float64 {kind} {shape} backward {name}", a, b,
+                             F64_BWD_REL)
                   for name, a, b in zip(("dX", "dXs"), got, want))
-        if (gp_cov.LAUNCHES - calls[0],
-                gp_cov.BACKWARD_LAUNCHES - calls[1]) != (1, 1):
-            fail(f"float64 {kind} {shape}: the kernels were not launched "
-                 "once each")
+        if gp_cov.BACKWARD_LAUNCHES - calls != 1:
+            fail(f"float64 {kind} {shape}: the backward was not counted "
+                 "once")
+        del want, got
         max_err["forward"] = max(max_err["forward"], fwd[0])
         max_err["backward"] = max(max_err["backward"], bwd[0])
         print(f"float64 kernels ok: {kind} B,n,m,d={shape} forward "
               f"max|err|/max|K| {fwd[1]:.2e}, backward max|err|/max|dX| "
               f"{bwd[1]:.2e}", flush=True)
+
+    # a stride-0 cotangent: K.sum().backward() hands the op an expanded one
+    X, Xs = _double(*_apart(2, 77, 130, 2, seed=251))
+    want = gp_cov.stationary_cov_backward_reference(
+        torch.ones(2, 77, 130, dtype=torch.float64, device=X.device), X, Xs,
+        "matern52")
+    ones = torch.ones(1, 1, 1, dtype=torch.float64).cuda().expand(2, 77, 130)
+    got = gp_cov._launch_backward("matern52", ones, X, Xs)
+    for name, a, b in zip(("dX", "dXs"), got, want):
+        _check_rel(f"float64 stride-0 cotangent {name}", a, b, F64_BWD_REL)
+    print("float64 kernels ok: stride-0 cotangent (expanded, read in "
+          "place)", flush=True)
+
     X, Xs = _double(*_apart(*MAIN_SHAPE, seed=250))
     grads = []
     for fn in (gp_cov.stationary_cov, gp_cov.stationary_cov_reference):
@@ -766,6 +848,18 @@ def phase_kernel_f64(gp_cov, card):
     print("float64 kernels ok: autograd through the op, float64 gradients",
           flush=True)
 
+    # bit for bit from run to run: no atomics, every sum in a fixed order
+    for shape in F64_REPEAT:
+        B, n, m, d = shape
+        X, Xs = _double(*_apart(*shape, seed=260))
+        g = _cotangent(B, n, m, 260).double()
+        runs = [gp_cov._launch_backward("matern52", g, X, Xs)
+                for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail(f"float64 backward {shape}: two runs differ")
+        print(f"float64 kernels ok: backward B,n,m,d={shape} bit-identical "
+              "over two runs", flush=True)
+
     rows = {"forward": {}, "backward": {}}
     for shape in F64_TIMED:
         B, n, m, d = shape
@@ -773,19 +867,31 @@ def phase_kernel_f64(gp_cov, card):
         g = _cotangent(B, n, m, 7).double()
         plain_n = 20 if n * m > 1_000_000 else 100
         calls = {
-            "forward": (lambda: gp_cov._launch("expquad", X, Xs),
+            "forward": (lambda mod: lambda: mod._launch("expquad", X, Xs),
                         lambda: gp_cov.stationary_cov_reference(
                             X, Xs, "expquad")),
-            "backward": (lambda: gp_cov._launch_backward("expquad", g, X,
-                                                         Xs),
+            "backward": (lambda mod: lambda: mod._launch_backward(
+                "expquad", g, X, Xs),
                          lambda: gp_cov.stationary_cov_backward_reference(
                              g, X, Xs, "expquad")),
         }
-        for direction, (kernel, plain) in calls.items():
+        for direction, (of, plain) in calls.items():
+            kernel = of(gp_cov)
             bound, by = _bound_ms(direction, shape, torch.float64)
-            row = dict(device_ms=device_ms(kernel), issue_ms=issue_ms(kernel),
+            by_bytes, by_ops = _bounds(direction, shape, torch.float64)
+            if other is None:
+                runs = [device_ms(kernel), device_ms(kernel)]
+            else:
+                old = of(other)
+                turns = [device_ms(f) for f in (old, kernel, kernel, old)]
+                runs = turns[1:3]
+            row = dict(device_ms=sum(runs) / 2, device_ms_runs=runs,
+                       issue_ms=issue_ms(kernel),
                        plain_ms=device_ms(plain, launches=plain_n),
-                       bound_ms=bound, bound_by=by)
+                       bound_ms=bound, bound_by=by, bound_bytes_ms=by_bytes,
+                       bound_ops_ms=by_ops)
+            if other is not None:
+                row["other_device_ms"] = [turns[0], turns[3]]
             rows[direction][shape] = row
             print(f"timing float64 expquad {direction} B,n,m,d={shape}: "
                   + json.dumps(row) + " share_of_bound "
@@ -3242,12 +3348,12 @@ def _run_example(pm, gp_cov, name, card, ref, chains=256, tune=100,
 
 
 def _worker(args):
-    """A worker process of phases 25-29 and 31: ``traces CARD`` (phases 26
-    and 29), ``multirank CARD``, ``aevb CARD`` and ``float64 CARD`` run
-    phase 26, 27, 28 or 31 and print a ``TRACES``, ``MULTIRANK``, ``AEVB``
-    or ``FLOAT64`` JSON line at its end; otherwise it runs the examples
-    ``args``, one ``EXAMPLE`` JSON line each. Exits 1 if anything
-    failed."""
+    """A worker process of phases 24-29 and 31: ``traces CARD`` (phases 26
+    and 29), ``multirank CARD``, ``aevb CARD``, ``float64 CARD`` and ``glm
+    CARD`` run phase 26, 27, 28, 31 or 24 and print a ``TRACES``,
+    ``MULTIRANK``, ``AEVB``, ``FLOAT64`` or ``GLM`` JSON line at its end;
+    otherwise it runs the examples ``args``, one ``EXAMPLE`` JSON line
+    each. Exits 1 if anything failed."""
     import pymc3_tpu_torch as pm
     from pymc3_tpu_torch.ops import gp_cov
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3276,6 +3382,10 @@ def _worker(args):
         phase_aevb(pm, args[1])
         print("AEVB " + json.dumps({"finished_at": time.time()}),
               flush=True)
+        sys.exit(0)
+    if args[0] == "glm":
+        phase_glm(pm, gp_cov, args[1])
+        print("GLM " + json.dumps({"finished_at": time.time()}), flush=True)
         sys.exit(0)
     ref = _reference_fits("examples")
     failed = []
@@ -3349,6 +3459,11 @@ def start_float64_worker(card, started):
     add it to ``started``'s workers."""
     started[1]["float64"] = _spawn(
         ("float64", card), env=dict(os.environ, PYMC3_TPU_FLOATX="float64"))
+
+
+def start_glm_worker(card, started):
+    """Start phase 24's worker and add it to ``started``'s workers."""
+    started[1]["glm"] = _spawn(("glm", card))
 
 
 def _read_worker(worker):
@@ -3496,9 +3611,10 @@ def phase_examples(card, started):
 
 
 def read_worker_phase(started, name):
-    """Phase 26, 27 or 28 (``name``) as the full run makes it: read from
-    the worker that :func:`start_workers` started after phase 5 (its lines
-    are printed here), and fail if it failed. Each of these runs is bound
+    """Phase 24, 26, 27, 28 or 31 (``name``) as the full run makes it: read
+    from the worker that :func:`start_workers` started after phase 5, or
+    :func:`start_float64_worker` or :func:`start_glm_worker` later (its
+    lines are printed here), and fail if it failed. Each of these runs is bound
     by its own process's host dispatch, as the examples are, so it runs
     beside phases 7-24 instead of adding its wall to theirs; its walls are
     taken beside them. Returns the worker's closing JSON line."""
@@ -4630,6 +4746,9 @@ def phase_float64(pm, gp_cov, card):
 # phase 31's worker starts before this phase of the full run, once the
 # earlier workers are done (they finished during phases 9-13)
 FLOAT64_STARTS_BEFORE = "garch"
+# phase 24's worker starts before this phase (when phase 31's worker has
+# about finished) and runs beside phases 19-23
+GLM_STARTS_BEFORE = "svgd_map"
 
 
 def _float64_only(pm, gp_cov, card):
@@ -4681,7 +4800,7 @@ def main():
     parser.add_argument("--quick", action="store_true",
                         help="phases 1-3 and prediction at the test point")
     parser.add_argument("--against", metavar="DIR",
-                        help="with --quick: time DIR's forward kernel too")
+                        help="with --quick: time DIR's kernels too")
     parser.add_argument("--gp-wall", metavar="DIR",
                         help="phase 4 alone: DIR, this, this, DIR")
     parser.add_argument("--only", metavar="NAMES",
@@ -4706,7 +4825,7 @@ def main():
     phase_build(gp_cov)
     other = _load_other(os.path.abspath(args.against)) if args.against else None
     max_err, timings = phase_kernel(gp_cov, card, other)
-    max_err64, timings64 = phase_kernel_f64(gp_cov, card)
+    max_err64, timings64 = phase_kernel_f64(gp_cov, card, other)
     if args.quick:
         from pymc3_tpu_torch.examples.suite import gp_regression
         model, _, gp = gp_regression(pm)
@@ -4769,10 +4888,13 @@ def main():
     runners["aevb"] = lambda: read_worker_phase(started[0], "aevb")
     runners["float64"] = lambda: _float64_beside(
         read_worker_phase(started[0], "float64"))
+    runners["glm"] = lambda: read_worker_phase(started[0], "glm")
     walls = {}
     for name in LATER_PHASES:
         if name == FLOAT64_STARTS_BEFORE:
             start_float64_worker(card, started[0])
+        if name == GLM_STARTS_BEFORE:
+            start_glm_worker(card, started[0])
         t0 = time.time()
         PHASE_STARTS.append((name, t0))
         out = runners[name]()
@@ -4845,12 +4967,16 @@ def main():
             "ms": row["device_ms"], "device_ms": row["device_ms"],
             "issue_ms": row["issue_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_bytes_ms": row["bound_bytes_ms"],
+            "bound_ops_ms": row["bound_ops_ms"],
+            "device_ms_runs": row["device_ms_runs"],
             "library_ms": None, "dtype": "float64",
             "entry": f"gp_cov_{direction}_f64",
             **{"at_" + "x".join(map(str, shape)): {
                 k: timings64[direction][shape][k] for k in (
                     "device_ms", "issue_ms", "plain_ms", "bound_ms",
-                    "bound_by")}
+                    "bound_by", "bound_bytes_ms", "bound_ops_ms",
+                    "device_ms_runs")}
                for shape in F64_TIMED if shape != MAIN_SHAPE},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -74,28 +74,51 @@
 // Larger d runs the staged kernel: X and Xs through shared memory in chunks
 // of 16 features, once per chunk of 16 output features.
 //
-// FLOAT64. Every kernel is a template on its element type T, and the same
-// source gives the gp_cov_*_f32 and gp_cov_*_f64 entry points. In double
-// the whole computation is double: the differences and d2, exp and sqrt
-// (CUDA's exp and sqrt of double, which run as sequences of FP64
-// instructions on the FP64 pipes, not on the SFU), eps = 1e-12 and the
-// partial sums; the counterpart in the JAX package is its float64
-// `_fallback`, not the Pallas body, which accumulates in float32. Per
-// output the forward stores 8 bytes and the card's FP64 rate is half its
-// float32 rate, so a double kernel is bound by bytes at about 2x the float
-// time, and nearer its operation bound where exp and sqrt add their FP64
-// instructions (matern kinds). What changes in the layout:
-//  (a) a 16-byte store holds two doubles. The tiles keep their widths (a
-//      thread still owns four columns of a 128-column tile), but in the
-//      vector variant its columns are two pairs, 2 tx + {0, 1} and
-//      64 + 2 tx + {0, 1}, so each st.global.v2.f64 of a warp writes 512
-//      consecutive bytes of a row, as st.global.v4.f32 does in float.
-//      The vector variant needs an even m and a 16-byte aligned output;
-//  (b) the backward's register kernel keeps 16 doubles of Xs columns and
-//      sums a thread, so it asks for one block per SM's worth of registers
-//      (float asks for two), and reads X rows without the float4 path;
-//  (c) the staged backward (d > 4, on no path of the repository) stages 8
-//      features a pass in double, not 16, to keep its sums in registers.
+// FLOAT64. The same source gives the gp_cov_*_f32 and gp_cov_*_f64 entry
+// points (one nvcc run each). In double the whole computation is double:
+// the differences and d2, exp and sqrt (CUDA's exp and sqrt of double,
+// sequences of FP64 instructions on the FP64 pipes, not on the SFU; some
+// 20-25 FP64 instructions an exp in the SASS), eps = 1e-12 and the partial
+// sums; the counterpart in the JAX package is its float64 `_fallback`,
+// not the Pallas body, which accumulates in float32. The float templates
+// above, instantiated in double, are the shared design (the float
+// layout with doubles; a 16-byte store holds two doubles, so a thread's
+// four columns are two pairs 64 apart and a warp still stores 512
+// consecutive bytes). On this card a double expquad element at d = 1
+// costs the FP64 pipes 28 instructions forward and 26 backward (static
+// SASS counts) where they issue at half the float rate, beside 8 bytes
+// stored or read: at the repository's GP shapes (B <= 50, n = m = 200)
+// the kernels are bound by latency (the exp chains and the memory round
+// trips of one wave or two) and at (1, 4096, 4096, 4) by bytes and FP64
+// issue together. The float64 design:
+//  (a) forward at d = 1 (every GP path of the repository): a flat
+//      grid-stride kernel over the (B n m) outputs (cov_forward_flat_f64),
+//      two outputs a thread and iteration stored as one
+//      st.global.v2.f64, 512 consecutive bytes a warp, no tile and so no
+//      ragged tile edge, a thread's next exp running while its last store
+//      drains. At d > 1 a unit's strided scalar loads of its d-wide
+//      columns cost more L1 wavefronts than it saves (149.7 us against the
+//      tiled kernel's 53.4 at (1, 4096, 4096, 4)), so the shared tiled
+//      and small kernels run there;
+//  (b) backward at d <= 4: cov_backward_f64_kernel, tiles of 64 columns
+//      (two a lane) and steps of 32 rows (four a warp): eight elements a
+//      thread a step, so at d = 1 it needs 56-64 registers and four
+//      blocks fill an SM (the shared kernel's 4 x 4 elements took 134-255
+//      registers in double, one block an SM); the cotangent reaches shared memory by cp.async
+//      one step ahead, each thread copying the elements it reads itself,
+//      so the loads overlap the exp chains with no barrier; about an
+//      eighth of the rows a block, so at most eight partial column sums
+//      whatever n is, then cov_backward_finish as for float, launched as a
+//      programmatic dependent. Two one-launch finishes were built and
+//      timed at (4, 200, 200, 1) and (50, 200, 200, 1), and both lost to
+//      this one: a thread-block cluster over a batch entry adding through
+//      distributed shared memory (at most 16 blocks a cluster, so 64 SMs
+//      at B = 4, and a dearer launch), and the entry's last block, found by
+//      an integer atomic count, adding the partial sums (a fence, the
+//      atomic's round trip and one block's loads, where the finishing
+//      pass's launch overlaps the first pass's tail). d > 4 (on no path
+//      of the repository) runs the shared staged kernel, 8 features a
+//      pass.
 
 #include <cuda_runtime.h>
 
@@ -883,9 +906,443 @@ cudaError_t launch_backward(const T* g, long long gsb, long long gsi,
                             dXs, p.nX, p.nXs, p.tiles_c, p.row_blocks);
 }
 
+#ifdef GP_COV_F64
+// ------------------------------------------------- float64 forward, flat
+
+// A grid-stride pass over units of V consecutive outputs of the flat
+// (B n m) output (V = 2: one st.global.v2.f64, m even and the output
+// 16-byte aligned; V = 1: scalar stores). A warp takes 32 consecutive units
+// (512 bytes at V = 2) per iteration; a unit finds its (b, i, j) by two
+// 32-bit divisions (integer pipes, beside the FP64 ones) and reads its X
+// row and Xs columns straight from global memory (L1 and L2 hits). A
+// thread's store does not wait, so its next unit's exp runs while the last
+// one drains: a grid of at most eight blocks an SM keeps the stores and the
+// FP64 work overlapped, where one unit a thread in a single wave would
+// compute everything first and then store everything. No tile, so no
+// ragged tile edge. Taken for d = 1: at larger d a unit's scalar loads of
+// V d columns at a stride of d doubles cost more L1 wavefronts than the
+// tiled kernel's staging.
+template <int K, int V>
+__global__ void __launch_bounds__(kThreads)
+cov_forward_flat_f64(const double* __restrict__ X,
+                     const double* __restrict__ Xs, double* __restrict__ out,
+                     int n, int m, int d, int units) {
+  const int stride = gridDim.x * kThreads;
+  for (int unit = blockIdx.x * kThreads + threadIdx.y * kWarp + threadIdx.x;
+       unit < units; unit += stride) {
+    const unsigned e = static_cast<unsigned>(unit) * V;
+    const unsigned row = e / static_cast<unsigned>(m);     // b n + i
+    const unsigned j = e - row * static_cast<unsigned>(m);
+    const unsigned b = row / static_cast<unsigned>(n);
+    const double* x = X + static_cast<size_t>(row) * d;
+    const double* y = Xs + (static_cast<size_t>(b) * m + j) * d;
+    double acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.0;
+    for (int f = 0; f < d; ++f) {
+      const double xf = __ldg(x + f);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const double diff = xf - __ldg(y + v * d + f);
+        acc[v] = fma(diff, diff, acc[v]);
+      }
+    }
+    double k[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) k[v] = cov_fn<K>(acc[v]);
+    if constexpr (V == 2) {
+      store_vec(out + static_cast<size_t>(unit) * 2, k);
+    } else {
+      out[unit] = k[0];
+    }
+  }
+}
+
+template <int K, int V>
+cudaError_t launch_flat_f64(const double* X, const double* Xs, double* out,
+                            long long total, int n, int m, int d,
+                            cudaStream_t stream) {
+  const int units = static_cast<int>(total / V);
+  const long long blocks = (units + kThreads - 1) / kThreads;
+  const long long grid = blocks < 8 * kSMs ? blocks : 8 * kSMs;
+  cov_forward_flat_f64<K, V><<<static_cast<unsigned>(grid),
+                               dim3(kWarp, kWarps), 0, stream>>>(
+      X, Xs, out, n, m, d, units);
+  return cudaGetLastError();
+}
+
+// The float64 forward: the flat kernel at d = 1 (the repository's GP
+// paths) where its int unit index stays in range, its stride included;
+// else the shared tiled and small kernels (the float design in double).
+template <int K>
+cudaError_t launch_forward_f64(const double* X, const double* Xs, double* out,
+                               int B, int n, int m, int d,
+                               cudaStream_t stream) {
+  const long long total = static_cast<long long>(B) * n * m;
+  if (d != 1 || total > 2147483647LL - 8LL * kSMs * kThreads) {
+    return launch_forward<K>(X, Xs, out, B, n, m, d, stream);
+  }
+  const bool vec = (m % 2 == 0) && (reinterpret_cast<size_t>(out) % 16 == 0);
+  return vec ? launch_flat_f64<K, 2>(X, Xs, out, total, n, m, d, stream)
+             : launch_flat_f64<K, 1>(X, Xs, out, total, n, m, d, stream);
+}
+
+// ------------------------------------------------ float64 backward
+
+// A block takes C column tiles of 64 (two columns a lane, tx and tx + 32)
+// times S sub-tiles of 32 rows (four a warp), step by step (one 32 x 64
+// sub-tile a step, eight elements a thread). The cotangent reaches shared
+// memory by cp.async one step ahead of use: each thread copies the eight
+// elements it will read itself, so no barrier guards the ring, and the
+// next step's loads are in flight while the FP64 exp chains of this one
+// run. A step's X rows and the tile's Xs columns are loaded before the
+// wait, beside the copies. Row sums (dX) are reduced over the warp by
+// SplitReduce and kept per block row in shared memory across the column
+// tiles; column sums (dXs) are kept in registers across the sub-tiles and
+// reduced over the warps through shared memory at the end of a column
+// tile. A one-dimensional grid of B gx gy blocks writes the partial sums
+// to scratch, pX [gx][B][n][d] and pXs [gy][B][m][d], which
+// cov_backward_finish adds as for float, a programmatic dependent of this
+// grid.
+constexpr int kB64Cols = 2 * kWarp;                    // 64
+constexpr int kB64Rows = 4;
+constexpr int kB64TileRows = kWarps * kB64Rows;        // 32
+constexpr int kB64Stages = 2;
+constexpr int kB64StageElems = kWarps * kB64Rows * 2 * kWarp;   // 2048
+constexpr int kB64MaxS = 16;                   // sub-tiles a block at most
+// Blocks an SM: registers for four at d = 1 (64 a thread), two at d <= 4
+// (128).
+template <int FC>
+constexpr int kB64MinBlocks = FC == 1 ? 4 : 2;
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src,
+                                          bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(s), "l"(src), "r"(in ? 8 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Doubles of dynamic shared memory: the cotangent ring, the warps' column
+// sums and the row sums [S 32][FC].
+__host__ __device__ constexpr int b64_smem_elems(int FC, int S) {
+  return kB64Stages * kB64StageElems + kWarps * kB64Cols +
+         S * kB64TileRows * FC;
+}
+
+template <int K, int FC>
+__global__ void __launch_bounds__(kThreads, kB64MinBlocks<FC>)
+cov_backward_f64_kernel(const double* __restrict__ g, long long gsb,
+                        long long gsi, long long gsj,
+                        const double* __restrict__ X,
+                        const double* __restrict__ Xs,
+                        double* __restrict__ pX, double* __restrict__ pXs,
+                        int B, int n, int m, int d, int C, int S, int gx,
+                        int gy) {
+  constexpr int R = kB64Rows;
+  extern __shared__ __align__(16) double smem[];
+  double* ring = smem;
+  double* red = ring + kB64Stages * kB64StageElems;       // [8][64]
+  double* rowpart = red + kWarps * kB64Cols;              // [S 32][FC]
+
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * kWarp + tx;
+  const int sum_base = split_reduce_base<R * FC>(tx);
+  constexpr int kSumsPerLane = R * FC / kWarp > 1 ? R * FC / kWarp : 1;
+  const long long cstep = kWarp * gsj;
+  const int steps = C * S;
+  // the block's place: column block bx fastest, then row block by, then b
+  const int bx = blockIdx.x % gx;
+  const int by = (blockIdx.x / gx) % gy;
+  const int b = blockIdx.x / (gx * gy);
+  const int col00 = bx * C * kB64Cols;
+  const int row00 = by * S * kB64TileRows;
+  const double* Xb = X + static_cast<size_t>(b) * n * d;
+  const double* Yb = Xs + static_cast<size_t>(b) * m * d;
+  const double* gb = g + b * gsb;
+
+  // this thread's eight cotangents of step t into ring slot t % 2, zero
+  // outside (n, m)
+  auto issue = [&](int t) {
+    const int ct = t / S;
+    const int i0 = row00 + (t - ct * S) * kB64TileRows + ty * R;
+    const int j0 = col00 + ct * kB64Cols + tx;
+    const double* gp = gb + i0 * gsi + j0 * gsj;
+    double* dst = ring + (t & 1) * kB64StageElems + ty * (R * 2 * kWarp) +
+                  tx;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const bool in = i0 + r < n && j0 + kWarp * c < m;
+        cp_async8(dst + (r * 2 + c) * kWarp, in ? gp + c * cstep : g, in);
+      }
+      gp += gsi;
+    }
+  };
+
+  double y[2][FC];
+  double colacc[2][FC];
+  issue(0);
+  cp_async_commit();
+  int ct = 0;
+  int s = 0;
+  for (int t = 0; t < steps; ++t) {
+    const int i0 = row00 + s * kB64TileRows + ty * R;
+    // the warp's rows (one address for the 32 lanes, broadcast loads)
+    // and, at a new column tile, the lane's columns: before the wait
+    double x[R][FC];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int f = 0; f < FC; ++f) {
+        x[r][f] = (i0 + r < n && f < d)
+                      ? Xb[static_cast<size_t>(i0 + r) * d + f] : 0.0;
+      }
+    }
+    if (s == 0) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = col00 + ct * kB64Cols + tx + kWarp * c;
+#pragma unroll
+        for (int f = 0; f < FC; ++f) {
+          y[c][f] = (j < m && f < d) ? Yb[static_cast<size_t>(j) * d + f]
+                                     : 0.0;
+          colacc[c][f] = 0.0;
+        }
+      }
+    }
+    if (t + 1 < steps) issue(t + 1);
+    cp_async_commit();
+    cp_async_wait_one();            // this step's own copies have landed
+
+    const double* gs = ring + (t & 1) * kB64StageElems +
+                       ty * (R * 2 * kWarp) + tx;
+    double rowacc[R * FC];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      double diff[2][FC];
+      double w[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        double d2 = 0.0;
+#pragma unroll
+        for (int f = 0; f < FC; ++f) {
+          diff[c][f] = x[r][f] - y[c][f];
+          d2 = fma(diff[c][f], diff[c][f], d2);
+        }
+        w[c] = gs[(r * 2 + c) * kWarp] * dcov_fn<K>(d2);
+      }
+#pragma unroll
+      for (int f = 0; f < FC; ++f) {
+        double sum = 0.0;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          sum = fma(w[c], diff[c][f], sum);
+          colacc[c][f] = fma(-w[c], diff[c][f], colacc[c][f]);
+        }
+        rowacc[r * FC + f] = sum;
+      }
+    }
+    SplitReduce<R * FC, kWarp / 2>::run(rowacc, tx);
+    if (sum_base >= 0) {
+#pragma unroll
+      for (int k = 0; k < kSumsPerLane; ++k) {
+        const int r = (sum_base + k) / FC;
+        const int f = (sum_base + k) % FC;
+        // the same lane adds a row's sums of every column tile, in order
+        double* p = rowpart + (s * kB64TileRows + ty * R + r) * FC + f;
+        const double v = ct == 0 ? rowacc[k] : *p + rowacc[k];
+        if (C > 1) *p = v;
+        if (ct == C - 1 && i0 + r < n && f < d) {
+          pX[(static_cast<size_t>(bx) * B + b) * n * d +
+             static_cast<size_t>(i0 + r) * d + f] = v;
+        }
+      }
+    }
+
+    if (s == S - 1) {               // the column tile's sums over the rows
+#pragma unroll
+      for (int f = 0; f < FC; ++f) {
+        if (f >= d) break;          // the same for the whole block
+        __syncthreads();            // red has been read
+        red[ty * kB64Cols + tx] = colacc[0][f];
+        red[ty * kB64Cols + kWarp + tx] = colacc[1][f];
+        __syncthreads();
+        const int j = col00 + ct * kB64Cols + tid;
+        if (tid < kB64Cols && j < m) {
+          double v = 0.0;
+#pragma unroll
+          for (int wp = 0; wp < kWarps; ++wp) {
+            v += red[wp * kB64Cols + tid];
+          }
+          pXs[(static_cast<size_t>(by) * B + b) * m * d +
+              static_cast<size_t>(j) * d + f] = v;
+        }
+      }
+    }
+    if (++s == S) {
+      s = 0;
+      ++ct;
+    }
+  }
+
+  // the finishing pass may be launched now: it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+struct B64Plan {
+  int gx, gy, C, S;
+  long long nX, nXs, scratch;
+};
+
+// Two column tiles a block where there are eight or more (fewer partial
+// row sums), and about an eighth of the rows a block (at most 16
+// sub-tiles, at least 1), so that about eight partial column sums are
+// added whatever n is. gx = 0 where the grid would not fit.
+B64Plan plan_backward_f64(int B, int n, int m, int d) {
+  B64Plan p = {};
+  const int tiles = (m + kB64Cols - 1) / kB64Cols;
+  const int subs = (n + kB64TileRows - 1) / kB64TileRows;
+  p.nX = static_cast<long long>(B) * n * d;
+  p.nXs = static_cast<long long>(B) * m * d;
+  p.C = tiles >= 8 ? 2 : 1;
+  p.S = subs / 8 < 1 ? 1 : (subs / 8 > kB64MaxS ? kB64MaxS : subs / 8);
+  p.gx = (tiles + p.C - 1) / p.C;
+  p.gy = (subs + p.S - 1) / p.S;
+  if (static_cast<long long>(B) * p.gx * p.gy > 2147483647LL) {
+    p.gx = 0;
+    return p;
+  }
+  p.scratch = p.gx * p.nX + p.gy * p.nXs;
+  return p;
+}
+
+template <int K, int FC>
+cudaError_t launch_backward_f64_fc(const B64Plan& p, const double* g,
+                                   long long gsb, long long gsi,
+                                   long long gsj, const double* X,
+                                   const double* Xs, double* dX, double* dXs,
+                                   double* scratch, int B, int n, int m,
+                                   int d, cudaStream_t stream) {
+  // above 48 KB of dynamic shared memory (FC = 4 and S > 12) the kernel
+  // must opt in, on the current device: set before each such launch
+  const int smem = b64_smem_elems(FC, p.S) * 8;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cov_backward_f64_kernel<K, FC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  double* pX = scratch;
+  double* pXs = scratch + p.gx * p.nX;
+  const unsigned blocks = static_cast<unsigned>(B) * p.gx * p.gy;
+  cov_backward_f64_kernel<K, FC>
+      <<<blocks, dim3(kWarp, kWarps), smem, stream>>>(
+          g, gsb, gsi, gsj, X, Xs, pX, pXs, B, n, m, d, p.C, p.S, p.gx, p.gy);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long fin =
+      (p.nX + kWarp - 1) / kWarp + (p.nXs + kWarp - 1) / kWarp;
+  if (fin > 2147483647LL) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(fin));
+  config.blockDim = dim3(kWarp, kWarps);
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const double* cpX = pX;
+  const double* cpXs = pXs;
+  return cudaLaunchKernelEx(&config, cov_backward_finish<double>, cpX, cpXs,
+                            dX, dXs, p.nX, p.nXs, p.gx, p.gy);
+}
+
+// The float64 backward: the design above for d <= 4, the shared one (the
+// float design in double) for larger d.
+template <int K>
+cudaError_t launch_backward_f64(const double* g, long long gsb,
+                                long long gsi, long long gsj,
+                                const double* X, const double* Xs,
+                                double* dX, double* dXs, double* scratch,
+                                long long scratch_elems, int B, int n, int m,
+                                int d, cudaStream_t stream) {
+  if (d > 4) {
+    const BackwardPlan p = plan_backward(B, n, m, d);
+    if (scratch_elems < p.scratch) return cudaErrorInvalidValue;
+    return launch_backward<K>(g, gsb, gsi, gsj, X, Xs, dX, dXs, scratch, B,
+                              n, m, d, p, stream);
+  }
+  const B64Plan p = plan_backward_f64(B, n, m, d);
+  if (p.gx == 0 || scratch_elems < p.scratch) return cudaErrorInvalidValue;
+  return d == 1
+      ? launch_backward_f64_fc<K, 1>(p, g, gsb, gsi, gsj, X, Xs, dX, dXs,
+                                     scratch, B, n, m, d, stream)
+      : launch_backward_f64_fc<K, 4>(p, g, gsb, gsi, gsj, X, Xs, dX, dXs,
+                                     scratch, B, n, m, d, stream);
+}
+
+// Scratch elements of the float64 backward (-1: a grid too large).
+long long scratch_f64(int B, int n, int m, int d) {
+  if (d > 4) return plan_backward(B, n, m, d).scratch;
+  const B64Plan p = plan_backward_f64(B, n, m, d);
+  return p.gx == 0 ? -1 : p.scratch;
+}
+
+#endif  // GP_COV_F64
+
 bool bad_shape(int B, int n, int m, int d) {
   return B <= 0 || n <= 0 || m <= 0 || d <= 0;
 }
+
+// Forward and backward of one kind: the float design above, and in double
+// the float64 launchers (launch_forward_f64, launch_backward_f64).
+template <int K>
+cudaError_t forward_kind(const float* X, const float* Xs, float* out, int B,
+                         int n, int m, int d, cudaStream_t s) {
+  return launch_forward<K>(X, Xs, out, B, n, m, d, s);
+}
+template <int K>
+cudaError_t backward_kind(const float* g, long long gsb, long long gsi,
+                          long long gsj, const float* X, const float* Xs,
+                          float* dX, float* dXs, float* scratch,
+                          long long scratch_elems, int B, int n, int m, int d,
+                          cudaStream_t s) {
+  const BackwardPlan p = plan_backward(B, n, m, d);
+  if (scratch_elems < p.scratch) return cudaErrorInvalidValue;
+  return launch_backward<K>(g, gsb, gsi, gsj, X, Xs, dX, dXs, scratch, B, n,
+                            m, d, p, s);
+}
+long long scratch_elems_of(float*, int B, int n, int m, int d) {
+  return plan_backward(B, n, m, d).scratch;
+}
+#ifdef GP_COV_F64
+template <int K>
+cudaError_t forward_kind(const double* X, const double* Xs, double* out,
+                         int B, int n, int m, int d, cudaStream_t s) {
+  return launch_forward_f64<K>(X, Xs, out, B, n, m, d, s);
+}
+template <int K>
+cudaError_t backward_kind(const double* g, long long gsb, long long gsi,
+                          long long gsj, const double* X, const double* Xs,
+                          double* dX, double* dXs, double* scratch,
+                          long long scratch_elems, int B, int n, int m,
+                          int d, cudaStream_t s) {
+  return launch_backward_f64<K>(g, gsb, gsi, gsj, X, Xs, dX, dXs, scratch,
+                                scratch_elems, B, n, m, d, s);
+}
+long long scratch_elems_of(double*, int B, int n, int m, int d) {
+  return scratch_f64(B, n, m, d);
+}
+#endif
 
 template <typename T>
 int forward_entry(const void* X, const void* Xs, void* out, int B, int n,
@@ -898,15 +1355,15 @@ int forward_entry(const void* X, const void* Xs, void* out, int B, int n,
   cudaError_t err;
   switch (kind) {
     case kExpQuad:
-      err = launch_forward<kExpQuad>(x, xs, k, B, n, m, d, s); break;
+      err = forward_kind<kExpQuad>(x, xs, k, B, n, m, d, s); break;
     case kMatern52:
-      err = launch_forward<kMatern52>(x, xs, k, B, n, m, d, s); break;
+      err = forward_kind<kMatern52>(x, xs, k, B, n, m, d, s); break;
     case kMatern32:
-      err = launch_forward<kMatern32>(x, xs, k, B, n, m, d, s); break;
+      err = forward_kind<kMatern32>(x, xs, k, B, n, m, d, s); break;
     case kMatern12:
-      err = launch_forward<kMatern12>(x, xs, k, B, n, m, d, s); break;
+      err = forward_kind<kMatern12>(x, xs, k, B, n, m, d, s); break;
     case kExponential:
-      err = launch_forward<kExponential>(x, xs, k, B, n, m, d, s); break;
+      err = forward_kind<kExponential>(x, xs, k, B, n, m, d, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -927,27 +1384,24 @@ int backward_entry(const void* g, long long gsb, long long gsi,
   if (bad_shape(B, n, m, d) || gsb < 0 || gsi < 0 || gsj < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const BackwardPlan p = plan_backward(B, n, m, d);
-  if (scratch_elems < p.scratch) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaError_t err;
   switch (kind) {
     case kExpQuad:
-      err = launch_backward<kExpQuad>(gp, gsb, gsi, gsj, x, xs, dx, dxs, sc,
-                                      B, n, m, d, p, s); break;
+      err = backward_kind<kExpQuad>(gp, gsb, gsi, gsj, x, xs, dx, dxs, sc,
+                                    scratch_elems, B, n, m, d, s); break;
     case kMatern52:
-      err = launch_backward<kMatern52>(gp, gsb, gsi, gsj, x, xs, dx, dxs, sc,
-                                       B, n, m, d, p, s); break;
+      err = backward_kind<kMatern52>(gp, gsb, gsi, gsj, x, xs, dx, dxs, sc,
+                                     scratch_elems, B, n, m, d, s); break;
     case kMatern32:
-      err = launch_backward<kMatern32>(gp, gsb, gsi, gsj, x, xs, dx, dxs, sc,
-                                       B, n, m, d, p, s); break;
+      err = backward_kind<kMatern32>(gp, gsb, gsi, gsj, x, xs, dx, dxs, sc,
+                                     scratch_elems, B, n, m, d, s); break;
     case kMatern12:
-      err = launch_backward<kMatern12>(gp, gsb, gsi, gsj, x, xs, dx, dxs, sc,
-                                       B, n, m, d, p, s); break;
+      err = backward_kind<kMatern12>(gp, gsb, gsi, gsj, x, xs, dx, dxs, sc,
+                                     scratch_elems, B, n, m, d, s); break;
     case kExponential:
-      err = launch_backward<kExponential>(gp, gsb, gsi, gsj, x, xs, dx, dxs,
-                                          sc, B, n, m, d, p, s); break;
+      err = backward_kind<kExponential>(gp, gsb, gsi, gsj, x, xs, dx, dxs,
+                                        sc, scratch_elems, B, n, m, d, s);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -979,7 +1433,7 @@ int backward_entry(const void* g, long long gsb, long long gsi,
   extern "C" long long gp_cov_backward_scratch_##SUFFIX(int B, int n, int m, \
                                                         int d) {             \
     if (bad_shape(B, n, m, d)) return -1;                                    \
-    return plan_backward(B, n, m, d).scratch;                                \
+    return scratch_elems_of(static_cast<T*>(nullptr), B, n, m, d);           \
   }                                                                          \
   extern "C" int gp_cov_backward_##SUFFIX(                                   \
       const void* g, long long gsb, long long gsi, long long gsj,            \

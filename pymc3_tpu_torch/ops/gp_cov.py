@@ -20,10 +20,12 @@ without ``torch.func.grad`` inside) into the kernels' batch argument, so a
 batch of chains is ONE forward launch and ONE backward call on plain
 tensors. The op is once-differentiable: a second derivative raises.
 
-Both kernels put the batch on ``gridDim.z``, which the card caps at 65,535.
-A larger batch (SMC over a GP evaluates every particle in one call) is cut
-here, on the host, into chunks of at most 65,535 entries, one launch each
-into slices of one output; the kernels themselves are unchanged. The
+The float32 kernels (and their float64 instantiations) put the batch on
+``gridDim.z``, which the card caps at 65,535. A larger batch (SMC over a GP
+evaluates every particle in one call) is cut here, on the host, into
+chunks of at most 65,535 entries, one launch each into slices of one
+output; the kernels themselves are unchanged. The float64 design's
+one-dimensional grids take the same chunks, so there is one path. The
 counters count calls, not chunks.
 """
 from __future__ import annotations
@@ -280,6 +282,9 @@ def _launch_backward(kind, g, X, Xs):
     chunks = _chunks(B)
     elems = max(_entry("gp_cov_backward_scratch", X.dtype)(size, n, m, d)
                 for size in {b1 - b0 for b0, b1 in chunks})
+    if elems < 0:
+        raise ValueError(f"the backward kernel does not take B, n, m, d = "
+                         f"{(B, n, m, d)}")
     scratch = torch.empty((elems,), dtype=X.dtype, device=X.device)
     backward = _entry("gp_cov_backward", X.dtype)
     for b0, b1 in chunks:
