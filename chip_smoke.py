@@ -236,7 +236,13 @@ a non-zero exit and no result line:
    call, scipy's L-BFGS-B through ``f(q, grad_out=g)`` against the JAX
    package's optimum, ``make_logp_fn(jacobian=False)``, the dtypes of
    ``sample_prior_predictive`` and ``draw_values`` with a distribution; its
-   wall within 10 s;
+   wall within 10 s; then the forms repaired after them: ``pm.math.eye``
+   in a logp on the card (dtype and device), ``outer`` and ``full_like`` of
+   card tensors, a per-axis ``Minibatch`` through one ADVI step, and a
+   model that factors a covariance of its parameter with
+   ``pm.math.cholesky`` sampled with its non-positive-definite region
+   counted as divergences (``_api_repaired``), within
+   ``API_REPAIRED_WALL_S``;
 31. float64 (``phase_float64``), in a worker process started before phase
    14 with ``PYMC3_TPU_FLOATX=float64`` in its environment (in the main
    process under ``--only float64``): the GP of phase 4 through both
@@ -245,7 +251,15 @@ a non-zero exit and no result line:
    but R-hat < 1.01 for the GP (its draws doubled to 1,000 for that); the
    GP's and radon's ESS/s and logp+grad ms at float64 beside phase 4's
    and 26's float32 numbers and float32 logp+grad ms timed in the same
-   worker;
+   worker; then the families the GP, radon and SMC leave out, each with its
+   float32 phase's gate and float64 draws: phase 17's d = 100 minibatch
+   ADVI with adam, adamax, adagrad_window and sgd (1,000 steps each,
+   against JAX fits of the same settings), the freefall ODE's logp+grad
+   through its CUDA graphs at 2 and 64 chains against the eager path,
+   phase 24's pooled GLM (100 draws), phase 9's switchpoint model (tune
+   600 + draws 300), phase 11's population and phase 10's indicators; each
+   wall and logp(+grad) ms beside the float32 phase's wall and the float32
+   ms timed in the worker;
 32. a JSON line describing every kernel (the float64 entry points beside
    the float32 ones), then the result line ``{"ok": true, "device":
    {...}}``.
@@ -1270,6 +1284,11 @@ def _exact_ref(moments):
             for name, m in moments.items()}
 
 
+def _trace_dtypes(trace, names):
+    """The numpy dtype of each variable's draws in ``trace``."""
+    return {v: str(np.asarray(trace.get_values(v)).dtype) for v in names}
+
+
 def phase_disaster(pm, card, draws=400, tune=300, chains=256):
     """The slice's main path at full width: NUTS + Metropolis, assigned and
     compounded by ``sample()`` itself, against the exact posterior.
@@ -1329,17 +1348,16 @@ def phase_disaster(pm, card, draws=400, tune=300, chains=256):
         fail(f"disaster: switchpoint mode {mode}, exact "
              f"{int(exact['w'].argmax())}")
 
-    q = torch.as_tensor(np.stack([model.dict_to_array(model.test_point)]
-                                 * chains), device=model.device)
-    logp_fn, vag = model.make_logp_fn(), model.logp_dlogp_function()
     out.update(phase="disaster", chains=chains, tune=tune, draws=draws,
                switchpoint_mode=mode,
                switchpoint_dtype=str(s.dtype),
+               dtypes=_trace_dtypes(trace, names),
                metropolis_accept=float(np.mean(
                    trace.get_sampler_stats("accept"))),
-               logp_ms=_synced_ms(lambda: logp_fn(q)),
-               logp_grad_ms=_synced_ms(lambda: vag(q)), card=card)
+               logp_ms=_logp_ms(model, chains),
+               logp_grad_ms=_logp_grad_ms(model, chains), card=card)
     print(json.dumps(out), flush=True)
+    return out
 
 
 def phase_binary(pm, card, draws=200, tune=0, chains=1024):
@@ -1367,11 +1385,12 @@ def phase_binary(pm, card, draws=200, tune=0, chains=1024):
            "draws": draws, "logp_calls_per_draw": z.shape[1],
            "inclusion": z.mean(axis=0).tolist(), "exact": exact.tolist(),
            "max_z": float(zscore.max()), "min_ess": float(ess.min()),
-           "card": card}
+           "dtypes": _trace_dtypes(trace, names), "card": card}
     print(json.dumps(out), flush=True)
     if not zscore.max() < 4.0:
         fail(f"binary: an inclusion probability is {zscore.max():.2f} "
              "standard errors off the enumeration")
+    return out
 
 
 def phase_population(pm, card, draws=1000, tune=500, chains=2048):
@@ -1407,10 +1426,11 @@ def phase_population(pm, card, draws=1000, tune=500, chains=2048):
     out.update(phase="population", chains=chains, tune=tune, draws=draws,
                max_sd_rel=sd_rel,
                accept=float(np.mean(trace.get_sampler_stats("accepted"))),
-               card=card)
+               dtypes=_trace_dtypes(trace, names), card=card)
     print(json.dumps(out), flush=True)
     if not sd_rel < 0.10:
         fail(f"population: a marginal sd is {100 * sd_rel:.1f}% off")
+    return out
 
 
 def _reference(config):
@@ -1429,6 +1449,15 @@ def _logp_grad_ms(model, chains, calls=50):
                                  * chains), device=model.device)
     vag = model.logp_dlogp_function()
     return _synced_ms(lambda: vag(q), calls=calls)
+
+
+def _logp_ms(model, chains, calls=50):
+    """Host ms per synced logp-only call at the test point, ``chains``
+    rows."""
+    q = torch.as_tensor(np.stack([model.dict_to_array(model.test_point)]
+                                 * chains), device=model.device)
+    fn = model.make_logp_fn()
+    return _synced_ms(lambda: fn(q), calls=calls)
 
 
 def _spy_final_state(step):
@@ -1909,6 +1938,7 @@ def phase_advi_minibatch(pm, card, warm=50, profiled=20):
         del model, inference, approx
     print(json.dumps({"phase": "advi_minibatch", **rows, "card": card}),
           flush=True)
+    return rows
 
 
 def _fit_gate(mean, std, fits, z_max=5.0):
@@ -2156,9 +2186,11 @@ def phase_api(pm, card, draws=1_000_000, reps=20):
         different orders);
     (e) ``sample_prior_predictive`` on radon gives ``RADON_PRIOR_DTYPES``;
     (f) ``draw_values`` with a distribution among the parameters draws
-        from it at ``size`` on the card.
+        from it at ``size`` on the card;
+    (g)-(j) the call forms repaired after these (:func:`_api_repaired`).
 
-    The phase fails if its wall passes 10 s."""
+    The phase fails if the wall of (a)-(f) passes 10 s, or that of
+    (g)-(j) passes ``API_REPAIRED_WALL_S``."""
     from scipy.optimize import minimize
     from pymc3_tpu_torch.distributions import draw_values
     from pymc3_tpu_torch.examples.radon import build_model
@@ -2269,9 +2301,158 @@ def phase_api(pm, card, draws=1_000_000, reps=20):
 
     torch.cuda.synchronize()
     out["wall_s"] = time.time() - t_phase
+    out["repaired"] = _api_repaired(pm)
     print(json.dumps(out), flush=True)
     if out["wall_s"] > 10.0:
-        fail(f"api: the phase took {out['wall_s']:.1f} s, over 10 s")
+        fail(f"api: (a)-(f) took {out['wall_s']:.1f} s, over 10 s")
+    if out["repaired"]["wall_s"] > API_REPAIRED_WALL_S:
+        fail(f"api: (g)-(j) took {out['repaired']['wall_s']:.1f} s, over "
+             f"{API_REPAIRED_WALL_S} s")
+
+
+# the cholesky model of phase 30 (j): 20 tune + 20 draws of 4 chains
+API_CHOLESKY = {"chains": 4, "tune": 20, "draws": 20}
+# the wall limit of phase 30's (g)-(j): the short sample of (j) included
+API_REPAIRED_WALL_S = 20.0
+
+
+def _cholesky_probe(pm):
+    """``r ~ Normal(0, 1)`` and the log-diagonal of the Cholesky factor of
+    [[1, r], [r, 1]] as a potential: 0.5 log(1 - r^2), NaN where |r| >=
+    1."""
+    with pm.Model() as model:
+        r = pm.Normal("r", 0.0, 1.0)
+        L = pm.math.cholesky(pm.math.stack([pm.math.stack([1.0, r]),
+                                            pm.math.stack([r, 1.0])]))
+        pm.Potential("p", pm.math.sum(pm.math.log(pm.math.extract_diag(L))))
+    return model
+
+
+def _api_repaired(pm):
+    """Phase 30's call forms that the port once answered otherwise than
+    the JAX package, on the card (each held against the JAX package on the
+    CPU by ``tests/test_torch_result_faults.py``), each against the plain
+    expectation printed on its line:
+
+    (g) ``pm.math.eye(3)`` on a model on the card, in ``floatX`` on the
+        model's device, inside a logp: ``x ~ N(0, 1)`` (3) plus the
+        potential -|x (2 I)|^2 at x = (0.3, -0.2, 0.5): -3/2 log(2 pi) -
+        4.5 |x|^2, rtol 1e-6;
+    (h) ``outer`` of a (2, 2) and a (3,) card tensor is the (4, 3) outer
+        product of the flattened operands, ``full_like`` of a (3, 4) card
+        tensor and a (4,) one its rows, both on the card, equal to numpy;
+    (i) ``Minibatch(data, batch_size=[10, 2])`` (100 rows, 3 columns): the
+        logp of a normal mean model observed through it, with the draw's
+        rows, equals the plain sum of the normal log densities of those
+        rows x 100 / 10 plus the prior's (rtol 1e-5); then one ADVI step on
+        the card, its loss and parameters finite;
+    (j) ``pm.math.cholesky`` of a non-positive-definite matrix: the
+        :func:`_cholesky_probe` logp is 0.5 log(0.75) - log(2 pi) / 2 -
+        0.125 at r = 0.5 and NaN at r = 2, in one batched call; then
+        ``sample()`` at ``API_CHOLESKY`` finishes with every draw in |r| < 1
+        and the NaN region's steps counted as divergences (more than 0)."""
+    from pymc3_tpu_torch.config import torch_floatX
+    from pymc3_tpu_torch.data import minibatch_nodes
+    from pymc3_tpu_torch.node import current_device
+    t0 = time.time()
+    out = {}
+    device = current_device()
+
+    with pm.Model() as model:
+        x = pm.Normal("x", 0.0, 1.0, shape=3)
+        eye = pm.math.eye(3)
+        pm.Potential("p", -pm.math.sum(pm.math.sqr(
+            pm.math.dot(x, 2.0 * eye))))
+    _on_card(model, "api eye")
+    q = np.array([0.3, -0.2, 0.5])
+    got = float(model.logp_dlogp_function()(torch.as_tensor(
+        q[None], dtype=torch_floatX(), device=model.device))[0][0])
+    want = -1.5 * np.log(2 * np.pi) - 4.5 * float(q @ q)
+    out["eye"] = {"dtype": str(eye.dtype), "device": str(eye.device),
+                  "logp": got, "want": want}
+    print("api eye in a logp: " + json.dumps(out["eye"]), flush=True)
+    if not (eye.dtype == torch_floatX()
+            and eye.device.type == model.device.type
+            and abs(got - want) <= 1e-6 * abs(want)):
+        fail(f"api: eye in a logp: {out['eye']}")
+
+    rng = np.random.RandomState(31)
+    a, b, c = rng.randn(2, 2), rng.randn(3), rng.randn(3, 4)
+    fill = rng.randn(4)
+    card = {k: torch.as_tensor(v, dtype=torch_floatX(), device=device)
+            for k, v in (("a", a), ("b", b), ("c", c), ("fill", fill))}
+    outer = pm.math.outer(card["a"], card["b"])
+    full = pm.math.full_like(card["c"], card["fill"])
+    err = {"outer": float(np.abs(outer.test_value - np.outer(
+        a.ravel(), b)).max()), "full_like": float(np.abs(
+            full.test_value - np.broadcast_to(fill, (3, 4))).max())}
+    out["outer_full_like"] = {
+        "shapes": [list(outer.test_value.shape),
+                   list(full.test_value.shape)],
+        "devices": [str(outer.value.device), str(full.value.device)],
+        "max_abs_err": err}
+    print("api outer, full_like: " + json.dumps(out["outer_full_like"]),
+          flush=True)
+    if not (outer.test_value.shape == (4, 3) and full.test_value.shape ==
+            (3, 4) and outer.value.device.type == full.value.device.type ==
+            device.type
+            and max(err.values()) < 1e-6):
+        fail(f"api: outer/full_like on the card: {out['outer_full_like']}")
+
+    data = rng.randn(100, 3) + 1.0
+    batch = pm.Minibatch(data, batch_size=[10, 2], random_seed=9)
+    with pm.Model() as model:
+        mu = pm.Normal("mu", 0.0, 1.0, shape=3)
+        pm.Normal("obs", mu, 1.0, observed=batch, total_size=100)
+    node = minibatch_nodes(model)[0]
+    rows = torch.as_tensor(rng.randint(0, 100, size=10), device=device)
+    m = np.array([0.9, 1.1, 1.0])
+    got = float(model.logp_point_fn()(torch.as_tensor(
+        m, dtype=torch_floatX(), device=device), {node.noise_key: rows}))
+    picked = data[rows.cpu().numpy()]
+
+    def normal(v, loc):
+        return -0.5 * np.log(2 * np.pi) - 0.5 * (v - loc) ** 2
+    want = float(10.0 * normal(picked, m).sum() + normal(m, 0.0).sum())
+    with model:
+        approx = pm.fit(n=1, method="advi", random_seed=31,
+                        progressbar=False)
+    finite = bool(np.isfinite(approx.hist).all() and all(
+        bool(torch.isfinite(t).all()) for g in approx.params.values()
+        for t in g.values()))
+    out["minibatch"] = {"batch_size": list(batch.batch_size),
+                        "sampling": batch.sampling,
+                        "noise_shape": list(node.noise_shape(1)),
+                        "logp": got, "want": want, "advi_step_finite": finite}
+    print("api per-axis Minibatch: " + json.dumps(out["minibatch"]),
+          flush=True)
+    if not (batch.sampling == "random" and abs(got - want) <= 1e-5 *
+            abs(want) and finite):
+        fail(f"api: per-axis Minibatch: {out['minibatch']}")
+
+    model = _cholesky_probe(pm)
+    _on_card(model, "api cholesky")
+    lp = model.logp_dlogp_function()(torch.as_tensor(
+        [[0.5], [2.0]], dtype=torch_floatX(), device=device))[0].cpu()
+    want = 0.5 * np.log(0.75) - 0.5 * np.log(2 * np.pi) - 0.125
+    trace = pm.sample(model=model, progressbar=False, random_seed=31,
+                      compute_convergence_checks=False, **API_CHOLESKY)
+    r = np.asarray(trace["r"])
+    n_div = int(np.sum(trace.get_sampler_stats("diverging")))
+    out["cholesky"] = {"logp_at_half": float(lp[0]), "want": want,
+                       "logp_at_2_is_nan": bool(np.isnan(float(lp[1]))),
+                       "draws": list(r.shape),
+                       "max_abs_r": float(np.abs(r).max()),
+                       "divergences": n_div}
+    print("api cholesky model: " + json.dumps(out["cholesky"]), flush=True)
+    if not (abs(float(lp[0]) - want) <= 1e-5 * abs(want)
+            and out["cholesky"]["logp_at_2_is_nan"] and r.shape == (
+                API_CHOLESKY["chains"] * API_CHOLESKY["draws"],)
+            and np.abs(r).max() < 1.0 and n_div > 0):
+        fail(f"api: the cholesky model on the card: {out['cholesky']}")
+    torch.cuda.synchronize()
+    out["wall_s"] = time.time() - t0
+    return out
 
 
 class _HostReads:
@@ -2808,31 +2989,42 @@ def _card_vs_cpu(pm, gp_cov, build, q, label):
     return {"logp_grad_ms": ms, "rel_err_logp_grad": err}
 
 
-def _ode_graphs_check(model, ode, chains=64):
+def _ode_graphs_check(model, ode, chains=64, label="ode"):
     """logp+grad of ``model`` at ``chains`` points near the test point
-    through the CUDA graphs of the solve and eagerly: the same numbers, a
-    forward and a backward graph of ``chains`` lanes captured (a capture
-    that fails raises), and each path's host ms per synced call."""
+    through the CUDA graphs of the solve and eagerly: the same numbers (bit
+    for bit in float32; in float64 within rtol 1e-12 and atol 1e-12 x the
+    largest value, and whether bit for bit is printed), the forward and
+    backward graphs of ``chains`` lanes in the model's float type captured
+    (counted; a capture that fails raises), and each path's host ms per
+    synced call."""
     from pymc3_tpu_torch.ode import graphs
     rng = np.random.RandomState(23)
     q0 = model.dict_to_array(model.test_point)
     q = torch.as_tensor((q0[None] + 0.1 * rng.randn(chains, q0.size))
-                        .astype(np.float32), device=model.device)
+                        .astype(q0.dtype), device=model.device)
     vag = model.logp_dlogp_function()
     res, ms = {}, {}
     for enabled in (False, True):
         graphs.ENABLED = enabled
         ms[enabled] = _synced_ms(lambda: vag(q), calls=10, warmup=2)
         res[enabled] = [x.cpu().numpy() for x in vag(q)]
-    used = all(any(key[1][0] == chains for key in cache)
-               for cache in (ode._graphs.forward, ode._graphs.backward))
-    same = all(np.array_equal(a, b) for a, b in zip(res[False], res[True]))
-    out = {"eager_ms": ms[False], "graphs_ms": ms[True], "captured": used,
-           "same_numbers": same}
-    print("ode graphs: " + json.dumps(out), flush=True)
+    captures = {kind: sum(1 for key in cache
+                          if key[1][0] == chains and q.dtype in key)
+                for kind, cache in (("forward", ode._graphs.forward),
+                                    ("backward", ode._graphs.backward))}
+    used = min(captures.values()) > 0
+    bitwise = all(np.array_equal(a, b)
+                  for a, b in zip(res[False], res[True]))
+    same = bitwise if q.dtype == torch.float32 else all(
+        np.allclose(b, a, rtol=1e-12, atol=1e-12 * np.abs(a).max())
+        for a, b in zip(res[False], res[True]))
+    out = {"chains": chains, "dtype": str(q.dtype), "eager_ms": ms[False],
+           "graphs_ms": ms[True], "captured": used, "captures": captures,
+           "same_numbers": same, "bitwise_equal": bitwise}
+    print(f"{label} graphs: " + json.dumps(out), flush=True)
     if not (used and same):
-        fail("ode: the solve's CUDA graphs were not captured or do not give "
-             "the eager path's numbers")
+        fail(f"{label}: the solve's CUDA graphs were not captured or do not "
+             "give the eager path's numbers")
     return out
 
 
@@ -3384,8 +3576,9 @@ def _worker(args):
               flush=True)
         sys.exit(0)
     if args[0] == "glm":
-        phase_glm(pm, gp_cov, args[1])
-        print("GLM " + json.dumps({"finished_at": time.time()}), flush=True)
+        out = phase_glm(pm, gp_cov, args[1])
+        print("GLM " + json.dumps({"finished_at": time.time(),
+                                   "pooled": out["pooled"]}), flush=True)
         sys.exit(0)
     ref = _reference_fits("examples")
     failed = []
@@ -3489,6 +3682,9 @@ PHASE_STARTS = []
 # the gates of phase 4's GP and phase 26's radon run (float32), which phase
 # 31 prints beside its float64 runs
 RESULTS = {}
+# what each phase of the main loop returned (phases 9-11, 17, 23 and 24
+# give phase 31 its float32 walls)
+PHASE_OUT = {}
 
 
 def phase_examples(card, started):
@@ -4652,6 +4848,26 @@ def phase_aevb(pm, card):
 FLOAT64_GP = {"chains": 4, "tune": 200, "draws": 1000}
 FLOAT64_RADON = {"chains": 2048, "tune": 150, "draws": 60}
 FLOAT64_SMC_PARTICLES = (65_536,)
+# phase 24's pooled GLM at float64: draws cut from 150 (phase 24 read
+# R-hat 1.0042 at 150 draws on the card; split R-hat - 1 grows as 1 /
+# draws, so about 1.0063 at 100, under the limit 1.01; it read 1.0064)
+FLOAT64_GLM = {"chains": 256, "tune": 100, "draws": 100}
+# phase 9's switchpoint model at float64, tuned twice as long as phase 9
+# and cut to 300 draws. At phase 9's 300 + 400 it failed on the card at
+# float64: the switchpoint's R-hat 1.0619 (limit 1.05) and sd 22.7% off; on
+# the CPU the same settings read 1.0499 at float64 and 1.0423 at float32,
+# so the gate sits at its edge there whatever the width. Tuned 600 draws,
+# the walk's scale is tuned six times, not three: on the CPU at float64
+# its ESS rose from 1,604 to 9,626 and R-hat fell to 1.0204 at 400 draws;
+# R-hat - 1 grows as 1 / draws, so about 1.027 at 300, and about 1.034 on
+# the card if it reads 1.24x the CPU's excess again (1.0619 against
+# 1.0499). On the card it read 1.0258 at 300 draws, ESS 8,365 (873 at
+# 300 + 400), in three runs of one seed
+FLOAT64_DISASTER = {"chains": 256, "tune": 600, "draws": 300}
+# the ODE's CUDA graphs at float64: these batch sizes
+FLOAT64_ODE_CHAINS = (2, 64)
+# float32 VI steps timed in the worker beside the float64 fits' ms a step
+FLOAT64_VI_F32_STEPS = 300
 
 
 def phase_float64(pm, gp_cov, card):
@@ -4674,12 +4890,19 @@ def phase_float64(pm, gp_cov, card):
        ``BASELINE_CPU.json`` and R-hat < 1.01.
     3. Phase 20's SMC on two bumps at 65,536 particles, against its
        closed-form evidence (phase 20's gates).
-    4. logp+grad ms of the GP at 4 chains and radon at 2048, at float64 and
-       then, after ``set_config(floatX="float32")`` in this process, at
-       float32 on models built anew, so the two widths are timed side by
-       side; the config goes back to float64 after.
+    4. Phase 17's d = 100 minibatch ADVI with four optimizers
+       (:func:`_float64_vi`), the freefall ODE's CUDA graphs
+       (:func:`_float64_ode`), phase 24's pooled GLM (:func:`_float64_glm`)
+       and phases 9, 11 and 10 (:func:`_float64_metropolis`), each gated as
+       its float32 phase, its draws or parameters float64.
+    5. logp(+grad) ms of those models and of the GP at 4 chains and radon
+       at 2048, at float64 and then, after ``set_config(floatX="float32")``
+       in this process, at float32 on models built anew, so the two widths
+       are timed side by side (:func:`_float32_ms`); the config goes back
+       to float64 after.
 
-    Returns the numbers (ESS/s, walls, launches, logp+grad ms)."""
+    Returns the numbers (ESS/s, walls, launches, logp(+grad) ms, the
+    phase's wall)."""
     from pymc3_tpu_torch.examples.radon import build_model
     from pymc3_tpu_torch.examples.suite import gp_regression
     config = pm.get_config()
@@ -4687,6 +4910,7 @@ def phase_float64(pm, gp_cov, card):
         fail(f"float64: the config reads floatX {config.floatX}, intX "
              f"{config.intX}")
     out = {"phase": "float64", "card": card}
+    t_phase = time.time()
     model, names, _ = gp_regression(pm)
     _on_card(model, "float64 gp")
     gp_cov.LAUNCHES = gp_cov.BACKWARD_LAUNCHES = 0
@@ -4730,16 +4954,175 @@ def phase_float64(pm, gp_cov, card):
 
     out["smc"] = phase_smc_bimodal(pm, card,
                                    particle_counts=FLOAT64_SMC_PARTICLES)
+    out["vi"] = _float64_vi(pm)
+    out["ode"] = _float64_ode(pm)
+    out["glm"] = _float64_glm(pm)
+    out.update(_float64_metropolis(pm, card))
 
+    out["float32_logp_grad_ms"] = _float32_ms(pm, gp_regression, build_model)
+    out["wall_s"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _float64_trace(dtypes, label):
+    """Fails unless every variable's draws are float64, or int64 for a
+    discrete one (``intX`` at float64)."""
+    if not set(dtypes.values()) <= {"float64", "int64"}:
+        fail(f"{label}: the trace holds {dtypes}")
+
+
+def _float64_vi(pm):
+    """Phase 17's d = 100 minibatch ADVI (50,000 rows, batches of 500)
+    with each optimizer of ``reference_moments.json``'s
+    ``advi_optimizers`` (adam, adamax, adagrad_window and sgd at the rates
+    there) for its steps (1,000: the JAX fits of the gate ran as many, so
+    the count is the gate's, not phase 17's 5,000), each a new ``ADVI``
+    from the test point. The parameters must be float64 after the fit;
+    the means and sds are gated by phase 17's ``_fit_gate`` against the two
+    JAX fits of the same optimizer, steps and rate. Returns each fit's
+    wall, ms a step and gate."""
+    from pymc3_tpu_torch.examples.suite import (advi_logistic_data,
+                                                 advi_logistic_model)
+    ref = _reference_fits("advi_optimizers")
+    X, y, _ = advi_logistic_data(ref["N"], ref["d"])
+    model = advi_logistic_model(pm, X, y, ref["batch"])
+    _on_card(model, "float64 vi")
+    rows = {}
+    for name, cfg in ref["optimizers"].items():
+        with model:
+            inference = pm.ADVI()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        approx = inference.fit(n=ref["steps"], random_seed=2,
+                               progressbar=False,
+                               obj_optimizer=getattr(pm, name)(
+                                   **cfg["kwargs"]))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        dtypes = sorted({str(t.dtype) for group in approx.params.values()
+                         for t in group.values()} | {
+            str(np.asarray(approx.mean).dtype),
+            str(np.asarray(approx.std).dtype)})
+        gate = _fit_gate(approx.mean, approx.std, cfg["fits"])
+        rows[name] = {"steps": ref["steps"], "wall_s": wall,
+                      "ms_per_step": 1e3 * wall / ref["steps"],
+                      "last100_loss": float(np.mean(approx.hist[-100:])),
+                      "jax_last100_loss": [f["last100_loss"]
+                                           for f in cfg["fits"]],
+                      "dtypes": dtypes, "gate": gate}
+        print(f"float64 vi {name}: " + json.dumps(rows[name]), flush=True)
+        if dtypes != ["float64", "torch.float64"]:
+            fail(f"float64 vi {name}: the parameters are {dtypes}")
+        if not gate["pass"]:
+            fail(f"float64 vi {name}: the fit is {gate['max_z']:.2f} noise "
+                 "sds from the JAX fits")
+    return rows
+
+
+def _float64_ode(pm):
+    """The freefall ODE's logp+grad at float64 through the solve's CUDA
+    graphs and eagerly, at ``FLOAT64_ODE_CHAINS`` points
+    (:func:`_ode_graphs_check`): the same numbers within float64
+    tolerance, graphs of the batch size captured in float64."""
+    from pymc3_tpu_torch.examples import suite
+    ode = suite.freefall_ode(pm)
+    model, _ = suite.ode_model(pm, ode)
+    _on_card(model, "float64 ode")
+    return {str(n): _ode_graphs_check(model, ode, chains=n,
+                                      label=f"float64 ode {n} chains")
+            for n in FLOAT64_ODE_CHAINS}
+
+
+def _float64_glm(pm):
+    """Phase 24's pooled radon GLM at ``FLOAT64_GLM`` (jittered starts, a
+    pooled diagonal mass matrix), gated as phase 24 against the JAX
+    package's runs (``reference_moments.json``'s ``glm_radon``), R-hat <
+    1.01, the draws float64."""
+    from pymc3_tpu_torch.examples import suite
+    ref = _reference_fits("glm_radon")["pooled"]["moments"]
+    model, names = suite.glm_radon_pooled(pm)
+    _on_card(model, "float64 glm")
+    keep = [rv.name for rv in model.free_RVs] + names
+    t0 = time.time()
+    trace = pm.sample(model=model, init="jitter+adapt_diag",
+                      progressbar=False, random_seed=2,
+                      axis_name="chains_local",
+                      trace=list(dict.fromkeys(keep)),
+                      compute_convergence_checks=False, **FLOAT64_GLM)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    dtypes = _trace_dtypes(trace, names)
+    _float64_trace(dtypes, "float64 glm")
+    out = _gate(pm, trace, names, ref, wall,
+                "float64 glm pooled chains={chains} tune={tune} "
+                "draws={draws}".format(**FLOAT64_GLM),
+                against="the JAX package's reference runs")
+    out.update(dtypes=dtypes,
+               logp_grad_ms=_logp_grad_ms(model, FLOAT64_GLM["chains"]))
+    return out
+
+
+def _float64_metropolis(pm, card):
+    """Phases 9, 11 and 10 at float64 with their own gates: the switchpoint
+    model by NUTS + ``Metropolis`` at ``FLOAT64_DISASTER``, the
+    ``DEMetropolis`` population and the ``BinaryGibbsMetropolis`` scan at
+    their phases' depths; each trace float64 (int64 for the switchpoint and
+    the indicators)."""
+    out = {"disaster": phase_disaster(pm, card, **FLOAT64_DISASTER),
+           "population": phase_population(pm, card),
+           "binary": phase_binary(pm, card)}
+    for name, row in out.items():
+        _float64_trace(row["dtypes"], f"float64 {name}")
+    return out
+
+
+def _float32_ms(pm, gp_regression, build_model):
+    """The float32 side of phase 31's comparisons, timed in the same
+    process after ``set_config(floatX="float32")`` on models built anew
+    (the config goes back to float64 after): logp+grad ms of the GP at 4
+    chains, radon at 2048, the pooled GLM at 256 and the switchpoint model
+    at 256 (and its logp-only ms), logp-only ms of the population's normal
+    at 2048 and the indicators at 1024, the ODE's graphs at
+    ``FLOAT64_ODE_CHAINS``, and ms a step of ``FLOAT64_VI_F32_STEPS`` d =
+    100 ADVI steps with adam."""
+    from pymc3_tpu_torch.examples import disaster_model, suite
     pm.set_config(floatX="float32")
     try:
-        out["float32_logp_grad_ms"] = {
-            "gp": _logp_grad_ms(gp_regression(pm)[0], FLOAT64_GP["chains"]),
-            "radon": _logp_grad_ms(build_model(pm),
-                                   FLOAT64_RADON["chains"])}
+        disaster = disaster_model.build_model()
+        ode = suite.freefall_ode(pm)
+        ode_model, _ = suite.ode_model(pm, ode)
+        out = {"gp": _logp_grad_ms(gp_regression(pm)[0],
+                                   FLOAT64_GP["chains"]),
+               "radon": _logp_grad_ms(build_model(pm),
+                                      FLOAT64_RADON["chains"]),
+               "glm": _logp_grad_ms(suite.glm_radon_pooled(pm)[0],
+                                    FLOAT64_GLM["chains"]),
+               "disaster": _logp_grad_ms(disaster,
+                                         FLOAT64_DISASTER["chains"]),
+               "disaster_logp_only": _logp_ms(disaster,
+                                              FLOAT64_DISASTER["chains"]),
+               "population_logp_only": _logp_ms(
+                   suite.correlated_normal_model(pm)[0], 2048),
+               "binary_logp_only": _logp_ms(suite.indicator_model(pm)[0],
+                                            1024),
+               "ode_graphs": {str(n): _ode_graphs_check(
+                   ode_model, ode, chains=n,
+                   label=f"float32 ode {n} chains")["graphs_ms"]
+                   for n in FLOAT64_ODE_CHAINS}}
+        X, y, _ = suite.advi_logistic_data(50_000, 100)
+        with suite.advi_logistic_model(pm, X, y, 500):
+            inference = pm.ADVI()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        inference.fit(n=FLOAT64_VI_F32_STEPS, random_seed=2,
+                      progressbar=False, obj_optimizer=pm.adam(
+                          learning_rate=0.01))
+        torch.cuda.synchronize()
+        out["vi_ms_per_step"] = 1e3 * (time.time() - t0) / \
+            FLOAT64_VI_F32_STEPS
     finally:
         pm.set_config(floatX="float64")
-    print(json.dumps(out), flush=True)
     return out
 
 
@@ -4762,10 +5145,14 @@ def _float64_only(pm, gp_cov, card):
 
 
 def _float64_beside(out):
-    """Phase 31's GP and radon numbers at float64 beside phase 4's and phase
-    26's float32 runs of the same script (None where that phase did not
-    run)."""
+    """Phase 31's numbers at float64 beside the float32 runs of the same
+    script: ESS/s of phase 4's GP and phase 26's radon, the walls of phases
+    9-11 and of phase 24's pooled GLM, phase 17's d = 100 ms a step and
+    phase 23's graphs (None where that phase did not run), and the float32
+    logp(+grad) ms and VI ms a step that phase 31 timed in its own
+    process."""
     RESULTS["float64"] = out
+    f32_ms = out["float32_logp_grad_ms"]
     row = {}
     for name in ("gp", "radon"):
         f32 = RESULTS.get(name)
@@ -4773,7 +5160,45 @@ def _float64_beside(out):
             "ess_per_s_float64": out[name]["ess_per_s"],
             "ess_per_s_float32": None if f32 is None else f32["ess_per_s"],
             "logp_grad_ms_float64": out[name]["logp_grad_ms"],
-            "logp_grad_ms_float32": out["float32_logp_grad_ms"][name]}
+            "logp_grad_ms_float32": f32_ms[name]}
+    glm32 = PHASE_OUT.get("glm")
+    row["glm"] = {
+        "wall_s_float64": out["glm"]["wall_s"],
+        "draws_float64": FLOAT64_GLM["draws"],
+        "wall_s_float32": None if glm32 is None else glm32["pooled"]["wall_s"],
+        "ess_per_s_float64": out["glm"]["ess_per_s"],
+        "ess_per_s_float32": None if glm32 is None
+        else glm32["pooled"]["ess_per_s"],
+        "logp_grad_ms_float64": out["glm"]["logp_grad_ms"],
+        "logp_grad_ms_float32": f32_ms["glm"]}
+    for name, ms in (("disaster", "disaster_logp_only"),
+                     ("population", "population_logp_only"),
+                     ("binary", "binary_logp_only")):
+        f32 = PHASE_OUT.get(name)
+        row[name] = {
+            "wall_s_float64": out[name]["wall_s"],
+            "wall_s_float32": None if f32 is None else f32["wall_s"],
+            "logp_ms_float32": f32_ms[ms]}
+    row["disaster"].update(
+        logp_ms_float64=out["disaster"]["logp_ms"],
+        logp_grad_ms_float64=out["disaster"]["logp_grad_ms"],
+        logp_grad_ms_float32=f32_ms["disaster"])
+    vi32 = PHASE_OUT.get("advi_minibatch")
+    row["vi"] = {
+        "ms_per_step_float64": {k: v["ms_per_step"]
+                                for k, v in out["vi"].items()},
+        "ms_per_step_float32_adam": f32_ms["vi_ms_per_step"],
+        "ms_per_step_float32_phase17": None if vi32 is None
+        else vi32["d100"]["host_ms_per_step"]}
+    ode32 = PHASE_OUT.get("ode")
+    row["ode"] = {
+        "graphs_ms_float64": {k: v["graphs_ms"]
+                              for k, v in out["ode"].items()},
+        "eager_ms_float64": {k: v["eager_ms"] for k, v in out["ode"].items()},
+        "graphs_ms_float32": f32_ms["ode_graphs"],
+        "graphs_ms_float32_phase23": None if ode32 is None else {
+            "2": ode32["logp_grad"][2]["logp_grad_ms"],
+            "64": ode32["graphs"]["graphs_ms"]}}
     print("float64 beside float32: " + json.dumps(row), flush=True)
     return row
 
@@ -4868,7 +5293,7 @@ def main():
         for name in args.only.split(","):
             t0 = time.time()
             PHASE_STARTS.append((name, t0))
-            runners[name]()
+            PHASE_OUT[name] = runners[name]()
             print(f"{name}: {time.time() - t0:.1f} s", flush=True)
         print(f"only: ok in {time.time() - t_start:.1f} s", flush=True)
         return
@@ -4898,6 +5323,7 @@ def main():
         t0 = time.time()
         PHASE_STARTS.append((name, t0))
         out = runners[name]()
+        PHASE_OUT[name] = out
         walls[name] = round(time.time() - t0, 1)
         print(f"{name}: {walls[name]} s", flush=True)
         if name == "es":

@@ -134,9 +134,11 @@ class MinibatchNode(NamedNode):
     offset: every row has the marginal probability ``batch_size / N``, so
     the scaled likelihood stays unbiased. ``sampling="random"`` takes
     ``batch_size`` i.i.d. uniform rows (the reference's semantics); a
-    window as large as the data falls back to it. Without an entry in the
-    environment (test values) the leading rows of the (shuffled) copy are
-    returned.
+    window as large as the data falls back to it, and so does a per-axis
+    ``batch_size`` (a list or tuple, kept as given), which takes
+    ``batch_size[0]`` rows of axis 0 and ignores the other entries, as the
+    JAX package does. Without an entry in the environment (test values)
+    the leading rows of the (shuffled) copy are returned.
     """
 
     _counter = [0]
@@ -146,10 +148,10 @@ class MinibatchNode(NamedNode):
         data = _as_floatx(data)
         if in_memory_size is not None:
             data = data[_slice_from_size(in_memory_size)]
-        if isinstance(batch_size, (list, tuple)):
-            raise NotImplementedError(
-                "a per-axis batch_size is not ported; pass one int")
-        self.batch_size = int(batch_size)
+        per_axis = isinstance(batch_size, (list, tuple))
+        self.batch_size = batch_size if per_axis else int(batch_size)
+        # rows a draw takes
+        self._rows = int(batch_size[0]) if per_axis else self.batch_size
         MinibatchNode._counter[0] += 1
         self.name = name or f"Minibatch_{MinibatchNode._counter[0]}"
         self.random_seed = random_seed
@@ -157,7 +159,7 @@ class MinibatchNode(NamedNode):
         if sampling not in ("window", "random"):
             raise ValueError(f"sampling must be 'window' or 'random', "
                              f"got {sampling!r}")
-        if self.batch_size >= data.shape[0]:
+        if per_axis or self._rows >= data.shape[0]:
             sampling = "random"
         self.sampling = sampling
         self._perm = None
@@ -168,7 +170,7 @@ class MinibatchNode(NamedNode):
         self.data = data
         self.device = current_device() if device is None else device
         self._tensor = torch.as_tensor(data, device=self.device)
-        self._arange = torch.arange(self.batch_size, device=self.device)
+        self._arange = torch.arange(self._rows, device=self.device)
         # on the device once: an encoder maps every sample's draw through it
         self._perm_t = None if self._perm is None else torch.as_tensor(
             self._perm, device=self.device)
@@ -179,15 +181,14 @@ class MinibatchNode(NamedNode):
         views with the same seed and sampling."""
         if self.sampling == "window":
             return f"window:{self._fold}"
-        return f"random:{self._fold}:{self.batch_size}"
+        return f"random:{self._fold}:{self._rows}"
 
     def noise_shape(self, size):
-        return (size,) if self.sampling == "window" else \
-            (size, self.batch_size)
+        return (size,) if self.sampling == "window" else (size, self._rows)
 
     @property
     def _test_value(self):
-        return self.data[:self.batch_size]
+        return self.data[:self._rows]
 
     @_test_value.setter
     def _test_value(self, v):
@@ -219,7 +220,7 @@ class MinibatchNode(NamedNode):
     def _eval_default(self, env, memo):
         draw = env.get(RNG_ENV_KEY)
         if draw is None:
-            return self._tensor[:self.batch_size]
+            return self._tensor[:self._rows]
         return self._tensor[self._positions(draw[self.noise_key])]
 
 

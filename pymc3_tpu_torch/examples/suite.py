@@ -272,8 +272,7 @@ def indicator_model(pm):
     X, beta, y = indicator_data()
     with pm.Model() as model:
         z = pm.Bernoulli("z", p=0.5, shape=len(beta))
-        mu = pm.node.apply(lambda z, Xb: Xb @ z, z,
-                           pm.node.as_node((X * beta).astype(np.float32)))
+        mu = pm.node.apply(lambda z, Xb: Xb @ z, z, pm.node.as_node(X * beta))
         pm.Normal("y", mu=mu, sigma=1.0, observed=y)
     return model, ["z"]
 

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .node import apply, as_node
+from .config import floatX, torch_floatX
+from .node import apply, as_node, current_device
 
 __all__ = [
     "abs_", "exp", "log", "log1p", "log2", "log10", "sqrt", "sgn", "sqr",
@@ -33,16 +34,34 @@ __all__ = [
 ]
 
 
-def _wrap(fn):
+def _floating(v):
+    """An integer or bool tensor in ``floatX``, as ``jnp`` promotes the
+    operand of a function whose result is inexact."""
+    if isinstance(v, torch.Tensor) and not (v.is_floating_point()
+                                            or v.is_complex()):
+        return v.to(torch_floatX())
+    return v
+
+
+def _wrap(fn, inexact=False):
+    """``fn`` over the positional operands, each a node, a tensor, an
+    array or a number; ``inexact``: integer operands in ``floatX`` first."""
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        # a number as the operand becomes a device constant, as jnp takes
-        # one (``pm.math.log(2)`` in PyMC3's ODE notebook); later numbers
-        # are options (``tril(x, -1)``)
-        if args and isinstance(args[0], (numbers.Number, np.generic)):
-            args = (as_node(np.asarray(args[0])),) + tuple(args[1:])
+        # a number becomes a device constant, as jnp takes one
+        # (``pm.math.log(2)`` in PyMC3's ODE notebook); options go to
+        # ``fn`` by keyword or in a closure
+        args = [as_node(np.asarray(a))
+                if isinstance(a, (numbers.Number, np.generic)) else a
+                for a in args]
+        if inexact:
+            return apply(lambda *a: fn(*map(_floating, a), **kwargs), *args)
         return apply(lambda *a: fn(*a, **kwargs), *args)
     return wrapped
+
+
+def _inexact(fn):
+    return _wrap(fn, inexact=True)
 
 
 def _dims(axis):
@@ -58,21 +77,35 @@ def _reduce(fn, v, axis, keepdims):
 
 # -- elementwise ------------------------------------------------------------
 abs_ = _wrap(torch.abs)
-exp = _wrap(torch.exp)
-log = _wrap(torch.log)
-log1p = _wrap(torch.log1p)
-log2 = _wrap(torch.log2)
-log10 = _wrap(torch.log10)
-sqrt = _wrap(torch.sqrt)
-sgn = _wrap(torch.sign)
+exp = _inexact(torch.exp)
+log = _inexact(torch.log)
+log1p = _inexact(torch.log1p)
+log2 = _inexact(torch.log2)
+log10 = _inexact(torch.log10)
+sqrt = _inexact(torch.sqrt)
 ceil = _wrap(torch.ceil)
 floor = _wrap(torch.floor)
+
+
+def _sign(v):
+    """``jnp.sign``: NaN where ``v`` is NaN."""
+    return torch.where(torch.isnan(v), v, torch.sign(v)) \
+        if v.is_floating_point() else torch.sign(v)
+
+
+sgn = _wrap(_sign)
+
+
+def _round(v, decimals):
+    """``jnp.round``: an integer is its own value."""
+    return torch.round(v, decimals=decimals) if v.is_floating_point() \
+        else v
 
 
 def round_(a, decimals=0, out=None):
     """numpy's ``round`` (the JAX package's is ``jnp.round``)."""
     _no_out("round", out)
-    return _wrap(torch.round)(a, decimals=decimals)
+    return _wrap(lambda v: _round(v, decimals))(a)
 
 
 tround = round_
@@ -80,34 +113,38 @@ tround = round_
 
 # the operand of ``jax.scipy.special``'s functions is named ``x``
 def erf(x):
-    return _wrap(torch.special.erf)(x)
+    return _inexact(torch.special.erf)(x)
 
 
 def erfc(x):
-    return _wrap(torch.special.erfc)(x)
+    return _inexact(torch.special.erfc)(x)
 
 
 def erfinv(x):
-    return _wrap(torch.special.erfinv)(x)
-sin = _wrap(torch.sin)
-cos = _wrap(torch.cos)
-tan = _wrap(torch.tan)
-sinh = _wrap(torch.sinh)
-cosh = _wrap(torch.cosh)
-tanh = _wrap(torch.tanh)
-arcsin = _wrap(torch.asin)
-arccos = _wrap(torch.acos)
-arctan = _wrap(torch.atan)
-arctan2 = _wrap(torch.atan2)
-arcsinh = _wrap(torch.asinh)
-arccosh = _wrap(torch.acosh)
-arctanh = _wrap(torch.atanh)
+    return _inexact(torch.special.erfinv)(x)
+
+
+sin = _inexact(torch.sin)
+cos = _inexact(torch.cos)
+tan = _inexact(torch.tan)
+sinh = _inexact(torch.sinh)
+cosh = _inexact(torch.cosh)
+tanh = _inexact(torch.tanh)
+arcsin = _inexact(torch.asin)
+arccos = _inexact(torch.acos)
+arctan = _inexact(torch.atan)
+arctan2 = _inexact(torch.atan2)
+arcsinh = _inexact(torch.asinh)
+arccosh = _inexact(torch.acosh)
+arctanh = _inexact(torch.atanh)
+
+
 def sigmoid(x):
-    return _wrap(torch.sigmoid)(x)
+    return _inexact(torch.sigmoid)(x)
 
 
 def logit(x):
-    return _wrap(torch.special.logit)(x)
+    return _inexact(torch.special.logit)(x)
 
 
 def _no_out(name, out, where=None):
@@ -128,45 +165,50 @@ def minimum(x1, x2, out=None, where=None):
 
 
 def logaddexp(a, b):
-    return _wrap(torch.logaddexp)(a, b)
+    return _inexact(torch.logaddexp)(a, b)
+
+
+def _where(cond, a, b):
+    """``jnp.where``: a condition that is not bool is tested against 0."""
+    return torch.where(cond if cond.dtype == torch.bool else cond != 0, a, b)
 
 
 def where(cond, a, b):
-    return _wrap(torch.where)(cond, a, b)
+    return _wrap(_where)(cond, a, b)
 
 
 switch = where
 
 
 def sqr(x):
-    return apply(torch.square, x)
+    return _wrap(torch.square)(x)
 
 
 def erfcinv(x):
-    return apply(lambda v: torch.special.erfinv(1.0 - v), x)
+    return _inexact(lambda v: torch.special.erfinv(1.0 - v))(x)
 
 
 def invlogit(x, eps=None):
     """Inverse logit; ``eps`` shrinks the output into (eps, 1 - eps)
     (cf. ``pymc3/math.py:146``)."""
     if eps is None:
-        return apply(torch.sigmoid, x)
-    return apply(lambda v: (1.0 - 2.0 * eps) * torch.sigmoid(v) + eps, x)
+        return _inexact(torch.sigmoid)(x)
+    return _inexact(lambda v: (1.0 - 2.0 * eps) * torch.sigmoid(v) + eps)(x)
 
 
 def probit(p):
     """Inverse of the standard-normal CDF (cf. ``pymc3/math.py:211``)."""
-    return apply(torch.special.ndtri, p)
+    return _inexact(torch.special.ndtri)(p)
 
 
 def invprobit(x):
     """Standard-normal CDF (cf. ``pymc3/math.py:215``)."""
-    return apply(torch.special.ndtr, x)
+    return _inexact(torch.special.ndtr)(x)
 
 
 def log1pexp(x):
     """log(1 + exp(x)), stable (softplus)."""
-    return apply(F.softplus, x)
+    return _inexact(F.softplus)(x)
 
 
 _LOG2 = 0.6931471805599453
@@ -183,7 +225,7 @@ def _log1mexp(x):
 
 def log1mexp(x):
     """log(1 - exp(-x)), stable for both small and large x."""
-    return apply(_log1mexp, x)
+    return _inexact(_log1mexp)(x)
 
 
 def log1mexp_numpy(x):
@@ -198,7 +240,7 @@ def log1mexp_numpy(x):
 
 def logdiffexp(a, b):
     """log(exp(a) - exp(b)) (cf. ``pymc3/math.py:166``)."""
-    return apply(lambda x, y: x + _log1mexp(x - y), a, b)
+    return _inexact(lambda x, y: x + _log1mexp(x - y))(a, b)
 
 
 def logsumexp(x, axis=None, keepdims=True):
@@ -208,20 +250,31 @@ def logsumexp(x, axis=None, keepdims=True):
             out = torch.logsumexp(v.reshape(-1), dim=0)
             return out.reshape((1,) * v.ndim) if keepdims else out
         return torch.logsumexp(v, dim=_dims(axis), keepdim=keepdims)
-    return apply(lse, x)
+    return _inexact(lse)(x)
 
 
 def softmax(x, axis=-1):
-    return apply(lambda v: torch.softmax(v, dim=axis), x)
+    return _inexact(lambda v: torch.softmax(v, dim=axis))(x)
 
 
 def log_softmax(x, axis=-1):
-    return apply(lambda v: torch.log_softmax(v, dim=axis), x)
+    return _inexact(lambda v: torch.log_softmax(v, dim=axis))(x)
 
 
 # -- structural -------------------------------------------------------------
+def _promoted(*ts):
+    """The tensors in the type they promote to together, as ``jnp``'s
+    products and solves take them (torch's take one type)."""
+    dtype = functools.reduce(torch.promote_types, [t.dtype for t in ts])
+    return [t.to(dtype) for t in ts]
+
+
+def _product(x, y):
+    return torch.matmul(*_promoted(x, y))
+
+
 def dot(a, b):
-    return apply(torch.matmul, a, b)
+    return _wrap(_product)(a, b)
 
 
 def matmul(a, b, *, preferred_element_type=None, out_sharding=None):
@@ -230,9 +283,15 @@ def matmul(a, b, *, preferred_element_type=None, out_sharding=None):
     None."""
     _no_sharding(out_sharding)
     if preferred_element_type is None:
-        return _wrap(torch.matmul)(a, b)
+        return _wrap(_product)(a, b)
     dtype = _torch_dtype(preferred_element_type)
-    return _wrap(lambda x, y: torch.matmul(x.to(dtype), y.to(dtype)))(a, b)
+
+    def product(x, y):
+        # in the wider of the operands' type and ``dtype``, as XLA
+        # accumulates, then in ``dtype``
+        wide = torch.promote_types(torch.result_type(x, y), dtype)
+        return torch.matmul(x.to(wide), y.to(wide)).to(dtype)
+    return _wrap(product)(a, b)
 
 
 def _no_sharding(out_sharding):
@@ -240,9 +299,14 @@ def _no_sharding(out_sharding):
         raise NotImplementedError("out_sharding: the port does not shard")
 
 
+def _outer(x, y):
+    """``jnp.outer``: the product of the flattened operands."""
+    return torch.outer(x.reshape(-1), y.reshape(-1))
+
+
 def outer(a, b, out=None):
     _no_out("outer", out)
-    return _wrap(torch.outer)(a, b)
+    return _wrap(_outer)(a, b)
 
 
 def _torch_dtype(dtype):
@@ -251,14 +315,14 @@ def _torch_dtype(dtype):
 
 
 def clip(x, lo, hi):
-    return apply(torch.clamp, x, lo, hi)
+    return _wrap(torch.clamp)(x, lo, hi)
 
 
 def stack(*tensors, **kwargs):
     axis = kwargs.get("axis", 0)
     if len(tensors) == 1 and isinstance(tensors[0], (list, tuple)):
         tensors = tuple(tensors[0])
-    return apply(lambda *ts: torch.stack(ts, dim=axis), *tensors)
+    return _wrap(lambda *ts: torch.stack(ts, dim=axis))(*tensors)
 
 
 def concatenate(tensor_list, axis=0):
@@ -282,7 +346,7 @@ def prod(x, axis=None, keepdims=False):
 
 
 def mean(x, axis=None, keepdims=False):
-    return apply(lambda v: _reduce(torch.mean, v, axis, keepdims), x)
+    return _inexact(lambda v: _reduce(torch.mean, v, axis, keepdims))(x)
 
 
 def _cumulative(op, a, axis, dtype, out):
@@ -309,13 +373,15 @@ def cumprod(a, axis=None, dtype=None, out=None):
 
 def _filled_like(v, fill, dtype, shape, device):
     """numpy's ``full_like``: ``v``'s shape, dtype and device unless
-    ``shape``, ``dtype`` or ``device`` is given."""
-    dtype = None if dtype is None else _torch_dtype(dtype)
-    if shape is None:
-        return torch.full_like(v, fill, dtype=dtype, device=device)
-    shape = (shape,) if np.ndim(shape) == 0 else tuple(shape)
-    return torch.full(shape, fill, dtype=dtype or v.dtype,
-                      device=v.device if device is None else device)
+    ``shape``, ``dtype`` or ``device`` is given; a tensor ``fill`` is
+    broadcast to the shape."""
+    dtype = v.dtype if dtype is None else _torch_dtype(dtype)
+    device = v.device if device is None else device
+    shape = v.shape if shape is None else \
+        (shape,) if np.ndim(shape) == 0 else tuple(shape)
+    if isinstance(fill, torch.Tensor):
+        return fill.to(device=device, dtype=dtype).expand(shape).clone()
+    return torch.full(shape, fill, dtype=dtype, device=device)
 
 
 def full_like(a, fill_value, dtype=None, shape=None, *, device=None):
@@ -334,25 +400,27 @@ def zeros_like(a, dtype=None, shape=None, *, device=None, out_sharding=None):
 
 
 def diag(v, k=0):
-    return _wrap(torch.diag)(v, k)
+    return _wrap(lambda t: torch.diag(t, k))(v)
 
 
 def tril(m, k=0):
-    return _wrap(torch.tril)(m, k)
+    return _wrap(lambda t: torch.tril(t, k))(m)
 
 
 def triu(m, k=0):
-    return _wrap(torch.triu)(m, k)
+    return _wrap(lambda t: torch.triu(t, k))(m)
 
 
 def extract_diag(x):
-    return apply(lambda m: torch.diagonal(m, dim1=-2, dim2=-1), x)
+    """``jnp.diagonal``: the diagonal over the first two axes, last."""
+    return _wrap(lambda m: torch.diagonal(m, dim1=0, dim2=1))(x)
 
 
 def eye(n, m=None, k=0):
-    """An (n, m) identity on torch's default device, shifted by ``k``."""
-    m = n if m is None else m
-    return torch.as_tensor(np.eye(n, m, k, dtype=np.float32))
+    """An (n, m) identity in ``floatX`` on the model's device (the
+    configured one outside a model), shifted by ``k``."""
+    return torch.as_tensor(np.eye(n, m, k, dtype=floatX()),
+                           device=current_device())
 
 
 def constant(x, name=None):
@@ -360,7 +428,7 @@ def constant(x, name=None):
 
 
 def flatten(x):
-    return apply(torch.ravel, x)
+    return _wrap(torch.ravel)(x)
 
 
 def flatten_list(tensors):
@@ -368,15 +436,34 @@ def flatten_list(tensors):
 
 
 # -- linear algebra ---------------------------------------------------------
+def _cholesky(m, lower):
+    """``jax.scipy.linalg.cholesky``: the factor of the lower triangle of
+    ``m`` (of the upper one when not ``lower``); a matrix that is not
+    positive definite gives NaN on its factor's triangle, batch entry by
+    batch entry, with no host sync."""
+    L, info = torch.linalg.cholesky_ex(m if lower else m.mT,
+                                       check_errors=False)
+    tri = torch.ones(L.shape[-2:], dtype=torch.bool, device=L.device).tril()
+    L = torch.where((info != 0)[..., None, None] & tri, torch.nan, L)
+    return L if lower else L.mT
+
+
 def cholesky(x, lower=True):
-    return apply(lambda m: torch.linalg.cholesky(m, upper=not lower), x)
+    return _inexact(lambda m: _cholesky(m, lower))(x)
+
+
+def _solve(m, v):
+    """``jnp.linalg.solve``: a singular ``m`` gives inf and NaN, not an
+    error, with no host sync."""
+    return torch.linalg.solve_ex(*_promoted(m, v), check_errors=False)[0]
 
 
 def solve(a, b):
-    return apply(torch.linalg.solve, a, b)
+    return _inexact(_solve)(a, b)
 
 
 def _solve_triangular(m, v, upper):
+    m, v = _promoted(m, v)
     vec = v.ndim == m.ndim - 1
     out = torch.linalg.solve_triangular(m, v[..., None] if vec else v,
                                         upper=upper)
@@ -384,20 +471,21 @@ def _solve_triangular(m, v, upper):
 
 
 def solve_lower(a, b):
-    return apply(lambda m, v: _solve_triangular(m, v, upper=False), a, b)
+    return _inexact(lambda m, v: _solve_triangular(m, v, upper=False))(a, b)
 
 
 def solve_upper(a, b):
-    return apply(lambda m, v: _solve_triangular(m, v, upper=True), a, b)
+    return _inexact(lambda m, v: _solve_triangular(m, v, upper=True))(a, b)
 
 
 def matrix_inverse(x):
-    return apply(torch.linalg.inv, x)
+    """``jnp.linalg.inv``: a singular matrix gives inf and NaN."""
+    return _inexact(lambda m: torch.linalg.inv_ex(m, check_errors=False)[0])(x)
 
 
 def logdet(m):
     """log|det(M)| through ``slogdet`` (cf. ``pymc3/math.py:174``)."""
-    return apply(lambda x: torch.linalg.slogdet(x)[1], m)
+    return _inexact(lambda x: torch.linalg.slogdet(x)[1])(m)
 
 
 def expand_packed_triangular(n, packed, lower=True, diagonal_only=False):
@@ -482,17 +570,17 @@ def kron_matrix_op(krons, m, op):
 
 
 def kron_dot(krons, m):
-    return kron_matrix_op(krons, m, lambda K, x: K @ x)
+    return kron_matrix_op(krons, m, _product)
 
 
 def kron_solve_lower(krons, m):
     return kron_matrix_op(krons, m, lambda K, x: torch.linalg.solve_triangular(
-        K, x, upper=False))
+        *_promoted(K, x), upper=False))
 
 
 def kron_solve_upper(krons, m):
     return kron_matrix_op(krons, m, lambda K, x: torch.linalg.solve_triangular(
-        K, x, upper=True))
+        *_promoted(K, x), upper=True))
 
 
 def kron_diag(*diags):
@@ -506,13 +594,13 @@ def kron_diag(*diags):
 
 
 def flat_outer(a, b):
-    """The outer product of two vectors, flattened (cf. ``math.py:238``)."""
-    return apply(lambda x, y: torch.outer(x, y).reshape(-1), a, b)
+    """The outer product of the flattened operands, flattened (cf.
+    ``math.py:238``)."""
+    return _wrap(lambda x, y: _outer(x, y).reshape(-1))(a, b)
 
 
 def floatX_array(x):
     """``x`` as a numpy array of ``floatX`` (cf. ``math.py:408``)."""
-    from .config import floatX
     return floatX(np.asarray(x))
 
 

@@ -364,7 +364,11 @@ class ConstantNode(Node):
             self._test_value = _to_numpy(value)
         else:
             self._test_value = np.asarray(value)
-            self.value = torch.as_tensor(self._test_value, device=device)
+            # torch takes no negative strides (``x[::-1]``)
+            self.value = torch.as_tensor(
+                self._test_value.copy() if any(
+                    st < 0 for st in self._test_value.strides)
+                else self._test_value, device=device)
         self.name = name
 
     def _eval(self, env, memo):

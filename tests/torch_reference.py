@@ -1,6 +1,7 @@
 """Reference values of the JAX package on the CPU for ``chip_smoke.py``'s
 gates: posterior moments of the LKJ, stochastic-volatility and GARCH
-examples, ADVI fits of the minibatch logistic regression and of the GP,
+examples, ADVI fits of the minibatch logistic regression (with the default
+optimizer and with each of ``ADVI_OPTIMIZERS``) and of the GP,
 the MAP and Hessian of radon, SMC on the GP at 4,096 particles, the
 posterior of the sparse (FITC) GP of PyMC3's sparse-approximation
 notebook, the pooled and unpooled radon GLMs with their LOO and WAIC, and
@@ -15,7 +16,7 @@ port on the card. Run from the repository root:
     JAX_PLATFORMS=cpu python tests/torch_reference.py [config ...]
 
 With names (``lkj``, ``stochastic_volatility``, ``garch``, ``advi_logistic``,
-``advi_sharded``, ``aevb_vae``, ``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``,
+``advi_optimizers``, ``advi_sharded``, ``aevb_vae``, ``advi_gp``, ``map_radon``, ``smc_gp``, ``sparse_fitc``,
 ``glm_radon``, ``examples``) it
 runs those
 configurations only and keeps the others already in the file; the file is
@@ -119,6 +120,15 @@ ADVI_GP = {"stages": {"advi": [[1000, 0.01], [1000, 0.001]],
                       "fullrank_advi": [[1500, 0.01], [1000, 0.001]]},
            "obj_n_mc": 50}
 SEEDS = (1, 2)
+# the d = 100 minibatch ADVI of phase 17 with each of these optimizers,
+# (name, keyword arguments), for ``ADVI_OPTIMIZER_STEPS`` steps: phase 31
+# runs them at float64. SGD's rate is below 2 / the data term's curvature
+# (about N / 4 = 12,500 for standard normal features)
+ADVI_OPTIMIZERS = {"adam": {"learning_rate": 0.01},
+                   "adamax": {"learning_rate": 0.05},
+                   "adagrad_window": {"learning_rate": 0.1},
+                   "sgd": {"learning_rate": 1e-5}}
+ADVI_OPTIMIZER_STEPS = 1_000
 # the sharded minibatch-ADVI fits of phase 27: the d = 100 configuration
 # with a batch of 500 on each of two devices
 ADVI_SHARDED = {"devices": 2, "N": 50_000, "d": 100, "batch": 500,
@@ -153,6 +163,31 @@ def advi_logistic(pm):
             fits[-1]["coef_rmse"] = float(np.sqrt(np.mean((w - w_true) ** 2)))
         out[name] = {"N": N, "d": d, "batch": batch, "steps": steps,
                      "fits": fits}
+    return out
+
+
+def advi_optimizers(pm):
+    """The d = 100 configuration of ``advi_logistic`` with each optimizer of
+    ``ADVI_OPTIMIZERS`` for ``ADVI_OPTIMIZER_STEPS`` steps, once per
+    seed."""
+    from pymc3_tpu_torch.examples.suite import (advi_logistic_data,
+                                                 advi_logistic_model)
+    N, d, batch, _ = ADVI_LOGISTIC["d100"]
+    X, y, _ = advi_logistic_data(N, d)
+    model = advi_logistic_model(pm, X, y, batch)
+    out = {"N": N, "d": d, "batch": batch, "steps": ADVI_OPTIMIZER_STEPS,
+           "optimizers": {}}
+    for name, kwargs in ADVI_OPTIMIZERS.items():
+        fits = []
+        for seed in SEEDS:
+            with model:
+                inference = pm.ADVI()
+            t0 = time.time()
+            approx = inference.fit(
+                n=ADVI_OPTIMIZER_STEPS, random_seed=seed, progressbar=False,
+                obj_optimizer=getattr(pm, name)(**kwargs))
+            fits.append(_fit_record(approx, time.time() - t0))
+        out["optimizers"][name] = {"kwargs": kwargs, "fits": fits}
     return out
 
 
@@ -539,6 +574,7 @@ def aevb_vae(pm):
 
 
 FITS = {"advi_logistic": advi_logistic, "advi_sharded": advi_sharded,
+        "advi_optimizers": advi_optimizers,
         "aevb_vae": aevb_vae,
         "advi_gp": advi_gp,
         "map_radon": map_radon, "lbfgs_radon": lbfgs_radon, "smc_gp": smc_gp,
